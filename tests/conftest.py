@@ -37,6 +37,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: fault-injection lifecycle tests driven via "
         "ray_tpu.util.fault_injector (RTPU_FAULT_INJECT hook points)")
+    config.addinivalue_line(
+        "markers", "cuda: tests of the PyTorch port's CUDA kernels; they "
+        "need an NVIDIA GPU and skip elsewhere")
 
 
 @pytest.fixture
