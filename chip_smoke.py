@@ -19,12 +19,30 @@ result line is printed):
      and read just after, and must match the engine's step counts;
   5. the engine against the model's full forward pass on the card: 8B
      widths, 2 layers, fp32, greedy tokens compared where the oracle's
-     top-2 margin exceeds fp32 summation noise.
+     top-2 margin exceeds fp32 summation noise;
+  6. hold the three flash-attention kernels (forward, dq, dk/dv) against
+     their plain versions at the training path's shape (B 8, H 24, L 2048,
+     D 128, bf16; causal, non-causal, and causal with an lse cotangent),
+     catch two planted faults on every query tile, and time kernels, plain
+     versions and the PyTorch library call;
+  7. the training main path: ``make_train_step`` over ``loss_fn`` at the
+     JAX package's bench widths (vocab 32000, dim 3072, 8 layers, 24/12
+     heads, ffn 12288: 1,230,818,304 parameters; flash attention, selective
+     remat), fp32 master weights from seed 0, bf16 compute, AdamW, B 8 x L
+     2048 tokens from seed 1: 2 warm-up and 5 timed steps on one batch, the
+     flash launch counters set to 0 just before and read just after; then
+     the step profiler's phases and the device's busy share of one step;
+  8. training oracle on the card: bench widths, 2 layers, fp32, B 1 x L
+     256: loss and every gradient with the flash kernels against plain
+     full attention.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
+import functools
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -51,6 +69,22 @@ KERNEL_FLOOR = 1e-5
 LIBRARY_ATOL = 5e-2
 # fp32 engine vs fp32 full forward: logits differ by summation order only
 FP32_LOGIT_NOISE = 1e-3
+# flash kernels vs plain, bf16, per row against the row's own scale: one
+# bf16 step for the outputs' rounding (2^-7 of the row's largest value),
+# and one more because the kernels' 64-row tiles and the plain versions'
+# 256-row blocks rescale p by different running maxima before rounding p
+# and ds to bf16 (64- against 256-row blocks of the plain version reach
+# 0.995 of 2^-7 on the CPU); the gradients' L-term sums in another order
+# add fp32 noise far below that
+FLASH_RTOL = 2.0 ** -6
+# lse is fp32 from the same scores: a sum of L <= 2048 terms in another
+# order moves l by at most L * 2^-24 ~ 1.2e-4 relative, lse by as much
+LSE_ATOL = 2.0 ** -12
+# training oracle, fp32 flash kernels vs plain full attention: gradients
+# per leaf within 5e-5 of the leaf's largest value, loss within 1e-5 of
+# itself (about 30x the 1.7e-6 and 1e-7 seen on the CPU at reduced width)
+TRAIN_ORACLE_RTOL = 5e-5
+TRAIN_ORACLE_LOSS_RTOL = 1e-5
 
 
 def log(msg):
@@ -65,6 +99,13 @@ def tolerance_ratios(got, ref):
     the head dim, per (token, head): [T, H]. At most 1 passes."""
     err = (got.float() - ref.float()).abs().amax(-1)
     return err / (KERNEL_RTOL * ref.float().abs().amax(-1) + KERNEL_FLOOR)
+
+
+def flash_ratios(got, ref):
+    """|got - ref| / (FLASH_RTOL * max|ref| + KERNEL_FLOOR) per row of
+    [BH, L, D] tensors: [BH, L]. At most 1 passes."""
+    err = (got.float() - ref.float()).abs().amax(-1)
+    return err / (FLASH_RTOL * ref.float().abs().amax(-1) + KERNEL_FLOOR)
 
 
 def time_ms(fn, iters=10, flush=None):
@@ -260,6 +301,26 @@ def phase_kernel(device):
     return out
 
 
+def flash_bound_ms(kernel, BH, Lq, Lk, D, causal, itemsize):
+    """Least time for one flash kernel call: the (query, key) pairs the
+    mask lets through times 2·D FLOP per product (fwd 2 products: q·kᵀ,
+    p·v; dq 3: q·kᵀ, do·vᵀ, ds·k; dkv 4: q·kᵀ, do·vᵀ, pᵀ·do, dsᵀ·q) at the
+    bf16 tensor-core peak, or each input read and each output written once
+    at the HBM rate. Returns (ms, "bytes" | "operations")."""
+    pairs = (sum(min(i + 1, Lk) for i in range(Lq)) if causal
+             else Lq * Lk) * BH
+    products, rows_in, rows_out = {
+        "flash_attention_fwd": (2, (Lq, Lk, Lk), (Lq,)),        # q k v -> o
+        "flash_attention_dq": (3, (Lq, Lk, Lk, Lq), (Lq,)),     # q k v do -> dq
+        "flash_attention_dkv": (4, (Lq, Lk, Lk, Lq), (Lk, Lk)),  # -> dk dv
+    }[kernel]
+    nbytes = BH * D * itemsize * (sum(rows_in) + sum(rows_out))
+    nbytes += 4 * BH * Lq * (1 if kernel == "flash_attention_fwd" else 2)
+    t_ops = products * 2 * D * pairs / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # -------------------------------------------------- phase 4: main path
 
 
@@ -416,8 +477,9 @@ def phase_oracle(device, cfg=None):
     for rid, prompt in zip(rids, prompts):
         toks = list(prompt)
         for got in done[rid]:
-            logits = forward(params, torch.tensor([toks], device=device),
-                             cfg)[0, -1]
+            with torch.no_grad():
+                logits = forward(params, torch.tensor([toks], device=device),
+                                 cfg)[0, -1]
             top2 = logits.topk(2)
             want = int(top2.indices[0])
             margin = float(top2.values[0] - top2.values[1])
@@ -431,6 +493,258 @@ def phase_oracle(device, cfg=None):
     log(f"engine vs full forward (dim {cfg.dim}, vocab {cfg.vocab_size}, "
         f"{cfg.n_layers} layers, fp32): {compared} of 16 greedy tokens "
         f"compared equal, stats {json.dumps(eng.stats)}")
+
+
+# ------------------------------------------ phase 6: the flash kernels
+
+FLASH_SHAPE = (8, 24, 2048, 128)    # B, H, L, D of the training path
+FLASH_TILE = 64                     # rows of the kernels' bf16 q tiles
+
+
+def causal_off_by_one(q, k, v, scale):
+    """A planted fault: the plain forward where query i sees keys 0..i+1,
+    one more than the causal mask allows. Query i is moved to position
+    i + 1 of a sequence padded by one tile (the key at position L, seen
+    only by the last query, is a copy of key 0)."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    L = q.shape[1]
+    qs = torch.cat([q[:, :1], q, q[:, :FLASH_TILE - 1]], 1)
+    ks = torch.cat([k, k[:, :FLASH_TILE]], 1)
+    vs = torch.cat([v, v[:, :FLASH_TILE]], 1)
+    o, lse = tfa._fwd_reference(qs, ks, vs, True, scale, FLASH_TILE,
+                                FLASH_TILE)
+    return o[:, 1:L + 1], lse[:, 1:L + 1]
+
+
+def tiles_caught(fault, ref):
+    """Worst ratio to the limit within each query tile (over every bh
+    and row of the tile): [L / FLASH_TILE]."""
+    r = flash_ratios(fault, ref)
+    return r.reshape(r.shape[0], -1, FLASH_TILE).amax((0, 2))
+
+
+def phase_flash(device):
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    B, H, L, D = FLASH_SHAPE
+    BH, scale = B * H, D ** -0.5
+    g = torch.Generator(device=device).manual_seed(2)
+    q, k, v, do = (torch.randn(BH, L, D, generator=g, device=device)
+                   .bfloat16() for _ in range(4))
+    dlse = torch.randn(BH, L, generator=g, device=device)
+    names = ("flash_attention_fwd", "flash_attention_dq",
+             "flash_attention_dkv")
+    err = dict.fromkeys(names, 0.0)
+    worst = dict.fromkeys(names, 0.0)
+    for case, causal, cot in (("causal", True, None),
+                              ("non-causal", False, None),
+                              ("causal, lse cotangent", True, dlse)):
+        o, lse = tfa._fwd_call(q, k, v, causal, scale)
+        o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        if cot is not None:
+            delta = delta - cot
+        grads = tfa._bwd_call(q, k, v, o_ref, lse_ref, do, causal, scale,
+                              dlse=cot)
+        grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
+                                       scale)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_ref).abs().max().item()
+        assert lse_err <= LSE_ATOL, f"{case}: lse off by {lse_err}"
+        checks = [("flash_attention_fwd", "o", o, o_ref)] + [
+            (kern, name, got, want) for kern, name, got, want in zip(
+                names[1:] + names[2:], ("dq", "dk", "dv"), grads, grads_ref)]
+        line = []
+        for kern, name, got, want in checks:
+            assert torch.isfinite(got).all(), f"{case}: {name} not finite"
+            ratio = flash_ratios(got, want).max().item()
+            assert ratio <= 1, f"{case}: {name} at {ratio} x the limit"
+            err[kern] = max(err[kern], (got.float() - want.float()).abs()
+                            .max().item())
+            worst[kern] = max(worst[kern], ratio)
+            line.append(f"{name} {ratio:.3f}")
+        log(f"flash kernels vs plain, {case}: worst ratio to the limit "
+            f"{', '.join(line)}; lse max diff {lse_err:.2e}")
+    # planted faults, each must fail on every query tile
+    o_ref, lse_ref = tfa._fwd_reference(q, k, v, True, scale)
+    caught = tiles_caught(causal_off_by_one(q, k, v, scale)[0], o_ref)
+    assert bool((caught > 1).all()), f"off-by-one not caught: {caught}"
+    log(f"planted fault (causal off by one): all {caught.numel()} query "
+        f"tiles fail, the weakest at {caught.min().item():.1f} x the limit")
+    delta = (do.float() * o_ref.float()).sum(-1)
+    right = tfa._bwd_reference(q, k, v, lse_ref, do, delta - dlse, True,
+                               scale)[0]
+    wrong = tfa._bwd_reference(q, k, v, lse_ref, do, delta, True, scale)[0]
+    caught = tiles_caught(wrong, right)
+    assert bool((caught > 1).all()), f"missing -dlse not caught: {caught}"
+    log(f"planted fault (backward without - dlse): all {caught.numel()} "
+        f"query tiles of dq fail, the weakest at "
+        f"{caught.min().item():.1f} x the limit")
+
+    # times at the training path's shape, causal
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    code = tfa._DTYPE_CODES[q.dtype]
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = (do.float() * o_ref.float()).sum(-1)
+    kern_ms = {
+        "flash_attention_fwd": time_ms(
+            lambda: tfa._fwd_cuda(q, k, v, True, scale), flush=flush),
+        "flash_attention_dq": time_ms(lambda: tfa._launch(
+            "flash_attention_bwd", "flash_attention_dq", device, code, q, k,
+            v, do, lse_ref, delta, dq, BH, L, L, D, 1, scale), flush=flush),
+        "flash_attention_dkv": time_ms(lambda: tfa._launch(
+            "flash_attention_bwd", "flash_attention_dkv", device, code, q,
+            k, v, do, lse_ref, delta, dk, dv, BH, L, L, D, 1, scale),
+            flush=flush)}
+    fwd_plain = time_ms(lambda: tfa._fwd_reference(q, k, v, True, scale),
+                        iters=3, flush=flush)
+    bwd_plain = time_ms(lambda: tfa._bwd_reference(
+        q, k, v, lse_ref, do, delta, True, scale), iters=3, flush=flush)
+    q4, k4, v4 = (t.view(B, H, L, D).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_err = (lib_out.reshape(BH, L, D).float() - o_ref.float()).abs() \
+        .max().item()
+    assert lib_err <= LIBRARY_ATOL, f"SDPA yardstick differs {lib_err}"
+    do4 = do.view(B, H, L, D)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), flush=flush)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), do4, retain_graph=True), flush=flush)
+    plain = {"flash_attention_fwd": fwd_plain, "flash_attention_dq": bwd_plain,
+             "flash_attention_dkv": bwd_plain}
+    library = {"flash_attention_fwd": lib_fwd, "flash_attention_dq": lib_bwd,
+               "flash_attention_dkv": lib_bwd}
+    out = {}
+    for kern in names:
+        bound, by = flash_bound_ms(kern, BH, L, L, D, True, q.element_size())
+        out[kern] = dict(max_abs_err=err[kern], ms=kern_ms[kern],
+                         plain_ms=plain[kern], library_ms=library[kern],
+                         bound_ms=bound, bound_by=by)
+        log(f"{kern} B {B} H {H} L {L} D {D} bf16 causal: kernel "
+            f"{kern_ms[kern]:.4f} ms, plain {plain[kern]:.4f} ms, sdpa "
+            f"{library[kern]:.4f} ms, bound {bound:.4f} ms ({by}); max_abs_err "
+            f"{err[kern]:.3e}, worst {worst[kern]:.3f} x the tolerance")
+    log("flash plain and sdpa times: the backward's (dq and dk/dv "
+        "together) stand for both dq and dkv")
+    del flush
+    return out
+
+
+# ------------------------------------------- phase 7: training main path
+
+TRAIN_CONFIG = dict(vocab_size=32000, dim=3072, n_layers=8, n_heads=24,
+                    n_kv_heads=12, ffn_dim=12288, attention="flash",
+                    remat_policy="selective")
+TRAIN_BATCH = (8, 2048)             # B, L
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+
+
+def phase_train(device, config=None, batch=TRAIN_BATCH):
+    """make_train_step at the bench widths; returns the flash launches
+    counted over the warm-up and timed steps, and the steps run."""
+    from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
+                                            init_params, loss_fn,
+                                            num_params)
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.train import make_train_step, profile_train_step
+
+    cfg = LlamaConfig(**(config or TRAIN_CONFIG))
+    B, L = batch
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), generator=g,
+                           device=device)
+    loss = functools.partial(loss_fn, cfg=cfg)
+    optimizer = functools.partial(torch.optim.AdamW, lr=1e-3,
+                                  weight_decay=1e-4)
+    init_fn, step_fn = make_train_step(loss, optimizer)
+    opt = init_fn(params)
+    cuda = device.type == "cuda"
+    log(f"training: {num_params(cfg)} parameters, {cfg.n_layers} layers "
+        f"dim {cfg.dim}, attention {cfg.attention}, remat "
+        f"{cfg.remat_policy}, B {B} L {L}, set-up "
+        f"{time.monotonic() - t0:.1f} s")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    metrics, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t_step = time.monotonic()
+        params, opt, m = step_fn(params, opt, tokens)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))  # syncs
+        times.append(time.monotonic() - t_step)
+    launches = dict(tfa.launch_counts)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    losses = [x for x, _ in metrics]
+    assert all(math.isfinite(x) and math.isfinite(n)
+               for x, n in metrics), metrics
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    step_s = sum(times[TRAIN_WARMUP:]) / TRAIN_STEPS
+    tok_s = B * L / step_s
+    mfu = tok_s * flops_per_token(cfg, L) / BF16_FLOPS
+    log(f"training: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(n, 4) for _, n in metrics]}")
+    log(f"training: step {step_s * 1e3:.1f} ms (mean of {TRAIN_STEPS} "
+        f"after {TRAIN_WARMUP} warm-up), {tok_s:.0f} tokens/s, MFU "
+        f"{mfu:.1%} of 989 TFLOP/s (H100 SXM dense bf16 peak), peak memory "
+        f"{peak} bytes (torch.cuda.max_memory_allocated)")
+    log(f"training: launches {launches} over {steps} steps")
+    bd = profile_train_step(loss, optimizer, params, opt, tokens, steps=3,
+                            warmup=1)
+    log(f"training: profile_train_step step {bd.step_time_s * 1e3:.1f} ms, "
+        f"first-step excess {bd.compile_time_s * 1e3:.1f} ms, phases ms "
+        f"{json.dumps({k: round(x, 2) for k, x in bd.phase_ms().items()})}")
+    _, busy = profile_device(lambda: step_fn(params, opt, tokens), device,
+                             step_s * 1e3)
+    log(f"training: one step under the profiler: {busy}")
+    return launches, steps, cfg.n_layers
+
+
+# --------------------------------------------- phase 8: training oracle
+
+
+def phase_train_oracle(device, config=None, batch=(1, 256)):
+    """Loss and every gradient, fp32, flash kernels vs full attention."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.train import param_leaves
+
+    cfg = LlamaConfig(**{**(config or TRAIN_CONFIG), "n_layers": 2,
+                         "dtype": torch.float32})
+    params = init_params(cfg, seed=3, device=device)
+    g = torch.Generator(device=device).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, batch, generator=g,
+                           device=device)
+    results = {}
+    before = dict(tfa.launch_counts)
+    for attention in ("flash", "full"):
+        p = {k: v.clone().requires_grad_() if isinstance(v, torch.Tensor)
+             else {n: t.clone().requires_grad_() for n, t in v.items()}
+             for k, v in params.items()}
+        loss = loss_fn(p, tokens, dataclasses.replace(cfg,
+                                                      attention=attention))
+        loss.backward()
+        results[attention] = (loss.item(), param_leaves(p))
+    for name in ("flash_attention_fwd_reference_cuda",
+                 "flash_attention_bwd_reference_cuda"):
+        assert tfa.launch_counts[name] == before[name], name
+    (lf, pf), (lr, pr) = results["flash"], results["full"]
+    assert abs(lf - lr) <= TRAIN_ORACLE_LOSS_RTOL * abs(lr), (lf, lr)
+    worst = 0.0
+    for a, b in zip(pf, pr):
+        rel = ((a.grad - b.grad).abs().max() / b.grad.abs().max()).item()
+        assert rel <= TRAIN_ORACLE_RTOL, f"grad of {tuple(a.shape)}: {rel}"
+        worst = max(worst, rel)
+    log(f"training oracle (dim {cfg.dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.n_layers} layers, fp32, B {batch[0]} L {batch[1]}): loss "
+        f"flash {lf:.6f} vs full {lr:.6f}; {len(pf)} gradients, worst "
+        f"{worst:.2e} of the leaf's largest value")
 
 
 # ------------------------------------------------------------------ main
@@ -469,6 +783,17 @@ def main():
         "the plain attention ran on CUDA tensors in the main path"
     phase_oracle(device)
 
+    flash = phase_flash(device)
+    flash_launches, steps, n_layers = phase_train(device)
+    expected_flash = {"flash_attention_fwd": 2 * n_layers * steps,
+                      "flash_attention_dq": n_layers * steps,
+                      "flash_attention_dkv": n_layers * steps,
+                      "flash_attention_fwd_reference_cuda": 0,
+                      "flash_attention_bwd_reference_cuda": 0}
+    assert flash_launches == expected_flash, (flash_launches,
+                                              expected_flash)
+    phase_train_oracle(device)
+
     bf16 = kern["bf16"]
     record = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -479,7 +804,15 @@ def main():
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-        "library_ms": bf16["library_ms"]}]}
+        "library_ms": bf16["library_ms"]}] + [{
+        "name": name, "route": "cuda",
+        "source": f"ray_tpu_torch/ops/csrc/{src}",
+        "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+        "launches": flash_launches[name], **flash[name]}
+        for name, src, line in (
+            ("flash_attention_fwd", "flash_attention_fwd.cu", 91),
+            ("flash_attention_dq", "flash_attention_bwd.cu", 139),
+            ("flash_attention_dkv", "flash_attention_bwd.cu", 175))]}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""ray_tpu_torch — the PyTorch + CUDA port of ray_tpu's serving path.
+"""ray_tpu_torch — the PyTorch + CUDA port of ray_tpu's serving and
+single-card training paths.
 
-The Llama model, the ragged paged-KV attention (a hand-written CUDA C++
-kernel for Hopper, ``ops/csrc/ragged_paged_attention.cu``, with a plain
-PyTorch version beside it), the continuous-batching ``InferenceEngine``
-and the ``LLMServer`` front end. Module names match the JAX package
+The Llama model and its loss; the ragged paged-KV attention and flash
+attention forward and backward (hand-written CUDA C++ kernels for Hopper
+under ``ops/csrc/``, each with a plain PyTorch version beside it); the
+continuous-batching ``InferenceEngine`` and the ``LLMServer`` front end;
+the train step and the step profiler. Module names match the JAX package
 (``ray_tpu``) so each counterpart is easy to find; this package imports
 neither ``jax`` nor anything of ``ray_tpu``.
 
@@ -17,6 +19,10 @@ _LAZY = {
     "LlamaConfig": ("ray_tpu_torch.models.llama", "LlamaConfig"),
     "init_params": ("ray_tpu_torch.models.llama", "init_params"),
     "forward": ("ray_tpu_torch.models.llama", "forward"),
+    "loss_fn": ("ray_tpu_torch.models.llama", "loss_fn"),
+    "make_train_step": ("ray_tpu_torch.train.train_step", "make_train_step"),
+    "profile_train_step": ("ray_tpu_torch.train.step_profiler",
+                           "profile_train_step"),
     "PageAllocator": ("ray_tpu_torch.llm.cache", "PageAllocator"),
     "PrefixCache": ("ray_tpu_torch.llm.cache", "PrefixCache"),
     "make_kv_cache": ("ray_tpu_torch.llm.cache", "make_kv_cache"),

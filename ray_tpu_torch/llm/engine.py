@@ -74,9 +74,11 @@ class _SingleChipFns:
 
 def _cast_params(tree, dtype, device):
     """Every use of a weight casts it to cfg.dtype first, so storing it
-    in cfg.dtype gives the same numbers (8B in bf16: ~16 GB, not 32)."""
+    in cfg.dtype gives the same numbers (8B in bf16: ~16 GB, not 32).
+    Detached: serving never differentiates the weights."""
     return {k: _cast_params(v, dtype, device) if isinstance(v, dict)
-            else v.to(device=device, dtype=dtype) for k, v in tree.items()}
+            else v.detach().to(device=device, dtype=dtype)
+            for k, v in tree.items()}
 
 
 class InferenceEngine:

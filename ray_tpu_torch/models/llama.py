@@ -2,20 +2,27 @@
 ``ray_tpu/models/llama.py``.
 
 The same parameter tree (a dict of tensors, layers stacked on axis 0, the
-same names and shapes), the same ``forward(params, tokens, cfg)`` with
-``attention="full"``, and the same numerics: fp32 rmsnorm statistics,
-fp32 half-split rope, causal softmax in fp32, tied-embedding head that
-accumulates and returns fp32 logits. Not in this port yet: remat,
-pipeline/ring/ulysses/flash attention, the int8 MLP.
+same names and shapes), the same ``forward(params, tokens, cfg)`` and
+``loss_fn``, and the same numerics: fp32 rmsnorm statistics, fp32
+half-split rope, causal softmax in fp32, tied-embedding head that
+accumulates and returns fp32 logits. Attention is "full" (plain torch) or
+"flash" (``ops.flash_attention``: the CUDA kernels on the card). Remat is
+``torch.utils.checkpoint`` per layer, its policies saving what the JAX
+policies save. Not in this port yet: the pipeline, ring and Ulysses paths
+and the fsdp-overlap loss (they need a device mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 Params = Dict[str, object]
 
@@ -41,8 +48,12 @@ class LlamaConfig:
     ffn_dim: int = 14336
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    attention: str = "full"                    # full | flash
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
+    remat: bool = True
+    remat_policy: str = "full"     # full | dots | dots_no_batch | selective
+    int8_mlp: bool = False         # dynamic-W8A8 MLP matmuls (ops.int8)
 
     @property
     def head_dim(self) -> int:
@@ -144,29 +155,92 @@ def _full_attention(q, k, v):
     return o.to(q.dtype)
 
 
+class _TiedHead(torch.autograd.Function):
+    """x [N, d] · wᵀ -> fp32 [N, V] for low-precision x and w on the card:
+    ``torch.mm(..., out_dtype=float32)`` reads w once in its own dtype but
+    has no derivative, so the backward is written out: the two transposed
+    products in x's dtype with fp32 accumulation (the logits' gradient
+    rounded to that dtype first), dx = g · w and dw = gᵀ · x."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = g.t() @ x if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def head_logits(x, embed):
     """Tied-embedding head: x [..., d] · embedᵀ -> fp32 logits [..., V].
 
     Operands in x's dtype, fp32 accumulation AND fp32 output: a
     bf16-output product would round the logits before the argmax and
     flip greedy near-ties. On the card a bf16 embedding is read once as
-    bf16 (``out_dtype``); on the CPU bf16 operands widen exactly to fp32.
+    bf16 (``out_dtype``, differentiable through ``_TiedHead``); on the CPU
+    bf16 operands widen exactly to fp32.
     """
     w = embed.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ w.t()
     if x.is_cuda:
-        x2 = x.reshape(-1, x.shape[-1])
-        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        out = _TiedHead.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[0])
     return x.float() @ w.float().t()
 
 
-def _layer(lp: Params, x, cfg: LlamaConfig, positions):
+# aten ops whose outputs each policy saves. JAX's "selective" saves the 7
+# projection products per layer (tagged by name); here the layer's only
+# 2-D products are those 7 (aten.mm; aten._int_mm with the int8 MLP), so
+# "selective" and "dots_no_batch" save the same tensors; "dots" also saves
+# the batched attention products (aten.bmm: the [B, H, L, L] scores of
+# full attention), as JAX's checkpoint_dots does.
+_PROJECTIONS = (torch.ops.aten.mm.default, torch.ops.aten._int_mm.default)
+_SAVED_OPS = {
+    "selective": _PROJECTIONS,
+    "dots_no_batch": _PROJECTIONS,
+    "dots": _PROJECTIONS + (torch.ops.aten.bmm.default,),
+}
+
+
+def _save_ops_policy(ops, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in ops
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy_fn(name: str):
+    """Config string -> the ``context_fn`` of ``torch.utils.checkpoint``:
+    for "full" the default (save only the layer's input, recompute the
+    rest); for the others a selective-checkpoint context saving the ops'
+    outputs listed in ``_SAVED_OPS``. Raises on an unknown name."""
+    if name == "full":
+        return noop_context_fn
+    if name not in _SAVED_OPS:
+        raise ValueError(f"unknown remat_policy {name!r}")
+    return functools.partial(
+        create_selective_checkpoint_contexts,
+        functools.partial(_save_ops_policy, _SAVED_OPS[name]))
+
+
+def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn):
     """One transformer block; lp leaves have the layer axis removed."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, L, _ = x.shape
     cd = cfg.dtype
+
+    if cfg.int8_mlp:
+        from ray_tpu_torch.ops.int8 import int8_matmul
+
+        def mlp_mm(a, w):
+            return int8_matmul(a, w.to(cd))
+    else:
+        def mlp_mm(a, w):
+            return a @ w.to(cd)
 
     h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     q = h @ lp["wq"].to(cd)
@@ -179,13 +253,42 @@ def _layer(lp: Params, x, cfg: LlamaConfig, positions):
         rep = hq // hkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    o = _full_attention(q, k, v).reshape(B, L, hq * hd)
+    o = attn_fn(q, k, v).reshape(B, L, hq * hd)
     x = x + o @ lp["wo"].to(cd)
 
     h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(h @ lp["w_gate"].to(cd))
-    up = h @ lp["w_up"].to(cd)
-    return x + (gate * up) @ lp["w_down"].to(cd)
+    gate = F.silu(mlp_mm(h, lp["w_gate"]))
+    up = mlp_mm(h, lp["w_up"])
+    return x + mlp_mm(gate * up, lp["w_down"])
+
+
+def _make_attn_fn(cfg: LlamaConfig):
+    if cfg.attention == "full":
+        return _full_attention
+    if cfg.attention == "flash":
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+        return flash_attention
+    if cfg.attention in ("ring", "ulysses"):
+        raise ValueError(f"attention={cfg.attention!r} needs a device mesh, "
+                         f"which this port does not have yet")
+    raise ValueError(f"unknown attention {cfg.attention!r}")
+
+
+def _scan_layers(layers: Params, x, cfg: LlamaConfig, positions, attn_fn):
+    """Apply the stacked layers in order. With ``cfg.remat`` and grad
+    enabled each layer runs under ``torch.utils.checkpoint`` with the
+    policy's context. The stacked leaves are unbound once, so the
+    backward stacks each leaf's layer gradients in one op."""
+    body = functools.partial(_layer, cfg=cfg, positions=positions,
+                             attn_fn=attn_fn)
+    context_fn = remat_policy_fn(cfg.remat_policy) if cfg.remat else None
+    remat = cfg.remat and torch.is_grad_enabled()
+    per_layer = {name: leaf.unbind(0) for name, leaf in layers.items()}
+    for i in range(cfg.n_layers):
+        lp = {name: leaves[i] for name, leaves in per_layer.items()}
+        x = checkpoint(body, lp, x, use_reentrant=False,
+                       context_fn=context_fn) if remat else body(lp, x)
+    return x
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -193,17 +296,31 @@ def layer_params(params: Params, i: int) -> Params:
     return {name: leaf[i] for name, leaf in params["layers"].items()}
 
 
-@torch.inference_mode()
 def forward(params: Params, tokens: torch.Tensor,
             cfg: LlamaConfig) -> torch.Tensor:
-    """tokens [B, L] int -> logits [B, L, vocab] (fp32)."""
+    """tokens [B, L] int -> logits [B, L, vocab] (fp32). Differentiable;
+    inference callers disable grad themselves."""
     B, L = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
     positions = torch.arange(L, device=tokens.device)
-    for i in range(cfg.n_layers):
-        x = _layer(layer_params(params, i), x, cfg, positions)
+    x = _scan_layers(params["layers"], x, cfg, positions, _make_attn_fn(cfg))
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return head_logits(x, params["embed"])
+
+
+def _nll_mean(logits, tokens):
+    """Shifted next-token NLL mean; logits [B, L, V] fp32, tokens [B, L]."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy (mean over B×(L-1) positions), fp32. The
+    full sequence goes through forward; the shift happens on the
+    logits."""
+    return _nll_mean(forward(params, tokens, cfg), tokens)
 
 
 def num_params(cfg: LlamaConfig) -> int:
@@ -212,3 +329,12 @@ def num_params(cfg: LlamaConfig) -> int:
     per_layer = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
                  + cfg.n_heads * hd * d + 3 * d * f + 2 * d)
     return cfg.vocab_size * d + L * per_layer + d
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Approx training FLOPs/token: 6·N_params + the attention score term
+    (the full, non-causal 12·L·d·s convention of PaLM appendix B; causal
+    kernels do about half that score work). The tied embedding counts:
+    it is also the head."""
+    attn = 12 * cfg.n_layers * cfg.dim * seq_len
+    return 6.0 * num_params(cfg) + attn

@@ -28,15 +28,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: kernel library -> (source file, argtypes of its C entry point, which
-#: has the library's name and returns a cudaError_t code)
+#: kernel library -> (source file, {C entry point: its argtypes}); each
+#: entry point returns a cudaError_t code
 KERNELS = {
-    "ragged_paged_attention": (
-        "ragged_paged_attention.cu",
+    "ragged_paged_attention": ("ragged_paged_attention.cu", {
         # q_dtype, kv_dtype, q, k_pages, v_pages, k_scale, v_scale,
         # page_table, q_start, q_len, kv_len, out, T, R, Hq, Hkv, ps, D,
         # max_pages, sm_scale, stream
-        [_I, _I] + [_P] * 10 + [_I] * 7 + [_F, _P]),
+        "ragged_paged_attention": [_I, _I] + [_P] * 10 + [_I] * 7
+        + [_F, _P]}),
+    "flash_attention_fwd": ("flash_attention_fwd.cu", {
+        # dtype, q, k, v, o, lse, BH, Lq, Lk, D, causal, sm_scale, stream
+        "flash_attention_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P]}),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", {
+        # dtype, q, k, v, do, lse, delta, dq, BH, Lq, Lk, D, causal,
+        # sm_scale, stream
+        "flash_attention_dq": [_I] + [_P] * 7 + [_I] * 5 + [_F, _P],
+        # dtype, q, k, v, do, lse, delta, dk, dv, BH, Lq, Lk, D, causal,
+        # sm_scale, stream
+        "flash_attention_dkv": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P]}),
 }
 
 _lock = threading.Lock()
@@ -53,7 +63,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's file, named by a hash of its source, the shared
+    headers under ``csrc/`` and the flags."""
     src = (CSRC / KERNELS[name][0]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
         src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -91,15 +104,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built if needed, with the argtypes of
-    its entry point declared (pointers as c_void_p, so none is cut)."""
+    its entry points declared (pointers as c_void_p, so none is cut)."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = KERNELS[name][1]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in KERNELS[name][1].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib

@@ -1,11 +1,14 @@
-"""int8 KV-page quantization — the PyTorch port of the KV half of
-``ray_tpu/ops/int8.py`` (``int8_matmul`` comes with the training slice).
+"""int8 quantization — the PyTorch port of ``ray_tpu/ops/int8.py``.
 
-Symmetric per-(token, head) quantization: scale = max|x| / 127 over the
-head_dim axis, in fp32; values round half to even (``torch.round``, as
-``jnp.round``) against the fp32 scale, and only then is the scale stored
-as bf16. Keeping that order makes the int8 values identical to the JAX
-package's on the same inputs.
+Symmetric quantization: scale = max|x| / 127 over one axis, in fp32;
+values round half to even (``torch.round``, as ``jnp.round``) against the
+fp32 scale. KV pages keep per-(token, head) scales, stored as bf16 only
+after the values are rounded: that order makes the int8 values identical
+to the JAX package's on the same inputs.
+
+``int8_matmul`` is the MLP's dynamic W8A8 product (per-row activation
+scales, per-column weight scales, int32 accumulation, fp32 rescale) with
+a straight-through backward: exact fp products for both gradients.
 """
 
 from __future__ import annotations
@@ -37,3 +40,36 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.float32) -> torch.Tensor:
     """Inverse of quantize_kv: q int8 [..., D], scale [...] -> [..., D]."""
     return q.to(dtype) * scale.to(dtype)[..., None]
+
+
+def _int8_matmul_impl(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    xq, xs = _quantize(x, dim=-1)                # xs: [..., 1]
+    wq, ws = _quantize(w, dim=0)                 # ws: [1, N]
+    K, N = w.shape
+    out = torch._int_mm(xq.reshape(-1, K), wq)   # int32 accumulation
+    out = out.reshape(*x.shape[:-1], N).float() * xs * ws.reshape(N)
+    return out.to(x.dtype)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _int8_matmul_impl(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.float()
+        dx = gf @ w.float().t()                   # g . w^T
+        dw = x.float().reshape(-1, x.shape[-1]).t() @ gf.reshape(
+            -1, g.shape[-1])                      # x^T . g over every row
+        return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with both operands dynamically quantized to
+    int8 (per-row scales for x, per-column for w, over K), int32
+    accumulation, fp32 rescale; returns x's dtype. Differentiable through
+    a straight-through backward (exact fp32 transpose products)."""
+    return _Int8Matmul.apply(x, w)

@@ -1,0 +1,177 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+The JAX kernels run in Pallas interpret mode (as ``tests/test_ops.py`` runs
+them); the port's CPU tensors run its plain versions, which compute what
+the kernels' bodies compute. Inputs come from a numpy seed.
+
+Tolerances. fp32: the two sides differ only in the order of fp32 sums,
+so they agree to 2e-5 (values and gradients of order 1). bf16: both sides
+round fp32 values that differ by summation order, so an output differs by
+at most one bf16 step of its row's largest value (2^-7 of it); rounding p
+and ds to bf16 before the products can flip one more step in a row's
+terms, so the gradients are held to 2^-6 of their row's largest value.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.ops import flash_attention as tfa
+
+# the module (ray_tpu.ops re-exports a function of the same name)
+jfa = importlib.import_module("ray_tpu.ops.flash_attention")
+
+torch.set_num_threads(1)
+
+F32_TOL = 2e-5
+BF16_RTOL = {"out": 2.0 ** -7, "grad": 2.0 ** -6}
+
+
+def _arrays(shape, seed, n=1):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else
+                       jnp.float32)
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def assert_close(got, want, dtype, kind="out"):
+    """fp32: within F32_TOL. bf16: per row (last axis) within
+    BF16_RTOL[kind] of that row's largest |want|, plus 1e-5."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+        return
+    err = np.abs(got - want).max(-1)
+    limit = BF16_RTOL[kind] * np.abs(want).max(-1) + 1e-5
+    assert (err <= limit).all(), float((err / limit).max())
+
+
+CASES = [  # (causal, Lq, Lk)
+    (True, 128, 128), (False, 128, 128), (True, 64, 128), (True, 128, 64),
+    (False, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,Lq,Lk", CASES)
+def test_plain_fwd_and_bwd_match_pallas_interpret(dtype, causal, Lq, Lk):
+    BH, D, blk = 3, 32, 32
+    q, do = _arrays((BH, Lq, D), 1, 2)
+    k, v = _arrays((BH, Lk, D), 2, 2)
+    dlse = _arrays((BH, Lq), 3)[0]
+    scale = D ** -0.5
+    jo, jlse = jfa._fwd_call(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                             causal, scale, blk, blk, True)
+    to, tlse = tfa._fwd_call(_torch(q, dtype), _torch(k, dtype),
+                             _torch(v, dtype), causal, scale, blk, blk)
+    assert to.dtype == getattr(torch, dtype) and tlse.dtype == torch.float32
+    assert_close(to, jo, dtype)
+    np.testing.assert_allclose(_np(tlse), _np(jlse)[:, 0], rtol=1e-5,
+                               atol=1e-5)
+    # the backward from the same forward results, with an lse cotangent
+    jgrads = jfa._bwd_call(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                           jo, jlse, _jax(do, dtype), causal, scale, blk,
+                           blk, True, dlse=jnp.asarray(dlse))
+    o_t = torch.from_numpy(_np(jo).copy()).to(getattr(torch, dtype))
+    lse_t = torch.from_numpy(_np(jlse)[:, 0].copy())
+    tgrads = tfa._bwd_call(_torch(q, dtype), _torch(k, dtype),
+                           _torch(v, dtype), o_t, lse_t, _torch(do, dtype),
+                           causal, scale, blk, blk,
+                           dlse=torch.from_numpy(dlse))
+    for name, got, want in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert got.dtype == getattr(torch, dtype), name
+        assert_close(got, want, dtype, "grad")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,Lq,Lk", [(True, 64, 64), (False, 64, 32),
+                                          (True, 32, 64)])
+def test_flash_attention_block_and_grads_match_jax(dtype, causal, Lq, Lk):
+    B, H, D, blk = 2, 2, 32, 16
+    q, go = _arrays((B, Lq, H, D), 4, 2)
+    k, v = _arrays((B, Lk, H, D), 5, 2)
+    glse = _arrays((B, H, Lq), 6)[0]
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_block(q, k, v, causal, None, blk, blk,
+                                           True)
+        return (jnp.sum(o.astype(jnp.float32) * go)
+                + jnp.sum(lse * glse)), (o, lse)
+
+    (_, (jo, jlse)), jgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+        _jax(q, dtype), _jax(k, dtype), _jax(v, dtype))
+    tq, tk, tv = (_torch(a, dtype).requires_grad_() for a in (q, k, v))
+    to, tlse = tfa.flash_attention_block(tq, tk, tv, causal, None, blk, blk)
+    (to.float() * torch.from_numpy(go)).sum().add(
+        (tlse * torch.from_numpy(glse)).sum()).backward()
+    assert to.shape == (B, Lq, H, D) and tlse.shape == (B, H, Lq)
+    assert_close(to, jo, dtype)
+    np.testing.assert_allclose(_np(tlse), _np(jlse), rtol=1e-5, atol=1e-5)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        assert_close(got, want, dtype, "grad")
+
+
+def test_flash_attention_facade_has_no_lse_cotangent():
+    q, k, v, go = _arrays((1, 64, 2, 32), 7, 4)
+    jg = jax.grad(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, True, None, 32, 32, True) * go), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, True, None, 32, 32)
+    (out * torch.from_numpy(go)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_blockwise_attention_matches_jax(dtype, causal):
+    q, k, v = _arrays((2, 64, 3, 16), 8, 3)
+    want = jfa.blockwise_attention(_jax(q, dtype), _jax(k, dtype),
+                                   _jax(v, dtype), causal=causal, block_k=16)
+    got = tfa.blockwise_attention(_torch(q, dtype), _torch(k, dtype),
+                                  _torch(v, dtype), causal=causal,
+                                  block_k=16)
+    assert got.dtype == getattr(torch, dtype)
+    assert_close(got, want, dtype)
+    with pytest.raises(ValueError, match="block_k"):
+        tfa.blockwise_attention(_torch(q, dtype), _torch(k, dtype)[:, :48],
+                                _torch(v, dtype)[:, :48], block_k=32)
+
+
+def test_pick_block_matches_jax():
+    for L in (1, 6, 8, 20, 24, 96, 100, 128, 256, 384, 1000, 2048):
+        for preferred in (256, 128, 64, 16):
+            for min_block in (8, 1):
+                assert tfa.pick_block(L, preferred, min_block) == \
+                    jfa.pick_block(L, preferred, min_block), \
+                    (L, preferred, min_block)
+
+
+def test_cpu_tensors_launch_nothing_and_blocks_must_divide():
+    before = dict(tfa.launch_counts)
+    q, k, v = (torch.from_numpy(a) for a in _arrays((2, 64, 32), 9, 3))
+    o, lse = tfa._fwd_call(q, k, v, True, 0.2, 32, 32)
+    tfa._bwd_call(q, k, v, o, lse, o, True, 0.2, 32, 32)
+    assert tfa.launch_counts == before     # CPU work launches nothing
+    with pytest.raises(ValueError, match="must divide"):
+        tfa._fwd_call(q, k, v, True, 0.2, 48, 32)

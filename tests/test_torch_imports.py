@@ -19,6 +19,9 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     mods = _modules()
     assert "ray_tpu_torch.ops.paged_attention" in mods
     assert "ray_tpu_torch.llm.serve_llm" in mods
+    assert "ray_tpu_torch.ops.flash_attention" in mods
+    assert "ray_tpu_torch.train.train_step" in mods
+    assert "ray_tpu_torch.train.step_profiler" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -10,8 +10,10 @@ on a machine without JAX:
 import pytest
 import torch
 
+from ray_tpu_torch.models.llama import head_logits
+from ray_tpu_torch.ops import flash_attention as tfa
 from ray_tpu_torch.ops import paged_attention as tpa
-from ray_tpu_torch.ops.int8 import quantize_kv
+from ray_tpu_torch.ops.int8 import int8_matmul, quantize_kv
 
 F32, BF16, I8 = torch.float32, torch.bfloat16, torch.int8
 # Held per (token, head) against that row's own scale, since a token that
@@ -20,14 +22,20 @@ F32, BF16, I8 = torch.float32, torch.bfloat16, torch.int8
 # values that differ by summation order, so they differ by at most one
 # bf16 step of the row's largest value (2^-7 of it).
 TOL = {F32: (1e-5, 1e-6), BF16: (2.0 ** -7, 1e-5)}
+# Flash kernels vs their plain versions, bf16: the kernels' 64-row tiles and
+# the plain versions' 256-row blocks rescale p by different running maxima
+# before rounding it (and ds) to bf16, which can move a row's terms by one
+# more bf16 step: 2^-6 of the row's largest value (on the CPU, 64- against
+# 256-row blocks of the plain version reach 0.995 of 2^-7).
+FLASH_TOL = {F32: (1e-5, 1e-6), BF16: (2.0 ** -6, 1e-5)}
 # (q dtype, pool dtype) pairs the engine runs: pools in q's dtype, or int8
 PAIRS = [(F32, F32), (BF16, BF16), (F32, I8), (BF16, I8)]
 
 
-def tolerance_ratio(got, want):
-    """Worst |got - want| / (rtol * max|want| + floor) over (token, head);
-    at most 1 passes."""
-    rtol, floor = TOL[want.dtype]
+def tolerance_ratio(got, want, tol=TOL):
+    """Worst |got - want| / (rtol * max|want| + floor) over the rows of
+    the last axis; at most 1 passes."""
+    rtol, floor = tol[want.dtype]
     err = (got.float() - want.float()).abs().amax(-1)
     return (err / (rtol * want.float().abs().amax(-1) + floor)).max().item()
 
@@ -98,3 +106,119 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
                                    impl="reference")
     with pytest.raises(ValueError):
         tpa.ragged_paged_attention(q, kp.cpu(), vp, pt, qs, ql, kl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,Lq,Lk", [(2, 128, 128), (8, 256, 256),
+                                      (4, 512, 512), (4, 128, 256),
+                                      (3, 256, 128)])
+def test_flash_kernels_match_plain_versions(cuda, dtype, causal, BH, Lq,
+                                            Lk):
+    g = torch.Generator(device=cuda).manual_seed(BH * Lq + Lk)
+    q, do = (torch.randn(BH, Lq, 128, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(BH, Lk, 128, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    scale = 128 ** -0.5
+    before = dict(tfa.launch_counts)
+    o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
+    o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
+    dlse = torch.randn(BH, Lq, generator=g, device=cuda)
+    delta = (do.float() * o_ref.float()).sum(-1) - dlse
+    grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
+    grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
+                                   scale)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert tfa.launch_counts[name] == before[name] + 1, name
+    assert o.dtype == dtype and lse.dtype == F32
+    assert tolerance_ratio(o, o_ref, FLASH_TOL) <= 1
+    # fp32 sums of up to L terms in another order
+    assert (lse - lse_ref).abs().max().item() <= 2.0 ** -12
+    for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        assert tolerance_ratio(got, want, FLASH_TOL) <= 1, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, go = (torch.randn(2, 128, 4, 128, generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    before = dict(tfa.launch_counts)
+    out = tfa.flash_attention(q, k, v)
+    (out.float() * go.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = tfa.launch_counts
+    assert [after[n] - before[n] for n in after] == [1, 1, 1, 0, 0]
+    # against the plain versions on the CPU through the same autograd
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    ref = tfa.flash_attention(qc, kc, vc)
+    (ref.float() * go.float().cpu()).sum().backward()
+    assert tolerance_ratio(out.cpu(), ref, FLASH_TOL) <= 1
+    for got, want in ((q.grad, qc.grad), (k.grad, kc.grad),
+                      (v.grad, vc.grad)):
+        assert tolerance_ratio(got.cpu(), want, FLASH_TOL) <= 1
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.randn(2, 128, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._fwd_cuda(q.transpose(0, 1).contiguous().transpose(0, 1), q, q,
+                      True, 0.1)
+    with pytest.raises(TypeError):
+        tfa._fwd_cuda(q.half(), q.half(), q.half(), True, 0.1)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa._fwd_cuda(q, q.float(), q, True, 0.1)
+    q64 = torch.randn(2, 128, 64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._fwd_cuda(q64, q64, q64, True, 0.1)
+    q96 = torch.randn(2, 96, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="kernel tile"):
+        tfa._fwd_cuda(q96, q96, q96, True, 0.1)
+    with pytest.raises(ValueError):
+        tfa._fwd_cuda(q, q.cpu(), q, True, 0.1)
+    lse = torch.zeros(2, 128, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        tfa._bwd_cuda(q, q, q, lse.bfloat16(), q, lse, True, 0.1)
+
+
+@pytest.mark.cuda
+def test_tied_head_gradient_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3, 64, 256, generator=g, device=cuda).bfloat16()
+    w = torch.randn(1000, 256, generator=g, device=cuda).bfloat16() * 0.1
+    go = torch.randn(3, 64, 1000, generator=g, device=cuda)
+    x.requires_grad_(), w.requires_grad_()
+    logits = head_logits(x, w)
+    assert logits.dtype == F32
+    (logits * go).sum().backward()
+    xf, wf = (t.detach().float().requires_grad_() for t in (x, w))
+    (head_logits(xf, wf) * go.bfloat16().float()).sum().backward()
+    assert tolerance_ratio(logits, head_logits(xf, wf).detach(),
+                           FLASH_TOL) <= 1
+    # the same operands (the logits' gradient rounded to bf16 on both
+    # sides), fp32 sums in another order, each rounded to bf16
+    assert tolerance_ratio(x.grad, xf.grad.to(BF16), FLASH_TOL) <= 1
+    assert tolerance_ratio(w.grad, wf.grad.to(BF16), FLASH_TOL) <= 1
+
+
+@pytest.mark.cuda
+def test_int8_matmul_on_card_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(64, 128, generator=g)
+    w = torch.randn(128, 96, generator=g)
+    gout = torch.randn(64, 96, generator=g)
+    outs = []
+    for dev in ("cpu", cuda):
+        xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        out = int8_matmul(xd, wd)
+        (out * gout.to(dev)).sum().backward()
+        outs.append((out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
