@@ -12,6 +12,14 @@ result line is printed):
      path's shapes (Llama-3-8B attention: Hq 32, Hkv 8, D 128, page 16),
      bf16 and int8 pools, and time kernel, plain version and the PyTorch
      library call that computes the same function (a yardstick only);
+ 3b. the decode op ``paged_attention`` at the same widths: a decode batch
+     of 8 up to 2048 tokens (bf16 and fp32 pools) and one of 8 x 8192
+     (bf16), the kernel against both plain versions, a planted fault that
+     must fail on every row, a length-0 row that must come back 0, times;
+ 3c. the decode op on the engine's own decode steps (Llama-3-8B widths,
+     2 layers, the main path's engine): on every decode-loop step it runs
+     beside the ragged kernel on the same live pools and must agree with
+     it; its launches, counted from 0, must be layers x decode steps;
   4. the main path: ``LLMServer`` at Llama-3-8B widths, all 32 layers,
      bf16, random weights from a seed, answering concurrent requests
      through ``__call__`` and ``stream`` (one prompt prefilled in chunks,
@@ -67,6 +75,17 @@ KERNEL_FLOOR = 1e-5
 # the library yardstick works in bf16 inside (probabilities included), so
 # it is held only to being the same function, not to the kernel's bound
 LIBRARY_ATOL = 5e-2
+# decode op vs plain, per (sequence, head) against the row's own scale.
+# bf16: the ragged kernel's limit. The kernel's splits round p to bf16
+# against their own running maximum, the single walk against its own, and
+# the gather version not at all; each of these moves an fp32 output by
+# less than a bf16 step, so the outputs' roundings differ by at most one
+# step, as for summation order. One step at the row's largest value m
+# reads 2^-7 m / (2^-7 m + 1e-5): just under 1 where m is about 1, as on
+# the engine's live pools; only fp32 outputs a whole step apart could
+# pass 1. fp32: summation order and the merge's exponentials only.
+DECODE_TOL = {torch.float32: (1e-5, 1e-6),
+              torch.bfloat16: (KERNEL_RTOL, KERNEL_FLOOR)}
 # fp32 engine vs fp32 full forward: logits differ by summation order only
 FP32_LOGIT_NOISE = 1e-3
 # flash kernels vs plain, bf16, per row against the row's own scale: one
@@ -108,17 +127,31 @@ def flash_ratios(got, ref):
     return err / (FLASH_RTOL * ref.float().abs().amax(-1) + KERNEL_FLOOR)
 
 
+def decode_ratios(got, ref):
+    """|got - ref| / (rtol * max|ref| + floor) per (sequence, head) of
+    [B, Hq, D] outputs, the limits by ref's dtype (DECODE_TOL): [B, Hq].
+    At most 1 passes."""
+    rtol, floor = DECODE_TOL[ref.dtype]
+    err = (got.float() - ref.float()).abs().amax(-1)
+    return err / (rtol * ref.float().abs().amax(-1) + floor)
+
+
 def time_ms(fn, iters=10, flush=None):
     """Mean device time of fn() over iters calls, CUDA events around each
     call only; ``flush`` (a large tensor) is rewritten before each call
     so the 50 MB L2 holds none of the inputs, as in the engine, where
-    every layer reads another slice of the pool."""
+    every layer reads another slice of the pool. A spin kernel of about
+    1 ms then keeps the device busy while the host records the start
+    event and enqueues the call, so a call whose host side (checks,
+    allocations, ctypes: tens of microseconds per wrapper call) outlasts
+    the flush is not charged for it: the time is the device's."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -294,11 +327,217 @@ def phase_kernel(device):
     dplain = time_ms(lambda: tpa.ragged_paged_attention_reference(
         dq, dk, dv, dpt, dqs, dql, dkl), iters=3, flush=flush)
     dbound, dby = attention_bound_ms(dq, dk, dql, dkl, dvis, False)
+    sq, sk, sv, mask, rows, _ = sdpa_inputs(dq, dk, dv, dpt, dqs, dql, dkl,
+                                            None, None)
+    lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                             enable_gqa=True)
+    lib_err = (lib_out[:, :, 0].float()
+               - dref[dqs[rows].long()].float()).abs().max().item()
+    assert lib_err <= LIBRARY_ATOL, f"SDPA yardstick differs {lib_err}"
+    dlib = time_ms(lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask, enable_gqa=True), flush=flush)
     log(f"ragged_paged_attention bf16 pools decode T=8: max_abs_err "
-        f"{derr:.3e}, worst {dratio:.3f} x the tolerance, kernel {dms:.4f} ms, plain {dplain:.4f} ms, bound "
-        f"{dbound:.4f} ms ({dby})")
+        f"{derr:.3e}, worst {dratio:.3f} x the tolerance, kernel {dms:.4f} ms, plain {dplain:.4f} ms, sdpa "
+        f"{dlib:.4f} ms, bound {dbound:.4f} ms ({dby})")
     del flush
     return out
+
+
+# ------------------------------------------------- phase 3b: the decode op
+
+# name: (seq_lens, max_pages, pool pages, pool dtypes). A: the serving
+# config's decode batch (8 slots, max_seq_len 2048, a 512-page pool; 310
+# pages used). B: 8 sequences at Llama 3's 8192-token context.
+DECODE_BATCHES = {
+    "A": ((1, 15, 16, 17, 300, 1024, 1500, 2048), 128, 512,
+          (torch.bfloat16, torch.float32)),
+    "B": ((8192,) * 8, 512, 4100, (torch.bfloat16,)),
+}
+
+
+def decode_batch(device, lens, max_pages, P, dtype, Hq=32, Hkv=8, D=128,
+                 ps=16, seed=3):
+    """One decode token per sequence at the main path's attention widths;
+    each sequence's pages drawn without repeats from 1..P-1, the table's
+    tail left at page 0 (the scratch page)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(len(lens), Hq, D, generator=g, device=device).to(dtype)
+    kp = torch.randn(P, Hkv, ps, D, generator=g, device=device).to(dtype)
+    vp = torch.randn(P, Hkv, ps, D, generator=g, device=device).to(dtype)
+    perm = torch.randperm(P - 1, generator=g, device=device) + 1
+    pt = torch.zeros(len(lens), max_pages, dtype=torch.int32, device=device)
+    used = 0
+    for b, n in enumerate(lens):
+        npg = -(-n // ps)
+        pt[b, :npg] = perm[used:used + npg]
+        used += npg
+    assert used < P
+    return q, kp, vp, pt, torch.tensor(lens, dtype=torch.int32,
+                                       device=device)
+
+
+def decode_sdpa_inputs(q, kp, vp, pt, lens):
+    """q as [B, Hq, 1, D], K/V gathered into contiguous [B, Hkv, L, D] (L
+    the longest length) and the length mask [B, 1, 1, L]: one
+    ``scaled_dot_product_attention`` call computing the decode op (built
+    once, not timed)."""
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = kp.shape
+    L = int(lens.max())
+    pages = pt[:, :-(-L // ps)].long()
+    ks, vs = (pool[pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)
+              [:, :, :L].contiguous() for pool in (kp, vp))
+    mask = torch.arange(L, device=q.device)[None, :] < lens[:, None]
+    return q[:, :, None], ks, vs, mask[:, None, None, :]
+
+
+def phase_decode(device):
+    """The decode op on batches A and B: the kernel against the split plain
+    version and the gather version, the planted fault, a length-0 row, and
+    the times of kernel, plain version and SDPA."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import paged_attention as tpa
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    pps = tpa.PAGES_PER_SPLIT
+    out = {}
+    for name, (lens, max_pages, P, dtypes) in DECODE_BATCHES.items():
+        for dtype in dtypes:
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            q, kp, vp, pt, sl = decode_batch(device, lens, max_pages, P,
+                                             dtype)
+            scale = q.shape[-1] ** -0.5
+            got = tpa.paged_attention(q, kp, vp, pt, sl)
+            split = tpa._paged_decode_reference(q, kp, vp, pt, sl, scale,
+                                                pps)
+            gather = tpa.paged_attention_reference(q, kp, vp, pt, sl)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), f"{key}: non-finite output"
+            r_split = decode_ratios(got, split).max().item()
+            r_gather = decode_ratios(got, gather).max().item()
+            assert r_split <= 1 and r_gather <= 1, \
+                f"{key}: kernel at {r_split} / {r_gather} x the limit"
+            err = max((got.float() - ref.float()).abs().max().item()
+                      for ref in (split, gather))
+            # planted fault: every sequence drops its last slot; every row
+            # longer than 1 slot must then fail the check
+            fault = tpa._paged_decode_reference(q, kp, vp, pt, sl - 1,
+                                                scale, pps)
+            caught = decode_ratios(fault, split).amax(-1)[sl > 1]
+            assert bool((caught > 1).all()), \
+                f"{key}: planted fault not caught: {caught}"
+            # a length-0 row comes back exactly 0, the others as before
+            sl0 = sl.clone()
+            sl0[0] = 0
+            got0 = tpa.paged_attention(q, kp, vp, pt, sl0)
+            assert bool((got0[0] == 0).all()), f"{key}: length 0 not 0"
+            assert torch.equal(got0[1:], got[1:]), f"{key}: rows moved"
+            ms = time_ms(lambda: tpa.paged_attention(q, kp, vp, pt, sl),
+                         flush=flush)
+            plain_ms = time_ms(lambda: tpa._paged_decode_reference(
+                q, kp, vp, pt, sl, scale, pps), iters=3, flush=flush)
+            # for the record: other splits (the path uses PAGES_PER_SPLIT),
+            # and the split and merge launches' device times
+            sweep = {n: round(time_ms(lambda: tpa._paged_attention_cuda(
+                q, kp, vp, pt, sl, scale, n), flush=flush), 4)
+                for n in (4, 8, 32)}
+            flush.zero_()
+            _, busy = profile_device(lambda: tpa.paged_attention(
+                q, kp, vp, pt, sl), device, ms)
+            sq, sk, sv, mask = decode_sdpa_inputs(q, kp, vp, pt, sl)
+            lib_out = F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True)
+            lib_err = (lib_out[:, :, 0].float() - gather.float()).abs() \
+                .max().item()
+            assert lib_err <= LIBRARY_ATOL, \
+                f"{key}: SDPA yardstick differs {lib_err}"
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True), flush=flush)
+            del sq, sk, sv, mask
+            vis = sl.clamp(0, max_pages * kp.shape[2])
+            bound, by = attention_bound_ms(q, kp, torch.ones_like(sl), vis,
+                                           vis, False)
+            log(f"paged_attention {key} pools B={len(lens)} max_pages "
+                f"{max_pages} lens {list(lens)}: worst {r_split:.3f} x the "
+                f"limit against the split plain version, {r_gather:.3f} "
+                f"against the gather version, max_abs_err {err:.3e}; "
+                f"planted fault (each row drops its last slot) fails on "
+                f"every row longer than 1, the weakest at "
+                f"{caught.min().item():.1f} x the limit; length 0 gives 0; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
+                f"ms with other pages_per_split: {sweep}; one call under "
+                f"the profiler: {busy}")
+            out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=bound, bound_by=by)
+            del q, kp, vp, pt, sl, got, split, gather, fault, got0
+    del flush
+    return out
+
+
+def phase_decode_engine(model_config=None, engine_config=None):
+    """The decode op on the engine's own decode steps. Two requests, the
+    second hitting the first's 256-token prefix in the page cache, are
+    served through ``InferenceEngine`` (Llama-3-8B widths, 2 layers, the
+    main path's engine otherwise). Each decode-loop attention call (every
+    batch slot one row of one token: decode_rows == R == T) also runs
+    ``paged_attention`` on the same live pools, page table and lengths,
+    held against the ragged kernel's output. The launch counters are set
+    to 0 just before and read just after, and the decode op's launches
+    must equal layers x decode steps; returns them."""
+    from ray_tpu_torch.llm import model as M
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    from ray_tpu_torch.ops import paged_attention as tpa
+
+    cfg = model_config_from_dict(model_config
+                                 or {**MAIN_MODEL, "n_layers": 2})
+    eng = InferenceEngine(cfg, **(engine_config or MAIN_ENGINE))
+    ragged = M.ragged_paged_attention
+    seen = {"calls": 0, "worst": 0.0}
+
+    def ragged_and_decode(q, k_pages, v_pages, page_table, q_start, q_len,
+                          kv_len, **kw):
+        o = ragged(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
+                   **kw)
+        if kw.get("decode_rows") == page_table.shape[0] == q.shape[0]:
+            d = tpa.paged_attention(q, k_pages, v_pages, page_table, kv_len)
+            seen["worst"] = max(seen["worst"], decode_ratios(d, o).max()
+                                .item())
+            seen["calls"] += 1
+        return o
+
+    V = cfg.vocab_size
+    prefix = _prompt(1, 256, V)
+    for name in tpa.launch_counts:
+        tpa.launch_counts[name] = 0
+    M.ragged_paged_attention = ragged_and_decode
+    try:
+        for seed, n in ((9, 40), (10, 20)):
+            rid = eng.add_request(prefix + _prompt(seed, n, V), 24)
+            done = {}
+            for _ in range(100):
+                done.update(eng.step())
+                if rid in done:
+                    break
+            assert len(done.get(rid, ())) == 24, done
+    finally:
+        M.ragged_paged_attention = ragged
+    launches = dict(tpa.launch_counts)
+    stats = dict(eng.stats)
+    steps = cfg.n_layers * eng.decode_chunk * stats["decode_dispatches"]
+    del eng
+    log(f"paged_attention on the engine's decode steps ({cfg.n_layers} "
+        f"layers, dim {cfg.dim}, {cfg.dtype}): {seen['calls']} calls beside "
+        f"the ragged kernel, worst {seen['worst']:.3f} x the limit; "
+        f"launches {launches}; stats {json.dumps(stats)}")
+    assert stats["cached_tokens"] >= 256, stats     # the prefix's pages
+    assert seen["worst"] <= 1, f"decode vs ragged at {seen['worst']} x"
+    assert seen["calls"] == steps > 0, (seen, steps)
+    assert launches["paged_attention"] == steps, (launches, steps)
+    assert launches["paged_attention_reference_cuda"] == 0, launches
+    assert launches["ragged_paged_attention_reference_cuda"] == 0, launches
+    return launches["paged_attention"]
 
 
 def flash_bound_ms(kernel, BH, Lq, Lk, D, causal, itemsize):
@@ -448,9 +687,10 @@ def profile_device(fn, device, unprofiled_ms):
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    top = "; ".join(f"{k[:60]} x{n} {ms:.2f} ms" for ms, n, k in rows[:6])
-    return out, (f"device busy {busy_ms:.1f} ms = {busy_ms / unprofiled_ms:.1%}"
-                 f" of the unprofiled wall time, top: {top}")
+    top = "; ".join(f"{k[:60]} x{n} {ms:.4f} ms" for ms, n, k in rows[:6])
+    return out, (f"device busy {busy_ms:.4f} ms = "
+                 f"{busy_ms / unprofiled_ms:.1%} of the unprofiled wall "
+                 f"time, top: {top}")
 
 
 # --------------------------------------------- phase 5: engine vs oracle
@@ -776,6 +1016,9 @@ def main():
         f"{sorted(built) or 'all up to date'}")
 
     kern = phase_kernel(device)
+    decode = phase_decode(device)
+    decode_launches = phase_decode_engine()
+    torch.cuda.empty_cache()
     stats, launches, expected = phase_main_path()
     assert launches["ragged_paged_attention"] == expected, \
         (launches, expected)
@@ -804,7 +1047,15 @@ def main():
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-        "library_ms": bf16["library_ms"]}] + [{
+        "library_ms": bf16["library_ms"]}, {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "ray_tpu/ops/paged_attention.py:92",
+        "launches": decode_launches,
+        "max_abs_err": max(d["max_abs_err"] for d in decode.values()),
+        **{k: decode["A bfloat16"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}] + [{
         "name": name, "route": "cuda",
         "source": f"ray_tpu_torch/ops/csrc/{src}",
         "replaces": f"ray_tpu/ops/flash_attention.py:{line}",

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -37,6 +39,10 @@ KERNELS = {
         # max_pages, sm_scale, stream
         "ragged_paged_attention": [_I, _I] + [_P] * 10 + [_I] * 7
         + [_F, _P]}),
+    "paged_attention": ("paged_attention.cu", {
+        # dtype, q, k_pages, v_pages, page_table, seq_lens, out, work, B,
+        # Hq, Hkv, ps, D, max_pages, pages_per_split, sm_scale, stream
+        "paged_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P]}),
     "flash_attention_fwd": ("flash_attention_fwd.cu", {
         # dtype, q, k, v, o, lse, BH, Lq, Lk, D, causal, sm_scale, stream
         "flash_attention_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P]}),
@@ -100,6 +106,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
         logs[name] = log
     return logs
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call entry point ``entry`` of kernel library ``name`` on the
+    device's current stream, tensors passed as their data pointers (None
+    as a null pointer); raise if the launch failed."""
+    lib = load(name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{lib.kernel_error_string(rc).decode()} "
+                           f"(cudaError {rc})")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -241,15 +241,7 @@ def _check_kernel_inputs(q, k, v, rows=(), stats=()):
 def _launch(library: str, entry: str, device, *args) -> None:
     """Call a kernel's C entry point with tensors passed as pointers, on
     the device's current stream; raise if the launch failed."""
-    lib = _kernels.load(library)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: "
-                           f"{lib.kernel_error_string(rc).decode()} "
-                           f"(cudaError {rc})")
+    _kernels.launch(library, entry, device, *args)
     launch_counts[entry] += 1
 
 

@@ -1,5 +1,25 @@
-"""Ragged paged-KV attention — the PyTorch port of the ragged half of
-``ray_tpu/ops/paged_attention.py``.
+"""Paged-KV attention — the PyTorch port of ``ray_tpu/ops/paged_attention.py``,
+both halves: the decode op ``paged_attention`` (one query token per
+sequence) and the ragged op ``ragged_paged_attention`` (the engine's step).
+
+The KV cache is a pool of pages [P, Hkv, ps, D]; a sequence's cache is the
+pages named by its row of ``page_table``.
+
+Decode: q [B, Hq, D], one token per sequence, sees the first seq_lens[b]
+slots of its pages (at most the table's max_pages * ps); the table's
+unused tail may hold anything, since no decode version reads a page id
+past the sequence's length. Three implementations of one function:
+  - ``paged_attention_reference``: plain PyTorch, a gather per sequence,
+    fp32 softmax (the counterpart of the JAX reference; a length-0 row
+    gives 0, where the JAX reference gives NaN and its kernel 0);
+  - ``_paged_decode_reference``: plain PyTorch that walks the pages as the
+    TPU's ``_decode_kernel`` does (online softmax page by page, p rounded
+    to v's dtype before p·v), each split of ``pages_per_split`` pages
+    with its own state, the splits merged as the CUDA kernel merges them;
+  - ``_paged_attention_cuda``: the hand-written CUDA kernel
+    (``csrc/paged_attention.cu``, replacing ``_decode_kernel``), split over
+    pages, for CUDA tensors.
+``paged_attention`` dispatches by the tensors' device, as the ragged op.
 
 Ragged batch layout (the engine's step): q [T, Hq, D] holds R sequences'
 query tokens concatenated; row r owns tokens q_start[r] ..
@@ -37,7 +57,9 @@ _NEG_INF = float("-inf")
 #: kernel launches made by the wrapper, and calls of the plain version on
 #: CUDA tensors (a run that should only use the kernel checks it stays 0)
 launch_counts = {"ragged_paged_attention": 0,
-                 "ragged_paged_attention_reference_cuda": 0}
+                 "ragged_paged_attention_reference_cuda": 0,
+                 "paged_attention": 0,
+                 "paged_attention_reference_cuda": 0}
 
 
 def _token_descriptors(q_start, q_len, kv_len, T: int):
@@ -144,6 +166,31 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 KERNEL_HEAD_DIMS = (128,)
 
 
+def _check_placement(q, tensors) -> None:
+    """Raise unless every tensor of {name: tensor} is contiguous and on
+    q's device."""
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _on_card(q, impl: Optional[str]) -> bool:
+    """Whether a dispatcher runs its kernel (CUDA tensors) or its plain
+    version (CPU tensors). ``impl`` pins the choice and raises where it
+    cannot hold: "kernel" on CPU tensors, "reference" on CUDA tensors."""
+    if impl not in (None, "kernel", "reference"):
+        raise ValueError(f"impl must be 'kernel' or 'reference', "
+                         f"got {impl!r}")
+    if q.is_cuda and impl == "reference":
+        raise ValueError("impl='reference' runs on CPU tensors only")
+    if not q.is_cuda and impl == "kernel":
+        raise ValueError("impl='kernel' needs CUDA tensors; CPU tensors "
+                         "run the plain version")
+    return q.is_cuda
+
+
 def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
                            q_len, kv_len, k_scale, v_scale,
                            sm_scale: float) -> torch.Tensor:
@@ -159,11 +206,7 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
                "q_len": q_len, "kv_len": kv_len}
     if scales:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
-    for name, t in tensors.items():
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_placement(q, tensors)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes fp32 or bf16")
     if k_pages.dtype not in (q.dtype, torch.int8) \
@@ -193,23 +236,13 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
         raise ValueError(f"row descriptors must be [R={R}]")
 
     out = torch.empty_like(q)
-    lib = _kernels.load("ragged_paged_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        # the kernel derives each token's row and visible length itself
-        # (what _token_descriptors computes), so no per-token tensors
-        rc = lib.ragged_paged_attention(
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr() if scales else None,
-            v_scale.data_ptr() if scales else None,
-            page_table.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(),
-            T, R, Hq, Hkv, ps, D, max_pages, float(sm_scale), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"ragged_paged_attention launch failed: "
-            f"{lib.kernel_error_string(rc).decode()} (cudaError {rc})")
+    # the kernel derives each token's row and visible length itself (what
+    # _token_descriptors computes), so no per-token tensors
+    _kernels.launch(
+        "ragged_paged_attention", "ragged_paged_attention", q.device,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], q, k_pages,
+        v_pages, k_scale, v_scale, page_table, q_start, q_len, kv_len, out,
+        T, R, Hq, Hkv, ps, D, max_pages, float(sm_scale))
     if T:
         launch_counts["ragged_paged_attention"] += 1
     return out
@@ -235,22 +268,202 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start,
             f"{k_pages.shape[1]}")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
-    if impl not in (None, "kernel", "reference"):
-        raise ValueError(f"impl must be 'kernel' or 'reference', "
-                         f"got {impl!r}")
-    if q.is_cuda:
-        if impl == "reference":
-            raise ValueError("impl='reference' runs on CPU tensors only")
+    if _on_card(q, impl):
         return _ragged_attention_cuda(q, k_pages, v_pages, page_table,
                                       q_start, q_len, kv_len, k_scale,
                                       v_scale, sm_scale)
-    if impl == "kernel":
-        raise ValueError("impl='kernel' needs CUDA tensors; CPU tensors "
-                         "run the plain version")
     return ragged_paged_attention_reference(
         q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
         k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
         max_q_len=max_q_len, decode_rows=decode_rows)
+
+
+# ------------------------------------------------------------------ decode
+
+#: pages each block of the decode kernel walks: a batch of 8 at 2048
+#: tokens (128 pages of 16) is then 8 splits x 8 kv heads x 8 sequences =
+#: 512 blocks, about four per SM of an H100
+PAGES_PER_SPLIT = 16
+#: page sizes and query heads per kv head the decode kernel is built for
+DECODE_PAGE_SIZES = (8, 16)
+DECODE_Q_PER_KV = (1, 2, 4, 8)
+
+
+def _decode_pages(page_table, seq_lens, ps: int):
+    """Visible slots per sequence (at most the table's max_pages * ps)
+    and the table with every page past them replaced by page 0, so that
+    a gather never sees the unused tail's ids."""
+    max_pages = page_table.shape[1]
+    lens = seq_lens.long().clamp(0, max_pages * ps)
+    covered = torch.arange(max_pages, device=page_table.device)[None, :] \
+        < ((lens + ps - 1) // ps)[:, None]
+    return lens, torch.where(covered, page_table.long(), 0)
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens, *,
+                              sm_scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """Gather-based paged decode attention (the plain version).
+
+    q: [B, Hq, D], one decode token per sequence; k/v_pages:
+    [P, Hkv, ps, D]; page_table: [B, max_pages] (unused tail: any);
+    seq_lens: [B] valid KV slots (incl. the current token). Returns
+    [B, Hq, D] in q's dtype; a length-0 row gives 0.
+    """
+    if q.is_cuda:
+        launch_counts["paged_attention_reference_cuda"] += 1
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    lens, pt = _decode_pages(page_table, seq_lens, ps)
+    k = k_pages[pt].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D).float()
+    v = v_pages[pt].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D).float()
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bgqd,bgtd->bgqt", qg, k) * sm_scale
+    pos = torch.arange(max_pages * ps, device=q.device)
+    s = s.masked_fill(pos[None, None, None, :] >= lens[:, None, None, None],
+                      _NEG_INF)
+    o = torch.einsum("bgqt,bgtd->bgqd", _safe_softmax(s), v)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _n_splits(max_pages: int, pages_per_split: int) -> int:
+    return max(1, -(-max_pages // pages_per_split))
+
+
+def _paged_decode_reference(q, k_pages, v_pages, page_table, seq_lens,
+                            sm_scale: float,
+                            pages_per_split: Optional[int] = None
+                            ) -> torch.Tensor:
+    """The decode kernel's plain version: ``_decode_kernel``'s body, page
+    by page, for each split of ``pages_per_split`` pages (None: one split,
+    the TPU kernel's single walk), then the kernel's merge.
+
+    Per page: fp32 scores scaled after the product, slots at or past the
+    length masked, m_new = max(m, page max), p = 0 where s is -inf, the
+    rescale 0 while m is -inf, l summing the unrounded p, p rounded to v's
+    dtype before an fp32 p·v. Merge over splits in order:
+    o = sum e^(m_i - M) acc_i / max(sum e^(m_i - M) l_i, 1e-30), empty
+    splits (m = -inf) skipped.
+    """
+    if q.is_cuda:
+        launch_counts["paged_attention_reference_cuda"] += 1
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    pps = max(1, max_pages if pages_per_split is None else pages_per_split)
+    S = _n_splits(max_pages, pps)
+    dev = q.device
+    lens, pt = _decode_pages(page_table, seq_lens, ps)
+    pt = torch.cat([pt, pt.new_zeros(B, S * pps - max_pages)], 1)
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    m = torch.full((S, B, Hkv, Hq // Hkv), _NEG_INF, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*m.shape, D, device=dev)
+    col = torch.arange(ps, device=dev)
+    for t in range(pps):                      # the splits walk together
+        pages = torch.arange(S, device=dev) * pps + t           # [S]
+        valid = lens[None, :] - pages[:, None] * ps             # [S, B]
+        ids = pt[:, pages].T                                    # [S, B]
+        s = torch.einsum("bgqd,sbgtd->sbgqt", qg,
+                         k_pages[ids].float()) * sm_scale
+        s = s.masked_fill(col >= valid[..., None, None, None], _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(torch.isneginf(s), 0.0,
+                        torch.exp(s - m_new[..., None]))
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_new))
+        pv = torch.einsum("sbgqt,sbgtd->sbgqd", p.to(v_pages.dtype).float(),
+                          v_pages[ids].float())
+        live = (valid > 0)[..., None, None]   # the page holds a valid slot
+        l = torch.where(live, l * corr + p.sum(-1), l)
+        acc = torch.where(live[..., None], acc * corr[..., None] + pv, acc)
+        m = torch.where(live, m_new, m)
+    M = m.amax(0)
+    w = torch.where(torch.isneginf(m), 0.0,
+                    torch.exp(m - torch.where(torch.isneginf(M), 0.0, M)))
+    o = (w[..., None] * acc).sum(0) / (w * l).sum(0).clamp_min(1e-30)[
+        ..., None]
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                          sm_scale: float,
+                          pages_per_split: int = PAGES_PER_SPLIT
+                          ) -> torch.Tensor:
+    """Launch the decode kernel (and its merge, when there is more than
+    one split). Checks device, dtype, shape and contiguity and raises on
+    what the kernel does not take. Page ids a sequence covers must lie in
+    [0, P): the kernel reads them unchecked, and no others."""
+    B, Hq, D = q.shape
+    P, Hkv, ps, Dk = k_pages.shape
+    Bt, max_pages = page_table.shape
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+               "page_table": page_table, "seq_lens": seq_lens}
+    _check_placement(q, tensors)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q dtype {q.dtype}: the kernel takes fp32 or bf16")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype}: the "
+                        f"kernel takes pools in q's dtype ({q.dtype})")
+    for name in ("page_table", "seq_lens"):
+        if tensors[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+    if v_pages.shape != k_pages.shape or Dk != D or Hq % Hkv \
+            or Bt != B or seq_lens.shape != (B,):
+        raise ValueError(f"shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
+                         f"page_table {tuple(page_table.shape)}, seq_lens "
+                         f"{tuple(seq_lens.shape)}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
+    if ps not in DECODE_PAGE_SIZES or Hq // Hkv not in DECODE_Q_PER_KV:
+        raise ValueError(f"page size {ps}, {Hq // Hkv} query heads per kv "
+                         f"head: the kernel is built for pages of "
+                         f"{DECODE_PAGE_SIZES} and {DECODE_Q_PER_KV}")
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 \
+            or v_pages.data_ptr() % 16:
+        raise ValueError("q and the pools must start on 16 bytes (vector "
+                         "loads)")
+    if pages_per_split < 1:
+        raise ValueError(f"pages_per_split {pages_per_split} < 1")
+
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    S = _n_splits(max_pages, pages_per_split)
+    # each split's (m, l, acc) per query head, merged by the second launch
+    work = torch.empty(B * Hq * S * (D + 2), dtype=torch.float32,
+                       device=q.device) if S > 1 else None
+    _kernels.launch("paged_attention", "paged_attention", q.device,
+                    _DTYPE_CODES[q.dtype], q, k_pages, v_pages, page_table,
+                    seq_lens, out, work, B, Hq, Hkv, ps, D, max_pages,
+                    pages_per_split, float(sm_scale))
+    launch_counts["paged_attention"] += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
+                    sm_scale: Optional[float] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """Decode attention, one query token per sequence, over its pages.
+    CUDA tensors go to the kernel, CPU tensors to
+    ``paged_attention_reference``. ``impl`` pins the choice and raises
+    where it cannot hold: "kernel" on CPU tensors, "reference" on CUDA
+    tensors (compare against the plain versions by calling them)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.shape[1] % k_pages.shape[1]:
+        raise ValueError(
+            f"q heads {q.shape[1]} not a multiple of kv heads "
+            f"{k_pages.shape[1]}")
+    if _on_card(q, impl):
+        return _paged_attention_cuda(q, k_pages, v_pages, page_table,
+                                     seq_lens, sm_scale)
+    return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                     seq_lens, sm_scale=sm_scale)
 
 
 def write_ragged_kv(k_pages, v_pages, k_t, v_t, token_page, token_slot,

@@ -108,6 +108,78 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
         tpa.ragged_paged_attention(q, kp.cpu(), vp, pt, qs, ql, kl)
 
 
+def _decode_batch(device, Hq, Hkv, D, ps, lens, max_pages, tail=0, seed=0):
+    """One decode token per sequence; each sequence's pages drawn without
+    repeats from 1..P-1, the table's unused tail filled with ``tail``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, P = len(lens), len(lens) * max_pages + 1
+    q = torch.randn(B, Hq, D, generator=g, device=device)
+    kp = torch.randn(P, Hkv, ps, D, generator=g, device=device)
+    vp = torch.randn(P, Hkv, ps, D, generator=g, device=device)
+    perm = torch.randperm(P - 1, generator=g, device=device) + 1
+    pt = torch.full((B, max_pages), tail, dtype=torch.int32, device=device)
+    used = 0
+    for b, n in enumerate(lens):
+        npg = min(-(-n // ps), max_pages)
+        pt[b, :npg] = perm[used:used + npg]
+        used += npg
+    return q, kp, vp, pt, torch.tensor(lens, dtype=torch.int32,
+                                       device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 4), (8, 2), (32, 8)])
+def test_decode_kernel_matches_plain_version(cuda, dtype, ps, Hq, Hkv):
+    # lengths: 0, 1, a page, one past, mid-page, the table, past the
+    # table; the unused tail holds -1, which the kernel must never read
+    max_pages = 6
+    lens = [0, 1, ps, ps + 1, 3 * ps + 5, max_pages * ps,
+            max_pages * ps + 9]
+    q, kp, vp, pt, sl = _decode_batch(cuda, Hq, Hkv, 128, ps, lens,
+                                      max_pages, tail=-1, seed=Hq + ps)
+    q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
+    scale = 128 ** -0.5
+    for pps in (1, 2, 4, tpa.PAGES_PER_SPLIT):
+        before = tpa.launch_counts["paged_attention"]
+        got = tpa._paged_attention_cuda(q, kp, vp, pt, sl, scale, pps)
+        want = tpa._paged_decode_reference(q, kp, vp, pt, sl, scale, pps)
+        torch.cuda.synchronize()
+        assert tpa.launch_counts["paged_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool((got[0] == 0).all()), "length 0 not 0"
+        ratio = tolerance_ratio(got, want)
+        assert ratio <= 1, (pps, ratio)
+    # the dispatcher launches the kernel with its own split
+    got = tpa.paged_attention(q, kp, vp, pt, sl)
+    assert tolerance_ratio(got, tpa.paged_attention_reference(
+        q, kp, vp, pt, sl)) <= 1
+
+
+@pytest.mark.cuda
+def test_decode_kernel_rejects_what_it_does_not_take(cuda):
+    q, kp, vp, pt, sl = _decode_batch(cuda, 8, 2, 128, 16, [5, 20], 2)
+    with pytest.raises(TypeError, match="int32"):
+        tpa.paged_attention(q, kp, vp, pt.long(), sl)
+    with pytest.raises(TypeError):
+        tpa.paged_attention(q.half(), kp.half(), vp.half(), pt, sl)
+    k8, _ = quantize_kv(kp)
+    v8, _ = quantize_kv(vp)
+    with pytest.raises(TypeError, match="pool dtypes"):
+        tpa.paged_attention(q, k8, v8, pt, sl)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                            kp, vp, pt, sl)
+    with pytest.raises(ValueError):
+        tpa.paged_attention(q, kp.cpu(), vp.cpu(), pt, sl)
+    q96, kp96, vp96, *_ = _decode_batch(cuda, 8, 2, 96, 16, [5, 20], 2)
+    with pytest.raises(ValueError, match="head dim"):
+        tpa.paged_attention(q96, kp96, vp96, pt, sl)
+    with pytest.raises(ValueError, match="reference"):
+        tpa.paged_attention(q, kp, vp, pt, sl, impl="reference")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("causal", [True, False])
