@@ -7,7 +7,9 @@ Phases, each failing loudly (an uncaught error exits non-zero before the
 result line is printed):
   1. require CUDA; print the card's name and power limit;
   2. build every CUDA kernel from the sources in this checkout (one nvcc
-     per source, all started together) and print the build time;
+     per source, all started together), print the build time and what
+     ``-Xptxas -v`` says of the bf16 flash kernels redesigned for Hopper
+     (registers, barriers, stack and spill bytes);
   3. hold each kernel against its plain PyTorch version at the main
      path's shapes (Llama-3-8B attention: Hq 32, Hkv 8, D 128, page 16),
      bf16 and int8 pools, and time kernel, plain version and the PyTorch
@@ -31,8 +33,9 @@ result line is printed):
   6. hold the three flash-attention kernels (forward, dq, dk/dv) against
      their plain versions at the training path's shape (B 8, H 24, L 2048,
      D 128, bf16; causal, non-causal, and causal with an lse cotangent),
-     catch two planted faults on every query tile, and time kernels, plain
-     versions and the PyTorch library call;
+     catch two planted faults on every 64-row query tile, and time
+     kernels, plain versions and the PyTorch library call, each kernel
+     with its achieved TFLOP/s and its share of the bound;
   7. the training main path: ``make_train_step`` over ``loss_fn`` at the
      JAX package's bench widths (vocab 32000, dim 3072, 8 layers, 24/12
      heads, ffn 12288: 1,230,818,304 parameters; flash attention, selective
@@ -90,11 +93,12 @@ DECODE_TOL = {torch.float32: (1e-5, 1e-6),
 FP32_LOGIT_NOISE = 1e-3
 # flash kernels vs plain, bf16, per row against the row's own scale: one
 # bf16 step for the outputs' rounding (2^-7 of the row's largest value),
-# and one more because the kernels' 64-row tiles and the plain versions'
-# 256-row blocks rescale p by different running maxima before rounding p
-# and ds to bf16 (64- against 256-row blocks of the plain version reach
-# 0.995 of 2^-7 on the CPU); the gradients' L-term sums in another order
-# add fp32 noise far below that
+# and one more because the forward's 128-key tiles and the plain
+# version's 256-key blocks rescale p by different running maxima before
+# rounding it to bf16 (the plain version at the kernels' tiles against its
+# 256-row blocks is held to this limit on the CPU,
+# tests/test_torch_flash_attention.py); the gradients' L-term sums in
+# another order add fp32 noise far below that
 FLASH_RTOL = 2.0 ** -6
 # lse is fp32 from the same scores: a sum of L <= 2048 terms in another
 # order moves l by at most L * 2^-24 ~ 1.2e-4 relative, lse by as much
@@ -178,6 +182,20 @@ def attention_bound_ms(q, k_pages, q_len, kv_len, token_vis, scales):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(build_log, kernel):
+    """What ``-Xptxas -v`` says of one kernel (the entry whose mangled
+    name holds ``kernel``), its lines joined: stack and spill bytes,
+    registers and barriers."""
+    lines, inside = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("spill" in line or "Used" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    assert lines, f"no ptxas report for {kernel}"
+    return "; ".join(lines)
 
 
 # ---------------------------------------------------- phase 3: the kernel
@@ -540,22 +558,32 @@ def phase_decode_engine(model_config=None, engine_config=None):
     return launches["paged_attention"]
 
 
-def flash_bound_ms(kernel, BH, Lq, Lk, D, causal, itemsize):
-    """Least time for one flash kernel call: the (query, key) pairs the
-    mask lets through times 2·D FLOP per product (fwd 2 products: q·kᵀ,
-    p·v; dq 3: q·kᵀ, do·vᵀ, ds·k; dkv 4: q·kᵀ, do·vᵀ, pᵀ·do, dsᵀ·q) at the
-    bf16 tensor-core peak, or each input read and each output written once
-    at the HBM rate. Returns (ms, "bytes" | "operations")."""
+# flash kernel: (products, input rows, output rows) of one call
+FLASH_WORK = {
+    "flash_attention_fwd": (2, ("q", "k", "k"), ("q",)),        # q k v -> o
+    "flash_attention_dq": (3, ("q", "k", "k", "q"), ("q",)),    # +do -> dq
+    "flash_attention_dkv": (4, ("q", "k", "k", "q"), ("k", "k")),  # -> dk dv
+}
+
+
+def flash_flops(kernel, BH, Lq, Lk, D, causal):
+    """The FLOP one flash kernel call needs: the (query, key) pairs the
+    mask lets through times 2·D per product (fwd 2 products: q·kᵀ, p·v;
+    dq 3: q·kᵀ, do·vᵀ, ds·k; dkv 4: q·kᵀ, do·vᵀ, pᵀ·do, dsᵀ·q)."""
     pairs = (sum(min(i + 1, Lk) for i in range(Lq)) if causal
              else Lq * Lk) * BH
-    products, rows_in, rows_out = {
-        "flash_attention_fwd": (2, (Lq, Lk, Lk), (Lq,)),        # q k v -> o
-        "flash_attention_dq": (3, (Lq, Lk, Lk, Lq), (Lq,)),     # q k v do -> dq
-        "flash_attention_dkv": (4, (Lq, Lk, Lk, Lq), (Lk, Lk)),  # -> dk dv
-    }[kernel]
-    nbytes = BH * D * itemsize * (sum(rows_in) + sum(rows_out))
+    return FLASH_WORK[kernel][0] * 2 * D * pairs
+
+
+def flash_bound_ms(kernel, BH, Lq, Lk, D, causal, itemsize):
+    """Least time for one flash kernel call: its FLOP (``flash_flops``)
+    at the bf16 tensor-core peak, or each input read and each output
+    written once at the HBM rate. Returns (ms, "bytes" | "operations")."""
+    _, rows_in, rows_out = FLASH_WORK[kernel]
+    rows = sum(Lq if r == "q" else Lk for r in rows_in + rows_out)
+    nbytes = BH * D * itemsize * rows
     nbytes += 4 * BH * Lq * (1 if kernel == "flash_attention_fwd" else 2)
-    t_ops = products * 2 * D * pairs / BF16_FLOPS * 1e3
+    t_ops = flash_flops(kernel, BH, Lq, Lk, D, causal) / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -670,12 +698,13 @@ def phase_main_path(model_config=None, engine_config=None):
     return stats, launches, expected
 
 
-def profile_device(fn, device, unprofiled_ms):
+def profile_device(fn, device, unprofiled_ms, focus=()):
     """Run fn() under torch.profiler; returns (result, summary): the
     device's busy time (kernel time, one stream), its share of
     ``unprofiled_ms`` (the same work timed without the profiler, whose
-    host cost would otherwise inflate the idle share), and the kernels
-    taking most of it."""
+    host cost would otherwise inflate the idle share), the kernels
+    taking most of it, and for each name in ``focus`` the kernels whose
+    name holds it: their time, launches and share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA if device.type == "cuda"
             else ProfilerActivity.CPU]
@@ -688,9 +717,16 @@ def profile_device(fn, device, unprofiled_ms):
                    if e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     top = "; ".join(f"{k[:60]} x{n} {ms:.4f} ms" for ms, n, k in rows[:6])
+    parts = []
+    for name in focus:
+        ms = sum(r[0] for r in rows if name in r[2])
+        n = sum(r[1] for r in rows if name in r[2])
+        share = ms / busy_ms if busy_ms else 0.0   # no device time on a CPU
+        parts.append(f"{name} x{n} {ms:.4f} ms = {share:.1%}")
+    picked = f"; of the busy time: {', '.join(parts)}" if parts else ""
     return out, (f"device busy {busy_ms:.4f} ms = "
                  f"{busy_ms / unprofiled_ms:.1%} of the unprofiled wall "
-                 f"time, top: {top}")
+                 f"time, top: {top}{picked}")
 
 
 # --------------------------------------------- phase 5: engine vs oracle
@@ -738,7 +774,12 @@ def phase_oracle(device, cfg=None):
 # ------------------------------------------ phase 6: the flash kernels
 
 FLASH_SHAPE = (8, 24, 2048, 128)    # B, H, L, D of the training path
-FLASH_TILE = 64                     # rows of the kernels' bf16 q tiles
+# the planted faults must fail on every query tile of this many rows: the
+# dk/dv kernel's bf16 q tiles (half of the forward's)
+FLASH_TILE = 64
+# the bf16 kernels redesigned for Hopper, whose ptxas report phase 2 prints
+SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_sm90_kernel",
+                "flash_attention_bwd": "flash_dkv_sm90_kernel"}
 
 
 def causal_off_by_one(q, k, v, scale):
@@ -859,13 +900,16 @@ def phase_flash(device):
     out = {}
     for kern in names:
         bound, by = flash_bound_ms(kern, BH, L, L, D, True, q.element_size())
+        tflops = flash_flops(kern, BH, L, L, D, True) / kern_ms[kern] / 1e9
         out[kern] = dict(max_abs_err=err[kern], ms=kern_ms[kern],
                          plain_ms=plain[kern], library_ms=library[kern],
                          bound_ms=bound, bound_by=by)
         log(f"{kern} B {B} H {H} L {L} D {D} bf16 causal: kernel "
-            f"{kern_ms[kern]:.4f} ms, plain {plain[kern]:.4f} ms, sdpa "
-            f"{library[kern]:.4f} ms, bound {bound:.4f} ms ({by}); max_abs_err "
-            f"{err[kern]:.3e}, worst {worst[kern]:.3f} x the tolerance")
+            f"{kern_ms[kern]:.4f} ms = {tflops:.1f} TFLOP/s, "
+            f"{bound / kern_ms[kern]:.1%} of its bound; plain "
+            f"{plain[kern]:.4f} ms, sdpa {library[kern]:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); max_abs_err {err[kern]:.3e}, worst "
+            f"{worst[kern]:.3f} x the tolerance")
     log("flash plain and sdpa times: the backward's (dq and dk/dv "
         "together) stand for both dq and dkv")
     del flush
@@ -941,7 +985,8 @@ def phase_train(device, config=None, batch=TRAIN_BATCH):
         f"first-step excess {bd.compile_time_s * 1e3:.1f} ms, phases ms "
         f"{json.dumps({k: round(x, 2) for k, x in bd.phase_ms().items()})}")
     _, busy = profile_device(lambda: step_fn(params, opt, tokens), device,
-                             step_s * 1e3)
+                             step_s * 1e3, focus=("flash_fwd", "flash_dq",
+                                                  "flash_dkv"))
     log(f"training: one step under the profiler: {busy}")
     return launches, steps, cfg.n_layers
 
@@ -1014,6 +1059,9 @@ def main():
     built = _kernels.build()
     log(f"kernels built in {time.monotonic() - t0:.1f} s: "
         f"{sorted(built) or 'all up to date'}")
+    for lib, kernel in SM90_KERNELS.items():
+        log(f"ptxas, {kernel}: "
+            f"{ptxas_report(built.get(lib) or _kernels.build_log(lib), kernel)}")
 
     kern = phase_kernel(device)
     decode = phase_decode(device)

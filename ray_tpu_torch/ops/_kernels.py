@@ -99,13 +99,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     logs = {}
     for name, (proc, tmp, out) in running.items():
         log, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(log)
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
         logs[name] = log
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the library's current build ("" if it was
+    not built here)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def launch(name: str, entry: str, device, *args) -> None:

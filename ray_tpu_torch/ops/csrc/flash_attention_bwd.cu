@@ -17,21 +17,50 @@
 //
 // What bounds them on the card: operations. At the training path's shape
 // (BH 192, L 2048, D 128, causal) dq does 3 products (3.09e11 FLOP, 0.31 ms
-// at the bf16 tensor-core peak) and dk/dv 4 (4.12e11 FLOP, 0.42 ms); the
-// bytes take about 0.15 ms. Design, kept simple for a first port: as the
-// TPU grids, one block per (bh, q tile) walking the key tiles for dq, and
-// one block per (bh, k tile) walking the query tiles for dk/dv, each
-// accumulating its own rows in shared memory, so no two blocks write the
-// same output and nothing needs atomics. Causal blocks skip the tiles above
-// the diagonal. Products go through flash::tile_mm (wmma on the tensor
-// cores for bf16). Fusing the two kernels, overlapping loads with the math
-// and wgmma are the next steps.
+// at the bf16 tensor-core peak of 989 TFLOP/s) and dk/dv 4 (4.12e11 FLOP,
+// 0.42 ms); the bytes take about 0.15 ms.
+//
+// flash_dq_kernel (fp32 and bf16) and flash_dkv_kernel (fp32), the first
+// port's design: as the TPU grids, one block per (bh, q tile) walking the
+// key tiles for dq, and one block per (bh, k tile) walking the query tiles
+// for dk/dv, each accumulating its own rows in shared memory; products
+// through flash::tile_mm (wmma on the tensor cores for bf16, CUDA cores for
+// fp32, the training oracle).
+//
+// bf16 dk/dv, flash_dkv_sm90_kernel: one block per (bh, 128-key tile), the
+// blocks of 8 bh's in flight together so their q and do stay in L2, the
+// first key tiles (which see the most query rows) first among them. A
+// producer warpgroup, one thread of which issues the TMA loads: k and v of
+// the block once, then 64-row query tiles (q, do, and their 64 lse and
+// delta values by bulk copy) through a 2-slot mbarrier ring. Two consumer
+// warpgroups own 64 keys each and compute everything transposed, so every
+// product has its A operand in shared memory or registers and its
+// accumulator in registers:
+//   s^T = k . q^T, dp^T = v . do^T (wgmma m64n64k16, operands in shared
+//   memory), p^T = exp(s^T * sm_scale - lse[column]) (2^x by ex2.approx)
+//   with causal masking on the diagonal tiles only,
+//   ds^T = p^T (dp^T - delta[column]);
+//   dv += bf16(p^T) . do and dk += bf16(ds^T) . q (wgmma m64n128k16, A in
+//   registers, do and q read MN-major with the transpose bit); the dk
+//   product overlaps the computation of ds^T.
+// dk and dv stay in registers (2 x 64 fp32 a thread) for the block's life;
+// the Pallas body's per-tile "* sm_scale" on dk's products is applied once
+// to the fp32 sum in the epilogue, which moves results by fp32 rounding
+// only, far below the bf16 output's step. What the design does about the
+// first port's limits: no accumulator goes through shared memory; wgmma
+// replaces wmma; loads overlap the math, consumers waiting only on the
+// mbarrier of the tile they need; setmaxnreg gives the consumers 240
+// registers, and k, v and the ring take 130 KB. dk and dv leave through
+// shared memory (the warpgroup's k and v rows) by TMA stores, which drop
+// keys at or past Lk. No two blocks write the same rows, nothing uses
+// atomics, and the output is bit-for-bit repeatable.
 //
 // Plain C interface (loaded with ctypes): flash_attention_dq() and
 // flash_attention_dkv() launch on the given stream and return the
 // cudaError_t of the launch.
 
 #include "flash_attention.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -231,6 +260,213 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// --------------------------------------------- bf16 dk/dv: wgmma + TMA ring
+
+namespace dkv90 {
+
+using namespace sm90;
+
+constexpr int kKeys = 128;    // keys of a block (64 per consumer warpgroup)
+constexpr int kQRows = 64;    // query rows of a streamed tile
+constexpr int kStages = 2;    // query-tile ring slots
+constexpr int kThreads = 384;  // producer + two consumer warpgroups
+constexpr uint32_t kBoxK = kKeys * 128;   // a [128][64] bf16 box: 16 KB
+constexpr uint32_t kBoxQ = kQRows * 128;  // a [64][64] bf16 box: 8 KB
+// shared memory, from a 1024-byte aligned base: k and v (two boxes each),
+// then per ring slot q, do (two boxes each), lse and delta (64 fp32 each),
+// then the barriers (k/v full; full and empty per slot)
+constexpr uint32_t kK = 0, kV = 2 * kBoxK;
+constexpr uint32_t kSlot0 = 4 * kBoxK;
+constexpr uint32_t kQ = 0, kDo = 2 * kBoxQ, kLse = 4 * kBoxQ;
+constexpr uint32_t kDelta = kLse + 4 * kQRows;
+constexpr uint32_t kSlotBytes = kDelta + 4 * kQRows + 512;  // 1024-aligned
+constexpr uint32_t kBars = kSlot0 + kStages * kSlotBytes;
+constexpr size_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+constexpr uint32_t kSlotTx = 4 * kBoxQ + 8 * kQRows;  // bytes per q tile
+static_assert(kSlotBytes % 1024 == 0, "ring slots keep the swizzle");
+
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dk,
+    const __grid_constant__ CUtensorMap tm_dv,
+    const float* __restrict__ lse, const float* __restrict__ delta, int BH,
+    int Lq, int Lk, int causal, float sm_scale) {
+  const TileOrder order = tile_order(BH, (Lk + kKeys - 1) / kKeys);
+  const int bh = order.bh;
+  const int k0 = order.rank * kKeys;  // causal: the first tiles see most rows
+  // causal: query tile qt sees a key of the block once qt * 64 + 63 >= k0
+  const int qt0 = causal ? k0 / kQRows : 0;
+  const int n_iter = max(Lq / kQRows - qt0, 0);
+
+  unsigned char* raw = dynamic_smem();
+  const uint32_t raw_addr = smem_addr(raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;
+  unsigned char* smem = raw + (base - raw_addr);
+  const uint32_t kv_full = base + kBars;
+  auto full = [&](int s) { return base + kBars + 8 + 8 * s; };
+  auto empty = [&](int s) { return base + kBars + 8 + 8 * (kStages + s); };
+  auto slot = [&](int s) { return kSlot0 + s * kSlotBytes; };
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), 2 * 128);  // every consumer thread
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      bar_expect_tx(kv_full, 4 * kBoxK);
+      tma_load(base + kK, &tm_k, kv_full, 0, k0, bh);
+      tma_load(base + kK + kBoxK, &tm_k, kv_full, 64, k0, bh);
+      tma_load(base + kV, &tm_v, kv_full, 0, k0, bh);
+      tma_load(base + kV + kBoxK, &tm_v, kv_full, 64, k0, bh);
+      for (int it = 0; it < n_iter; ++it) {
+        const Ring<kStages> r(it);
+        const int q0 = (qt0 + it) * kQRows;
+        const uint32_t d = base + slot(r.slot);
+        bar_wait(empty(r.slot), r.parity ^ 1);
+        bar_expect_tx(full(r.slot), kSlotTx);
+        tma_load(d + kQ, &tm_q, full(r.slot), 0, q0, bh);
+        tma_load(d + kQ + kBoxQ, &tm_q, full(r.slot), 64, q0, bh);
+        tma_load(d + kDo, &tm_do, full(r.slot), 0, q0, bh);
+        tma_load(d + kDo + kBoxQ, &tm_do, full(r.slot), 64, q0, bh);
+        bulk_load(d + kLse, lse + (size_t)bh * Lq + q0, 4 * kQRows,
+                  full(r.slot));
+        bulk_load(d + kDelta, delta + (size_t)bh * Lq + q0, 4 * kQRows,
+                  full(r.slot));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns keys k0 + 64 w .. + 63
+  regs_inc<240>();
+  const int w = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int key0 = k0 + 64 * w + 16 * warp + g;  // keys key0, key0 + 8
+  const uint32_t ka = base + kK + 64 * w * 128;  // this warpgroup's k rows
+  const uint32_t va = base + kV + 64 * w * 128;  // and v rows
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  bar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const Ring<kStages> r(it);
+    const int q0 = (qt0 + it) * kQRows;
+    const uint32_t qb = base + slot(r.slot) + kQ;
+    const uint32_t dob = base + slot(r.slot) + kDo;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + slot(r.slot) + kLse);
+    const float* delta_s =
+        reinterpret_cast<const float*>(smem + slot(r.slot) + kDelta);
+
+    // s^T = k . q^T and dp^T = v . do^T (64 keys x 64 queries, fp32)
+    float st[32], dpt[32];
+    bar_wait(full(r.slot), r.parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      mma_ss_n64(st, desc_k(ka, kBoxK, kk), desc_k(qb, kBoxQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      mma_ss_n64(dpt, desc_k(va, kBoxK, kk), desc_k(dob, kBoxQ, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p^T = exp(s^T * sm_scale - lse[query]); masked (causal diagonal
+    // tiles, keys past Lk) to 0
+    const bool edge = (causal && q0 < k0 + kKeys) || k0 + kKeys > Lk;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = acc_col(i, t);
+      float p = ex2(st[i] * scale_log2 - lse_s[col] * kLog2e);
+      if (edge) {
+        const int key = key0 + 8 * acc_half(i);
+        if (key >= Lk || (causal && q0 + col < key)) p = 0.f;
+      }
+      st[i] = p;
+    }
+    // dv += bf16(p^T) . do, in flight while ds^T is formed
+    uint32_t pa[16];
+    a_frag(pa, st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs_n128(dv, pa + 4 * kk, desc_mn(dob, kBoxQ, kk));
+    wgmma_commit();
+    // ds^T = p^T (dp^T - delta[query]); dk += bf16(ds^T) . q
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dpt[i] = st[i] * (dpt[i] - delta_s[acc_col(i, t)]);
+    uint32_t dsa[16];
+    a_frag(dsa, dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs_n128(dk, dsa + 4 * kk, desc_mn(qb, kBoxQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    bar_arrive(empty(r.slot));
+  }
+
+  // epilogue: dk * sm_scale and dv as bf16 into this warpgroup's k and v
+  // rows (read by no one now), then TMA stores
+  const float dk_scale[2] = {sm_scale, sm_scale}, one[2] = {1.f, 1.f};
+  store_acc_bf16(smem + kK + 64 * w * 128, kBoxK, dk, dk_scale, warp, g, t);
+  store_acc_bf16(smem + kV + 64 * w * 128, kBoxK, dv, one, warp, g, t);
+  fence_async_smem();
+  named_sync(1 + w, 128);
+  if (tid == 0 && k0 + 64 * w < Lk) {
+    tma_store(&tm_dk, ka, 0, k0 + 64 * w, bh);
+    tma_store(&tm_dk, ka + kBoxK, 64, k0 + 64 * w, bh);
+    tma_store(&tm_dv, va, 0, k0 + 64 * w, bh);
+    tma_store(&tm_dv, va + kBoxK, 64, k0 + 64 * w, bh);
+    tma_store_wait();
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int BH, int Lq, int Lk, int causal,
+                   float sm_scale, cudaStream_t stream) {
+  const void* ptrs[] = {q, k, v, dout, lse, delta, dk, dv};
+  cudaError_t err = check_args(BH, Lq, Lk, kQRows, ptrs, 8);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
+  if ((err = make_tmap(&tm_q, q, BH, Lq, kQRows)) != cudaSuccess ||
+      (err = make_tmap(&tm_do, dout, BH, Lq, kQRows)) != cudaSuccess ||
+      (err = make_tmap(&tm_k, k, BH, Lk, kKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_v, v, BH, Lk, kKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_dk, dk, BH, Lk, 64)) != cudaSuccess ||
+      (err = make_tmap(&tm_dv, dv, BH, Lk, 64)) != cudaSuccess)
+    return err;
+  err = allow_smem(flash_dkv_sm90_kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = BH * ((Lk + kKeys - 1) / kKeys);
+  flash_dkv_sm90_kernel<<<blocks, kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), BH, Lq, Lk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace dkv90
+
 }  // namespace
 
 extern "C" {
@@ -265,9 +501,8 @@ int flash_attention_dkv(int dtype, const void* q, const void* k,
     return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, BH,
                                        Lq, Lk, causal, sm_scale, s);
   if (dtype == kBF16)
-    return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk,
-                                               dv, BH, Lq, Lk, causal,
-                                               sm_scale, s);
+    return (int)dkv90::launch(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk,
+                              causal, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -100,6 +100,61 @@ def test_plain_fwd_and_bwd_match_pallas_interpret(dtype, causal, Lq, Lk):
         assert_close(got, want, dtype, "grad")
 
 
+def _worst_ratio(got, want, rtol):
+    """Worst per-row |got - want| / (rtol * max|want| + 1e-5)."""
+    got, want = _np(got), _np(want)
+    err = np.abs(got - want).max(-1)
+    return float((err / (rtol * np.abs(want).max(-1) + 1e-5)).max())
+
+
+# the bf16 CUDA kernels' tiles: the forward's 128 q rows x 128 keys, the
+# dk/dv kernel's 64 q rows x 128 keys
+FWD_TILES, BWD_TILES = (128, 128), (64, 128)
+CARD_RTOL = 2.0 ** -6   # chip_smoke.py's and the card tests' per-row limit
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_versions_at_the_kernel_tiles_hold_the_card_limit(causal):
+    """The card holds the kernels against the plain versions at their
+    default 256-row blocks within CARD_RTOL; that limit rests on how far
+    the tiling alone moves a bf16 result. Here the plain versions at the
+    kernels' tiles stand in for the kernels: against the default blocks
+    within CARD_RTOL, and against the Pallas kernels in interpret mode at
+    the same tiles within this module's own limits."""
+    BH, L, D = 2, 512, 128
+    q, k, v, do = _arrays((BH, L, D), 10, 4)
+    dlse = _arrays((BH, L), 11)[0]
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (_torch(a, "bfloat16") for a in (q, k, v, do))
+    o_t, lse_t = tfa._fwd_reference(tq, tk, tv, causal, scale, *FWD_TILES)
+    o_d, lse_d = tfa._fwd_reference(tq, tk, tv, causal, scale)
+    delta = (tdo.float() * o_d.float()).sum(-1) - torch.from_numpy(dlse)
+    g_t = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale,
+                             *BWD_TILES)
+    g_d = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale)
+    ratios = {name: _worst_ratio(got, want, CARD_RTOL) for name, got, want
+              in zip(("o", "dq", "dk", "dv"), (o_t, *g_t), (o_d, *g_d))}
+    assert max(ratios.values()) <= 1, f"tiles vs 256-row blocks: {ratios}"
+    np.testing.assert_allclose(_np(lse_t), _np(lse_d), rtol=1e-5, atol=1e-5)
+
+    # the Pallas kernels in interpret mode at the same tiles
+    jq, jk, jv, jdo = (_jax(a, "bfloat16") for a in (q, k, v, do))
+    jo, jlse = jfa._fwd_call(jq, jk, jv, causal, scale, *FWD_TILES, True)
+    jgrads = jfa._bwd_call(jq, jk, jv, jo, jlse, jdo, causal, scale,
+                           *BWD_TILES, True, dlse=jnp.asarray(dlse))
+    o_j = torch.from_numpy(_np(jo).copy()).to(torch.bfloat16)
+    lse_j = torch.from_numpy(_np(jlse)[:, 0].copy())
+    tgrads = tfa._bwd_call(tq, tk, tv, o_j, lse_j, tdo, causal, scale,
+                           *BWD_TILES, dlse=torch.from_numpy(dlse))
+    vs_pallas = {"o": _worst_ratio(o_t, jo, BF16_RTOL["out"])}
+    vs_pallas.update({name: _worst_ratio(got, want, BF16_RTOL["grad"])
+                      for name, got, want in zip(("dq", "dk", "dv"), tgrads,
+                                                 jgrads)})
+    assert max(vs_pallas.values()) <= 1, f"vs Pallas: {vs_pallas}"
+    np.testing.assert_allclose(_np(lse_t), _np(jlse)[:, 0], rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,Lq,Lk", [(True, 64, 64), (False, 64, 32),
                                           (True, 32, 64)])

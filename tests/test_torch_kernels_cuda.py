@@ -22,11 +22,12 @@ F32, BF16, I8 = torch.float32, torch.bfloat16, torch.int8
 # values that differ by summation order, so they differ by at most one
 # bf16 step of the row's largest value (2^-7 of it).
 TOL = {F32: (1e-5, 1e-6), BF16: (2.0 ** -7, 1e-5)}
-# Flash kernels vs their plain versions, bf16: the kernels' 64-row tiles and
-# the plain versions' 256-row blocks rescale p by different running maxima
-# before rounding it (and ds) to bf16, which can move a row's terms by one
-# more bf16 step: 2^-6 of the row's largest value (on the CPU, 64- against
-# 256-row blocks of the plain version reach 0.995 of 2^-7).
+# Flash kernels vs their plain versions, bf16: the forward's 128-key tiles
+# and the plain version's 256-key blocks rescale p by different running
+# maxima before rounding it to bf16, which can move a row's terms by one
+# more bf16 step: 2^-6 of the row's largest value (on the CPU the plain
+# versions at the kernels' tiles against their 256-row blocks reach 0.495
+# of it: tests/test_torch_flash_attention.py).
 FLASH_TOL = {F32: (1e-5, 1e-6), BF16: (2.0 ** -6, 1e-5)}
 # (q dtype, pool dtype) pairs the engine runs: pools in q's dtype, or int8
 PAIRS = [(F32, F32), (BF16, BF16), (F32, I8), (BF16, I8)]
@@ -180,28 +181,44 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
         tpa.paged_attention(q, kp, vp, pt, sl, impl="reference")
 
 
+def _flash_inputs(device, dtype, BH, Lq, Lk, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn(BH, Lq, 128, generator=g, device=device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(BH, Lk, 128, generator=g, device=device).to(dtype)
+            for _ in range(2))
+    dlse = torch.randn(BH, Lq, generator=g, device=device)
+    return q, k, v, do, dlse
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("BH,Lq,Lk", [(2, 128, 128), (8, 256, 256),
                                       (4, 512, 512), (4, 128, 256),
-                                      (3, 256, 128)])
+                                      (3, 256, 128),
+                                      # multiples of 64, not of 128: the
+                                      # bf16 kernels' 128-row tiles run
+                                      # half past the end of a sequence
+                                      (3, 192, 192), (5, 320, 192),
+                                      (2, 192, 320), (2, 64, 64),
+                                      # 9 bh: the block order's last group
+                                      # of 8 bh holds one
+                                      (9, 256, 128)])
 def test_flash_kernels_match_plain_versions(cuda, dtype, causal, BH, Lq,
                                             Lk):
-    g = torch.Generator(device=cuda).manual_seed(BH * Lq + Lk)
-    q, do = (torch.randn(BH, Lq, 128, generator=g, device=cuda).to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(BH, Lk, 128, generator=g, device=cuda).to(dtype)
-            for _ in range(2))
+    q, k, v, do, dlse = _flash_inputs(cuda, dtype, BH, Lq, Lk,
+                                      BH * Lq + Lk)
     scale = 128 ** -0.5
+    # the plain versions' blocks must divide L (64 for 192 and 320)
+    blocks = (tfa.pick_block(Lq), tfa.pick_block(Lk))
     before = dict(tfa.launch_counts)
     o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
-    o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
-    dlse = torch.randn(BH, Lq, generator=g, device=cuda)
+    o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale, *blocks)
     delta = (do.float() * o_ref.float()).sum(-1) - dlse
     grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
     grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
-                                   scale)
+                                   scale, *blocks)
     torch.cuda.synchronize()
     for name in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv"):
@@ -213,6 +230,24 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, BH, Lq,
     for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
         assert got.dtype == dtype and torch.isfinite(got).all(), name
         assert tolerance_ratio(got, want, FLASH_TOL) <= 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_are_repeatable(cuda, causal):
+    # no atomics and a fixed order of sums: two calls on the same inputs
+    # give the same bits (forward, and dk/dv, which the bf16 path redesigned)
+    q, k, v, do, dlse = _flash_inputs(cuda, BF16, 3, 320, 192, 7)
+    scale = 128 ** -0.5
+    runs = []
+    for _ in range(2):
+        o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1) - dlse
+        runs.append((o, lse, *tfa._bwd_cuda(q, k, v, lse, do, delta, causal,
+                                             scale)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
