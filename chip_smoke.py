@@ -54,6 +54,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -185,17 +186,34 @@ def attention_bound_ms(q, k_pages, q_len, kv_len, token_vis, scales):
 
 
 def ptxas_report(build_log, kernel):
-    """What ``-Xptxas -v`` says of one kernel (the entry whose mangled
-    name holds ``kernel``), its lines joined: stack and spill bytes,
-    registers and barriers."""
-    lines, inside = [], False
+    """What ``-Xptxas -v`` says of one kernel (the entries whose mangled
+    name holds ``kernel``): for one entry its lines joined (stack and
+    spill bytes, registers and barriers); for a template built several
+    times, the number of entries, the range of their registers and the
+    largest spill and stack bytes."""
+    entries, inside = [], False
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             inside = kernel in line
+            if inside:
+                entries.append([])
         elif inside and ("spill" in line or "Used" in line):
-            lines.append(line.replace("ptxas info    :", "").strip())
-    assert lines, f"no ptxas report for {kernel}"
-    return "; ".join(lines)
+            entries[-1].append(line.replace("ptxas info    :", "").strip())
+    assert entries and all(entries), f"no ptxas report for {kernel}"
+    if len(entries) == 1:
+        return "; ".join(entries[0])
+
+    lines = sum(entries, [])
+
+    def most(pattern, lines):
+        return max(int(m) for ln in lines for m in re.findall(pattern, ln))
+    regs = [most(r"Used (\d+) registers", e) for e in entries]
+    stack = most(r"(\d+) bytes stack", lines)
+    stores = most(r"(\d+) bytes spill stores", lines)
+    loads = most(r"(\d+) bytes spill loads", lines)
+    return (f"{len(entries)} instantiations, {min(regs)}-{max(regs)} "
+            f"registers, at most {stack} bytes stack, {stores} bytes spill "
+            f"stores, {loads} bytes spill loads")
 
 
 # ---------------------------------------------------- phase 3: the kernel
@@ -264,6 +282,18 @@ def sdpa_inputs(q, kp, vp, pt, q_start, q_len, kv_len, k_scale, v_scale):
     return qpad, ks, vs, mask, rows, token_vis
 
 
+def ragged_profile(fn, device, ms, flush):
+    """One call of fn under the profiler, the L2 flushed before it: the
+    ragged kernels' CUDA launches and device time. A window that records
+    no device activity (seen once in a run of several) is taken again."""
+    for _ in range(3):
+        flush.zero_()
+        _, summary = profile_device(fn, device, ms, focus=("ragged",))
+        if "ragged x0 " not in summary:
+            break
+    return summary
+
+
 def phase_kernel(device):
     import torch.nn.functional as F
     from ray_tpu_torch.ops import paged_attention as tpa
@@ -274,6 +304,10 @@ def phase_kernel(device):
     owned = torch.zeros(T, dtype=torch.bool, device=device)
     for s, n in zip(qs.tolist(), ql.tolist()):
         owned[s:s + n] = True
+    # the engine's hints: its max_batch decode rows, chunks of up to 512
+    hints = dict(decode_rows=MAIN_ENGINE["max_batch"], max_q_len=512)
+    prefill_rows = torch.arange(len(ql), device=device) >= hints[
+        "decode_rows"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     ksc8, vsc8 = None, None
     out = {}
@@ -284,19 +318,43 @@ def phase_kernel(device):
         else:
             k, v = kp, vp
         sc = dict(k_scale=ksc8, v_scale=vsc8) if pools == "int8" else {}
-        got = tpa.ragged_paged_attention(q, k, v, pt, qs, ql, kl, **sc)
+        got = tpa.ragged_paged_attention(q, k, v, pt, qs, ql, kl, **sc,
+                                         **hints)
         ref = tpa.ragged_paged_attention_reference(q, k, v, pt, qs, ql, kl,
-                                                   **sc)
+                                                   **sc, **hints)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         ratio = tolerance_ratios(got, ref).max().item()
         assert torch.isfinite(got).all(), f"{pools}: non-finite output"
         assert ratio <= 1, f"{pools}: kernel vs plain at {ratio} x the limit"
         assert bool((got[~owned] == 0).all()), f"{pools}: padding not 0"
+        # planted prefill fault: each prefill token drops its last visible
+        # slot; every prefill token must then fail the check on some head.
+        # Not every (token, head): a head whose dropped slot had a tiny
+        # probability moves by less than the limit; their share is logged
+        fault = tpa.ragged_paged_attention_reference(
+            q, k, v, pt, qs, ql, kl - prefill_rows.int(), **sc, **hints)
+        pre = torch.zeros_like(owned)
+        for s, n in zip(qs[prefill_rows].tolist(), ql[prefill_rows].tolist()):
+            pre[s:s + n] = True
+        caught = tolerance_ratios(fault, ref)[pre]          # [tokens, Hq]
+        assert bool((caught.amax(-1) > 1).all()), \
+            f"{pools}: prefill fault not caught: {caught.amax(-1).min()}"
+        log(f"planted fault ({pools}: each prefill token drops its last "
+            f"slot): all {caught.shape[0]} prefill tokens fail, the weakest "
+            f"at {caught.amax(-1).min().item():.1f} x the limit; "
+            f"{(caught > 1).float().mean().item():.1%} of their (token, "
+            f"head) pairs fail")
         kern_ms = time_ms(lambda: tpa.ragged_paged_attention(
-            q, k, v, pt, qs, ql, kl, **sc), flush=flush)
+            q, k, v, pt, qs, ql, kl, **sc, **hints), flush=flush)
         plain_ms = time_ms(lambda: tpa.ragged_paged_attention_reference(
-            q, k, v, pt, qs, ql, kl, **sc), iters=3, flush=flush)
+            q, k, v, pt, qs, ql, kl, **sc, **hints), iters=3, flush=flush)
+        launches = ragged_profile(lambda: tpa.ragged_paged_attention(
+            q, k, v, pt, qs, ql, kl, **sc, **hints), device, kern_ms, flush)
+        sweep = {n: round(time_ms(lambda: tpa._ragged_attention_cuda(
+            q, k, v, pt, qs, ql, kl, ksc8, vsc8, q.shape[-1] ** -0.5,
+            pages_per_split=n, **hints), flush=flush), 4)
+            for n in (4, 16, 32)}
         sq, sk, sv, mask, rows, token_vis = sdpa_inputs(
             q, k, v, pt, qs, ql, kl, ksc8, vsc8)
         lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
@@ -315,14 +373,17 @@ def phase_kernel(device):
             f"max_abs_err {err:.3e}, worst {ratio:.3f} x the tolerance, "
             f"kernel {kern_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f}"
-            f" ms ({bound_by})")
+            f" ms ({bound_by}); kernel ms with other pages_per_split: "
+            f"{sweep}; one call under the profiler: {launches}")
         out[pools] = dict(max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
     # the decode loop's shape: 8 decode rows, T == R == 8
     dq, dk, dv, dpt, dqs, dql, dkl = mixed_batch(device, chunks=(),
                                                  capacity=8)
-    dgot = tpa.ragged_paged_attention(dq, dk, dv, dpt, dqs, dql, dkl)
+    dhints = dict(decode_rows=8, max_q_len=1)   # as ragged_decode_loop
+    dgot = tpa.ragged_paged_attention(dq, dk, dv, dpt, dqs, dql, dkl,
+                                      **dhints)
     dref = tpa.ragged_paged_attention_reference(dq, dk, dv, dpt, dqs, dql,
                                                 dkl)
     derr = (dgot.float() - dref.float()).abs().max().item()
@@ -341,7 +402,12 @@ def phase_kernel(device):
         f"{[round(x, 1) for x in caught.tolist()]} x the tolerance")
     _, dvis = tpa._token_descriptors(dqs, dql, dkl, 8)
     dms = time_ms(lambda: tpa.ragged_paged_attention(
-        dq, dk, dv, dpt, dqs, dql, dkl), flush=flush)
+        dq, dk, dv, dpt, dqs, dql, dkl, **dhints), flush=flush)
+    dlaunches = ragged_profile(lambda: tpa.ragged_paged_attention(
+        dq, dk, dv, dpt, dqs, dql, dkl, **dhints), device, dms, flush)
+    dsweep = {n: round(time_ms(lambda: tpa._ragged_attention_cuda(
+        dq, dk, dv, dpt, dqs, dql, dkl, None, None, dq.shape[-1] ** -0.5,
+        pages_per_split=n, **dhints), flush=flush), 4) for n in (4, 16, 32)}
     dplain = time_ms(lambda: tpa.ragged_paged_attention_reference(
         dq, dk, dv, dpt, dqs, dql, dkl), iters=3, flush=flush)
     dbound, dby = attention_bound_ms(dq, dk, dql, dkl, dvis, False)
@@ -355,9 +421,13 @@ def phase_kernel(device):
     dlib = time_ms(lambda: F.scaled_dot_product_attention(
         sq, sk, sv, attn_mask=mask, enable_gqa=True), flush=flush)
     log(f"ragged_paged_attention bf16 pools decode T=8: max_abs_err "
-        f"{derr:.3e}, worst {dratio:.3f} x the tolerance, kernel {dms:.4f} ms, plain {dplain:.4f} ms, sdpa "
-        f"{dlib:.4f} ms, bound {dbound:.4f} ms ({dby})")
+        f"{derr:.3e}, worst {dratio:.3f} x the tolerance, kernel "
+        f"{dms:.4f} ms, plain {dplain:.4f} ms, sdpa {dlib:.4f} ms, bound "
+        f"{dbound:.4f} ms ({dby}); kernel ms with other pages_per_split: "
+        f"{dsweep}; one call under the profiler: {dlaunches}")
     del flush
+    out["decode"] = dict(max_abs_err=derr, ms=dms, plain_ms=dplain,
+                         library_ms=dlib, bound_ms=dbound, bound_by=dby)
     return out
 
 
@@ -667,7 +737,8 @@ def phase_main_path(model_config=None, engine_config=None):
         t_hit = time.monotonic()
         hit = srv(hit_req)["token_ids"]
         hit_ms = (time.monotonic() - t_hit) * 1e3
-        _, busy = profile_device(lambda: srv(hit_req), eng.device, hit_ms)
+        _, busy = profile_device(lambda: srv(hit_req), eng.device, hit_ms,
+                                 focus=("ragged",))
         srv.check_health()
     finally:
         srv.shutdown()
@@ -779,7 +850,8 @@ FLASH_SHAPE = (8, 24, 2048, 128)    # B, H, L, D of the training path
 FLASH_TILE = 64
 # the bf16 kernels redesigned for Hopper, whose ptxas report phase 2 prints
 SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_sm90_kernel",
-                "flash_attention_bwd": "flash_dkv_sm90_kernel"}
+                "flash_attention_bwd": "flash_dkv_sm90_kernel",
+                "ragged_paged_attention": "ragged_sm90_kernel"}
 
 
 def causal_off_by_one(q, k, v, scale):

@@ -35,9 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "ragged_paged_attention": ("ragged_paged_attention.cu", {
         # q_dtype, kv_dtype, q, k_pages, v_pages, k_scale, v_scale,
-        # page_table, q_start, q_len, kv_len, out, T, R, Hq, Hkv, ps, D,
-        # max_pages, sm_scale, stream
-        "ragged_paged_attention": [_I, _I] + [_P] * 10 + [_I] * 7
+        # page_table, q_start, q_len, kv_len, out, work, T, R, Hq, Hkv, ps,
+        # D, max_pages, decode_rows, q_blocks, pages_per_split, sm_scale,
+        # stream
+        "ragged_paged_attention": [_I, _I] + [_P] * 11 + [_I] * 10
         + [_F, _P]}),
     "paged_attention": ("paged_attention.cu", {
         # dtype, q, k_pages, v_pages, page_table, seq_lens, out, work, B,

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): TMA tensor maps, loads
-// and stores; the mbarrier ring; wgmma descriptors and instructions (bf16
-// operands, fp32 accumulators in registers); the accumulator fragment
-// helpers the register softmax works on. Written from the PTX ISA.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and of the ragged
+// kernel's prefill tiles (ragged_paged_attention.cu): TMA tensor maps,
+// loads and stores; cp.async; the mbarrier ring; wgmma descriptors and
+// instructions (bf16 operands, fp32 accumulators in registers); the
+// accumulator fragment helpers the register softmax works on. Written from
+// the PTX ISA.
 //
 // Tiles in shared memory. A [rows, 128] bf16 tile is held as two TMA boxes
 // of [rows][64] (d 0..63, then d 64..127), each row 128 bytes with the
@@ -202,7 +204,28 @@ __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-// make this thread's shared-memory writes visible to the TMA unit
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+// (src is then not read). Completion: cp_async_commit groups the copies
+// issued so far, cp_async_wait<n> waits until at most n groups are pending.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 16 : 0)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// make this thread's shared-memory writes (stores and completed cp.async
+// copies) visible to the async proxy: the TMA unit and wgmma's operand reads
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }

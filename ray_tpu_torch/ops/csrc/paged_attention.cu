@@ -21,25 +21,13 @@
 // lengths, so the host reads nothing. A split that starts past its
 // sequence's end writes an empty partial (m = -inf, l = 0) and stops.
 // The block reads its q_per_kv query rows once, into registers, and each
-// K/V page once for all of them. Per page: thread (slot j, chunk c) holds
-// a 1/TPS slice of slot j's K row (TPS = 128 / ps threads per slot) and
-// the same slice of every query row; the partial dots are summed over the
-// slot's TPS lanes by shuffles; one warp per query head then makes the
-// page's online-softmax update; V goes to shared memory as fp32 (slots
-// past the length as 0), and each thread accumulates p.v for one head-dim
-// column of every query head in registers. The next page's K and V loads
-// (16-byte vectors) are issued before this page's softmax and p.v, so they
-// fly during them. A second launch merges the splits' (m, l, acc) in split
-// order, without atomics, so the result is deterministic; with a single
-// split the first launch writes the output itself.
-//
-// Exactly as the TPU kernel, per page: the fp32 score is scaled after the
-// product; slots at or past the length are -inf and give p = 0; m_new =
-// max(m, page max); the rescale is 0 while m is -inf; l sums the unrounded
-// p; p is rounded to v's dtype before p.v, accumulated in fp32; the output
-// is acc / max(l, 1e-30), so a length-0 sequence comes back exactly 0.
-// The merge: M = max m_i, o = sum e^(m_i - M) acc_i /
-// max(sum e^(m_i - M) l_i, 1e-30) over the non-empty splits.
+// K/V page once for all of them, the next page's 16-byte loads in flight
+// during this page's softmax and p.v. A second launch merges the splits'
+// (m, l, acc) in split order, without atomics, so the result is
+// deterministic; with a single split the first launch writes the output
+// itself. The walk and the merge live in paged_split.cuh, which the
+// ragged kernel's decode rows share; the arithmetic, per page exactly as
+// the TPU kernel's, is described there.
 //
 // It reads no page id at or past ceil(len / ps), so the table's unused
 // tail may hold anything, and takes the ids it reads as lying in [0, P).
@@ -51,53 +39,16 @@
 // Plain C interface (loaded with ctypes): paged_attention() launches on
 // the given stream and returns the cudaError_t of the launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "paged_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // four warps per block
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+using paged::kThreads;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// p in v's dtype, as the TPU kernel's p.astype(v.dtype)
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 16 bytes of elements, widened to fp32
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       const float*) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       const __nv_bfloat16*) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(p[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
+// grid (split, kv head, sequence): the block walks one split of the
+// sequence's pages for one kv head (paged_split.cuh)
 template <typename T, int kPS, int kQpk, int kD>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q,                 // [B, Hq, D]
@@ -108,205 +59,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     T* __restrict__ out,                     // [B, Hq, D]: one split
     float* __restrict__ work,                // partials: several splits
     int Hkv, int max_pages, int pages_per_split, float sm_scale) {
-  constexpr int kN = 16 / sizeof(T);     // elements per 16-byte vector
-  constexpr int kTPS = kThreads / kPS;   // threads per slot
-  constexpr int kEPT = kD / kTPS;        // head-dim elements per thread
-  constexpr int kVec = kEPT / kN;        // K (and V) vectors per thread
-  constexpr int kCols = kD / kThreads;   // p.v columns per thread
-  constexpr int kRows = (kQpk + kWarps - 1) / kWarps;  // heads per warp
-  static_assert(kTPS * kPS == kThreads && kTPS <= 32, "page size");
-  static_assert(kEPT % kN == 0 && kD % kThreads == 0, "head dim");
-  static_assert(kVec * kN * kThreads == kPS * kD, "V vectors per thread");
-
-  __shared__ __align__(16) float v_s[2][kPS * kD];  // V of a page, fp32
-  __shared__ float s_s[kQpk][kPS];                  // the page's scores
-  __shared__ __align__(16) float p_s[kQpk][kPS];    // p in v's dtype
-  __shared__ float c_s[kQpk];                       // the page's rescale
-  __shared__ float m_s[kQpk], l_s[kQpk];
-
+  __shared__ paged::SplitSmem<kPS, kQpk, kD> sm;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Hq = Hkv * kQpk;
   const size_t row0 = (size_t)b * Hq + (size_t)h * kQpk;  // first q row
-  const size_t rows = (size_t)gridDim.z * Hq;
-  float* m_w = work;                          // [B * Hq, n_splits]
-  float* l_w = work + rows * n_splits;        // [B * Hq, n_splits]
-  float* acc_w = work + 2 * rows * n_splits;  // [B * Hq, n_splits, D]
-
-  // visible slots (the table holds max_pages * ps) and this split's pages
+  // visible slots (the table holds max_pages * ps)
   const int len = min(max(seq_lens[b], 0), max_pages * kPS);
-  const int n_pages = (len + kPS - 1) / kPS;
-  const int p_begin = split * pages_per_split;
-  const int p_end = min(p_begin + pages_per_split, n_pages);
-  if (n_splits > 1 && p_begin >= p_end) {  // past the sequence: empty
-    if (tid < kQpk) {
-      m_w[(row0 + tid) * n_splits + split] = -INFINITY;
-      l_w[(row0 + tid) * n_splits + split] = 0.f;
-    }
-    return;
-  }
-
-  // thread (slot j, chunk c) covers head-dim elements c*kEPT .. +kEPT
-  const int j = tid / kTPS, c = tid % kTPS;
-  float qf[kQpk][kEPT];
-#pragma unroll
-  for (int qi = 0; qi < kQpk; ++qi)
-#pragma unroll
-    for (int v = 0; v < kVec; ++v)
-      unpack(load16(q + (row0 + qi) * kD + c * kEPT + v * kN),
-             &qf[qi][v * kN], q);
-
-  float m_r[kRows], l_r[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m_r[r] = -INFINITY;
-    l_r[r] = 0.f;
-  }
-  float acc[kQpk][kCols];
-#pragma unroll
-  for (int qi = 0; qi < kQpk; ++qi)
-#pragma unroll
-    for (int col = 0; col < kCols; ++col) acc[qi][col] = 0.f;
-
-  // K: this thread's slice of slot j; V: vectors tid, tid + kThreads, ...
-  const int32_t* pt = page_table + (size_t)b * max_pages;
-  uint4 kr[kVec], vr[kVec];
-  auto load_page = [&](int p) {
-    const size_t base = ((size_t)pt[p] * Hkv + h) * (kPS * kD);
-#pragma unroll
-    for (int v = 0; v < kVec; ++v) {
-      kr[v] = load16(k_pages + base + tid * kEPT + v * kN);
-      vr[v] = load16(v_pages + base + (size_t)(tid + v * kThreads) * kN);
-    }
-  };
-  if (p_begin < p_end) load_page(p_begin);
-
-  for (int p = p_begin, buf = 0; p < p_end; ++p, buf ^= 1) {
-    const int n = min(kPS, len - p * kPS);  // valid slots of this page
-    // V into shared memory; slots past the length as 0, so that p.v can
-    // run over the whole page (p is 0 there, and 0 * garbage may not be)
-    float* vb = v_s[buf];
-#pragma unroll
-    for (int v = 0; v < kVec; ++v) {
-      const int e = (tid + v * kThreads) * kN;  // element in the page
-      float f[kN];
-      unpack(vr[v], f, v_pages);
-      const bool valid = e / kD < n;
-#pragma unroll
-      for (int t = 0; t < kN; t += 4)
-        *reinterpret_cast<float4*>(vb + e + t) =
-            valid ? make_float4(f[t], f[t + 1], f[t + 2], f[t + 3])
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    // slot j's scores: partial dots over this thread's slice, summed over
-    // the slot's kTPS lanes
-    float kf[kEPT];
-#pragma unroll
-    for (int v = 0; v < kVec; ++v) unpack(kr[v], &kf[v * kN], k_pages);
-#pragma unroll
-    for (int qi = 0; qi < kQpk; ++qi) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < kEPT; ++i) dot = fmaf(qf[qi][i], kf[i], dot);
-#pragma unroll
-      for (int off = kTPS / 2; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(kFull, dot, off);
-      if (c == 0) s_s[qi][j] = j < n ? dot * sm_scale : -INFINITY;
-    }
-    // the next page's loads fly during this page's softmax and p.v
-    if (p + 1 < p_end) load_page(p + 1);
-    __syncthreads();
-
-    // the page's online-softmax update: one warp per query head, lane =
-    // slot
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = warp + r * kWarps;
-      if (qi < kQpk) {
-        const float s = lane < kPS ? s_s[qi][lane] : -INFINITY;
-        float mx = s;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-        const float m_new = fmaxf(m_r[r], mx);
-        const float pe = s == -INFINITY ? 0.f : expf(s - m_new);
-        float sum = pe;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(kFull, sum, off);
-        const float corr =
-            m_r[r] == -INFINITY ? 0.f : expf(m_r[r] - m_new);
-        if (lane < kPS) p_s[qi][lane] = round_to(pe, v_pages);
-        if (lane == 0) c_s[qi] = corr;
-        l_r[r] = l_r[r] * corr + sum;
-        m_r[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p.v for column tid (+ kThreads ...) of each head
-#pragma unroll
-    for (int qi = 0; qi < kQpk; ++qi) {
-      const float corr = c_s[qi];
-#pragma unroll
-      for (int col = 0; col < kCols; ++col) acc[qi][col] *= corr;
-    }
-#pragma unroll
-    for (int j0 = 0; j0 < kPS; j0 += 4) {
-      float vv[4][kCols];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int col = 0; col < kCols; ++col)
-          vv[t][col] = vb[(j0 + t) * kD + col * kThreads + tid];
-#pragma unroll
-      for (int qi = 0; qi < kQpk; ++qi) {
-        const float4 pp = *reinterpret_cast<const float4*>(&p_s[qi][j0]);
-#pragma unroll
-        for (int col = 0; col < kCols; ++col) {
-          float a = acc[qi][col];
-          a = fmaf(pp.x, vv[0][col], a);
-          a = fmaf(pp.y, vv[1][col], a);
-          a = fmaf(pp.z, vv[2][col], a);
-          a = fmaf(pp.w, vv[3][col], a);
-          acc[qi][col] = a;
-        }
-      }
-    }
-  }
-
-  // each warp's heads' m and l, for every thread
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = warp + r * kWarps;
-    if (qi < kQpk && lane == 0) {
-      m_s[qi] = m_r[r];
-      l_s[qi] = l_r[r];
-    }
-  }
-  __syncthreads();
-  if (n_splits == 1) {
-#pragma unroll
-    for (int qi = 0; qi < kQpk; ++qi) {
-      const float l = fmaxf(l_s[qi], 1e-30f);
-#pragma unroll
-      for (int col = 0; col < kCols; ++col)
-        store_f(out + (row0 + qi) * kD + col * kThreads + tid,
-                acc[qi][col] / l);
-    }
-    return;
-  }
-#pragma unroll
-  for (int qi = 0; qi < kQpk; ++qi)
-#pragma unroll
-    for (int col = 0; col < kCols; ++col)
-      acc_w[((row0 + qi) * n_splits + split) * kD + col * kThreads + tid] =
-          acc[qi][col];
-  if (tid < kQpk) {
-    m_w[(row0 + tid) * n_splits + split] = m_s[tid];
-    l_w[(row0 + tid) * n_splits + split] = l_s[tid];
-  }
+  const paged::SplitOut<T> dst{out + row0 * kD, work,
+                               (size_t)gridDim.z * Hq, row0};
+  paged::split_walk<T, T, false, kPS, kQpk, kD>(
+      sm, q + row0 * kD, k_pages, v_pages, nullptr, nullptr,
+      page_table + (size_t)b * max_pages, len, Hkv, h, split, gridDim.x,
+      pages_per_split, sm_scale, dst);
 }
 
 // One block per (sequence, query head) row: the splits' partials merged
@@ -315,33 +79,8 @@ template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads) paged_decode_merge_kernel(
     const float* __restrict__ work, T* __restrict__ out, int rows,
     int n_splits) {
-  constexpr int kCols = kD / kThreads;
   const size_t r = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* m_w = work + r * n_splits;
-  const float* l_w = work + (size_t)rows * n_splits + r * n_splits;
-  const float* acc_w =
-      work + 2 * (size_t)rows * n_splits + r * n_splits * kD;
-  float M = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, m_w[s]);
-  float num[kCols];
-#pragma unroll
-  for (int col = 0; col < kCols; ++col) num[col] = 0.f;
-  float den = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < n_splits; ++s) {
-    const float m = m_w[s];
-    if (m == -INFINITY) continue;  // an empty split
-    const float w = expf(m - M);
-    den += w * l_w[s];
-#pragma unroll
-    for (int col = 0; col < kCols; ++col)
-      num[col] += w * acc_w[(size_t)s * kD + col * kThreads + tid];
-  }
-#pragma unroll
-  for (int col = 0; col < kCols; ++col)
-    store_f(out + r * kD + col * kThreads + tid,
-            num[col] / fmaxf(den, 1e-30f));
+  paged::merge_splits<T, kD>(work, rows, r, n_splits, out + r * kD);
 }
 
 struct Args {

@@ -34,7 +34,10 @@ Two implementations of one function:
     (the oracle, and what runs on CPU tensors);
   - ``_ragged_attention_cuda``: the hand-written CUDA kernel
     (``csrc/ragged_paged_attention.cu``, replacing the TPU's
-    ``_ragged_kernel``), for CUDA tensors.
+    ``_ragged_kernel``), for CUDA tensors. For bf16 q its grid is planned
+    here from the shapes and the engine's static hints (``ragged_plan``):
+    decode rows split over pages, prefill rows in tiles of tokens x query
+    heads on the tensor cores.
 ``ragged_paged_attention`` dispatches by the tensors' device: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel, which raises on
 anything it does not take — there is no fallback from the card.
@@ -45,7 +48,7 @@ dequantized inside the attention.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -191,11 +194,61 @@ def _on_card(q, impl: Optional[str]) -> bool:
     return q.is_cuda
 
 
+#: rows of one prefill tile of the bf16 ragged kernel: BM tokens x the
+#: Hq / Hkv query heads of one kv head (one 64-row warpgroup tile)
+RAGGED_TILE_ROWS = 64
+#: pages each decode block of the bf16 ragged kernel walks
+RAGGED_PAGES_PER_SPLIT = 8
+
+
+class RaggedPlan(NamedTuple):
+    """The bf16 ragged kernel's grid for one call."""
+    decode_rows: int     # rows [0, decode_rows) take the decode splits
+    block_tokens: int    # BM: tokens of a prefill tile
+    q_blocks: int        # nb: q blocks per (prefill row, kv head)
+    prefill_blocks: int  # (R - decode_rows) * nb * Hkv
+    splits: int          # decode splits per (row, kv head)
+    decode_blocks: int   # decode_rows * Hkv * splits
+
+
+def ragged_plan(T: int, R: int, Hq: int, Hkv: int, max_pages: int,
+                decode_rows: int = 0, max_q_len: Optional[int] = None,
+                pages_per_split: int = RAGGED_PAGES_PER_SPLIT
+                ) -> RaggedPlan:
+    """The bf16 ragged kernel's grid from the shapes and the engine's
+    static hints alone, so the host reads nothing back. Rows [0,
+    decode_rows) (q_len <= 1 by contract) are decode rows, split over
+    pages; the split count comes from the table's shape. Every other row
+    gets nb = ceil(C / BM) prefill blocks per kv head, C = min(max_q_len
+    or T, T); a block covers its row's q blocks b, b + nb, ... up to the
+    row's q_len, so a hint that is too small costs time, never a token."""
+    Rd = min(max(int(decode_rows), 0), R)
+    bm = RAGGED_TILE_ROWS // (Hq // Hkv)
+    C = T if max_q_len is None else min(max(int(max_q_len), 1), T)
+    nb = max(1, -(-C // bm))
+    S = _n_splits(max_pages, pages_per_split)
+    return RaggedPlan(Rd, bm, nb, (R - Rd) * nb * Hkv, S, Rd * Hkv * S)
+
+
+def ragged_prefill_block(plan: RaggedPlan, R: int, Hkv: int, i: int):
+    """(row, first q block, kv head) of prefill block i, as the kernel
+    maps it: kv head fastest, then row, the last q blocks (which see the
+    most keys) first."""
+    rest, Rp = i // Hkv, R - plan.decode_rows
+    return (plan.decode_rows + rest % Rp, plan.q_blocks - 1 - rest // Rp,
+            i % Hkv)
+
+
 def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
                            q_len, kv_len, k_scale, v_scale,
-                           sm_scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel. Checks device, dtype, shape and contiguity
-    and raises on what the kernel does not take. Page ids in
+                           sm_scale: float, decode_rows: int = 0,
+                           max_q_len: Optional[int] = None,
+                           pages_per_split: int = RAGGED_PAGES_PER_SPLIT
+                           ) -> torch.Tensor:
+    """Launch the CUDA kernel (for bf16 q two launches, planned by
+    ``ragged_plan``; fp32 q takes the first port's one-block-per-token
+    kernel and ignores the hints). Checks device, dtype, shape and
+    contiguity and raises on what the kernel does not take. Page ids in
     ``page_table`` must lie in [0, P): the kernel reads them unchecked."""
     T, Hq, D = q.shape
     P, Hkv, ps, Dk = k_pages.shape
@@ -235,14 +288,34 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
     if q_start.shape != (R,) or q_len.shape != (R,) or kv_len.shape != (R,):
         raise ValueError(f"row descriptors must be [R={R}]")
 
+    if max_pages < 1 or int(decode_rows) < 0 or pages_per_split < 1:
+        raise ValueError(f"max_pages {max_pages}, decode_rows {decode_rows}"
+                         f", pages_per_split {pages_per_split}")
+    tiles = q.dtype == torch.bfloat16
+    if tiles and (ps not in DECODE_PAGE_SIZES
+                  or Hq // Hkv not in DECODE_Q_PER_KV):
+        raise ValueError(f"page size {ps}, {Hq // Hkv} query heads per kv "
+                         f"head: the bf16 kernel is built for pages of "
+                         f"{DECODE_PAGE_SIZES} and {DECODE_Q_PER_KV}")
+    if tiles and (q.data_ptr() % 16 or scales and (
+            k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16)):
+        raise ValueError("q and the scales must start on 16 bytes (vector "
+                         "loads)")
+
+    plan = ragged_plan(T, R, Hq, Hkv, max_pages, decode_rows, max_q_len,
+                       pages_per_split)
+    # every token is written: by its row's block, or with 0 by the
+    # kernel's second launch (fp32: by its own block)
     out = torch.empty_like(q)
-    # the kernel derives each token's row and visible length itself (what
-    # _token_descriptors computes), so no per-token tensors
+    work = torch.empty(plan.decode_rows * Hq * plan.splits * (D + 2),
+                       dtype=torch.float32, device=q.device) \
+        if tiles and plan.decode_rows and plan.splits > 1 else None
     _kernels.launch(
         "ragged_paged_attention", "ragged_paged_attention", q.device,
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], q, k_pages,
         v_pages, k_scale, v_scale, page_table, q_start, q_len, kv_len, out,
-        T, R, Hq, Hkv, ps, D, max_pages, float(sm_scale))
+        work, T, R, Hq, Hkv, ps, D, max_pages, plan.decode_rows,
+        plan.q_blocks, pages_per_split, float(sm_scale))
     if T:
         launch_counts["ragged_paged_attention"] += 1
     return out
@@ -255,10 +328,13 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start,
                            decode_rows: int = 0,
                            impl: Optional[str] = None) -> torch.Tensor:
     """Mixed prefill+decode attention over a ragged token batch in ONE
-    launch. CUDA tensors go to the kernel, CPU tensors to the plain
-    version. ``impl`` pins the choice and raises where it cannot hold:
-    "kernel" on CPU tensors, "reference" on CUDA tensors (compare against
-    the plain version by calling ``ragged_paged_attention_reference``).
+    call (one count in ``launch_counts``; for bf16 q the kernel makes two
+    CUDA launches). CUDA tensors go to the kernel, CPU tensors to the
+    plain version. ``decode_rows`` and ``max_q_len`` are static cost
+    hints, as in the JAX package: rows [0, decode_rows) must have q_len <=
+    1. ``impl`` pins the choice and raises where it cannot hold: "kernel"
+    on CPU tensors, "reference" on CUDA tensors (compare against the plain
+    version by calling ``ragged_paged_attention_reference``).
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -271,7 +347,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start,
     if _on_card(q, impl):
         return _ragged_attention_cuda(q, k_pages, v_pages, page_table,
                                       q_start, q_len, kv_len, k_scale,
-                                      v_scale, sm_scale)
+                                      v_scale, sm_scale, decode_rows,
+                                      max_q_len)
     return ragged_paged_attention_reference(
         q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
         k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,

@@ -107,6 +107,129 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
                                    impl="reference")
     with pytest.raises(ValueError):
         tpa.ragged_paged_attention(q, kp.cpu(), vp, pt, qs, ql, kl)
+    # the bf16 kernel: pages of 8 or 16 slots, 1, 2, 4 or 8 query heads
+    # per kv head, and hints that make sense
+    qb, kb, vb = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    with pytest.raises(ValueError, match="page size"):
+        tpa.ragged_paged_attention(qb, kb.reshape(12, 4, 32, 64)
+                                   .repeat(1, 1, 1, 2).contiguous(),
+                                   vb.reshape(12, 4, 32, 64)
+                                   .repeat(1, 1, 1, 2).contiguous(),
+                                   pt, qs, ql, kl)
+    q6, kp6, vp6, *_ = _mixed_batch(cuda, 6, 2, 128, 16)
+    with pytest.raises(ValueError, match="query heads"):
+        tpa.ragged_paged_attention(q6.bfloat16(), kp6.bfloat16(),
+                                   vp6.bfloat16(), pt, qs, ql, kl)
+    with pytest.raises(ValueError, match="decode_rows"):
+        tpa.ragged_paged_attention(qb, kb, vb, pt, qs, ql, kl,
+                                   decode_rows=-1)
+
+
+def _ragged_rows(device, rows, T, Hq, Hkv, ps, max_pages, pools, seed):
+    """A ragged batch of rows (q_start, q_len, kv_len) over pages drawn
+    without repeats from 1..P-1; bf16 q, pools bf16 or int8 (with
+    scales). Returns q, k, v, the scales dict, the table, the descriptors
+    and the owned-token mask."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    P = 1 + sum(-(-L // ps) for _, _, L in rows)
+    q = torch.randn(T, Hq, 128, generator=g, device=device).bfloat16()
+    kp, vp = (torch.randn(P, Hkv, ps, 128, generator=g, device=device)
+              for _ in range(2))
+    perm = torch.randperm(P - 1, generator=g, device=device) + 1
+    pt = torch.zeros(len(rows), max_pages, dtype=torch.int32, device=device)
+    used = 0
+    for r, (_, _, L) in enumerate(rows):
+        npg = -(-L // ps)
+        pt[r, :npg] = perm[used:used + npg]
+        used += npg
+    if pools == I8:
+        (k, ksc), (v, vsc) = quantize_kv(kp), quantize_kv(vp)
+        sc = dict(k_scale=ksc, v_scale=vsc)
+    else:
+        k, v, sc = kp.bfloat16(), vp.bfloat16(), {}
+    qs, ql, kl = (torch.tensor(x, dtype=torch.int32, device=device)
+                  for x in zip(*rows))
+    owned = torch.zeros(T, dtype=torch.bool, device=device)
+    for s, n, _ in rows:
+        owned[s:s + n] = True
+    return q, k, v, sc, pt, qs, ql, kl, owned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pools", [BF16, I8])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 1)])
+def test_ragged_decode_rows_at_split_and_page_edges(cuda, pools, ps, Hq,
+                                                     Hkv):
+    # decode rows whose lengths sit at the page and split edges, one
+    # inactive slot; T == R as in the decode loop, and 3 tokens more
+    split = tpa.RAGGED_PAGES_PER_SPLIT * ps
+    lens = (0, 1, ps, ps + 1, split, split + 1, 2048)
+    rows = [(i, 1, n) for i, n in enumerate(lens)] + [(len(lens), 0, 0)]
+    for T in (len(rows), len(rows) + 3):
+        q, k, v, sc, pt, qs, ql, kl, owned = _ragged_rows(
+            cuda, rows, T, Hq, Hkv, ps, 2048 // ps, pools, ps + Hq)
+        got = tpa.ragged_paged_attention(q, k, v, pt, qs, ql, kl, **sc,
+                                         max_q_len=1, decode_rows=len(rows))
+        want = tpa.ragged_paged_attention_reference(q, k, v, pt, qs, ql, kl,
+                                                    **sc)
+        torch.cuda.synchronize()
+        assert tolerance_ratio(got, want) <= 1, (T, tolerance_ratio(got,
+                                                                    want))
+        assert bool((got[~owned] == 0).all()), "padding not 0"
+        assert bool((got[0] == 0).all()), "length 0 not 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pools", [BF16, I8])
+@pytest.mark.parametrize("Hq,Hkv,ps", [(32, 8, 16), (8, 4, 16), (8, 1, 8),
+                                        (8, 8, 16)])
+def test_ragged_prefill_chunks_across_edges(cuda, pools, Hq, Hkv, ps):
+    # two decode rows, then chunks that cross page, q-block and key-tile
+    # edges: 37 tokens after a 27-token prefix, 9 tokens after 64, and 69
+    # tokens that end exactly at the token capacity
+    rows = [(0, 1, 40), (1, 1, 3), (2, 37, 64), (39, 9, 73), (48, 69, 69)]
+    T = 48 + 69
+    q, k, v, sc, pt, qs, ql, kl, owned = _ragged_rows(
+        cuda, rows, T, Hq, Hkv, ps, 10, pools, Hq * ps)
+    want = tpa.ragged_paged_attention_reference(q, k, v, pt, qs, ql, kl,
+                                                **sc)
+    for hints in (dict(), dict(decode_rows=2, max_q_len=69),
+                  dict(decode_rows=2, max_q_len=5)):
+        got = tpa.ragged_paged_attention(q, k, v, pt, qs, ql, kl, **sc,
+                                         **hints)
+        torch.cuda.synchronize()
+        assert tolerance_ratio(got, want) <= 1, (hints,
+                                                 tolerance_ratio(got, want))
+        assert bool((got[~owned] == 0).all()), "padding not 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pools", [BF16, I8])
+def test_ragged_hints_change_no_result_and_calls_repeat(cuda, pools):
+    # the decode rows through the decode splits (decode_rows = R_decode)
+    # and through the prefill tiles (decode_rows = 0): both within the
+    # limit of the plain version; two calls give the same bits; padding
+    # is 0 even where the output's memory held NaN before
+    rows = [(0, 1, 700), (1, 0, 0), (2, 1, 129), (3, 1, 1),
+            (4, 100, 300), (104, 20, 20)]
+    T = 4 + 2 * 100
+    q, k, v, sc, pt, qs, ql, kl, owned = _ragged_rows(
+        cuda, rows, T, 32, 8, 16, 48, pools, 11)
+    want = tpa.ragged_paged_attention_reference(q, k, v, pt, qs, ql, kl,
+                                                **sc)
+    outs = {}
+    for rd in (0, 4):
+        for rep in range(2):
+            torch.full((64 << 20,), float("nan"), device=cuda)  # then freed
+            outs[rd, rep] = tpa.ragged_paged_attention(
+                q, k, v, pt, qs, ql, kl, **sc, decode_rows=rd, max_q_len=100)
+    torch.cuda.synchronize()
+    for (rd, rep), got in outs.items():
+        assert tolerance_ratio(got, want) <= 1, (rd, rep)
+        assert bool((got[~owned] == 0).all()), (rd, rep, "padding not 0")
+    assert torch.equal(outs[0, 0], outs[0, 1])
+    assert torch.equal(outs[4, 0], outs[4, 1])
 
 
 def _decode_batch(device, Hq, Hkv, D, ps, lens, max_pages, tail=0, seed=0):
