@@ -8,8 +8,9 @@ result line is printed):
   1. require CUDA; print the card's name and power limit;
   2. build every CUDA kernel from the sources in this checkout (one nvcc
      per source, all started together), print the build time and what
-     ``-Xptxas -v`` says of the bf16 flash kernels redesigned for Hopper
-     (registers, barriers, stack and spill bytes);
+     ``-Xptxas -v`` says of the bf16 kernels redesigned for Hopper (the
+     flash forward, dq and dk/dv, the ragged kernel: registers, barriers,
+     stack and spill bytes);
   3. hold each kernel against its plain PyTorch version at the main
      path's shapes (Llama-3-8B attention: Hq 32, Hkv 8, D 128, page 16),
      bf16 and int8 pools, and time kernel, plain version and the PyTorch
@@ -30,12 +31,19 @@ result line is printed):
   5. the engine against the model's full forward pass on the card: 8B
      widths, 2 layers, fp32, greedy tokens compared where the oracle's
      top-2 margin exceeds fp32 summation noise;
+ 5b. the JAX package's serving widths (bench_llm.py: dim 1024, 16 / 8
+     heads, head dim 64, pages of 32): phase 3 on its batches, a server
+     (2 layers, bf16) answering phase 4's requests with its launches
+     counted, and phase 5's oracle (fp32); phase 3b's batch C is the
+     decode op at these widths;
   6. hold the three flash-attention kernels (forward, dq, dk/dv) against
      their plain versions at the training path's shape (B 8, H 24, L 2048,
      D 128, bf16; causal, non-causal, and causal with an lse cotangent),
-     catch two planted faults on every 64-row query tile, and time
-     kernels, plain versions and the PyTorch library call, each kernel
-     with its achieved TFLOP/s and its share of the bound;
+     catch two planted faults on every 64-row query tile, check that the
+     backward repeats bit for bit, and time kernels, plain versions and
+     the PyTorch library call, each kernel with its achieved TFLOP/s and
+     its share of the bound, and dq + dk/dv against the library's whole
+     backward;
   7. the training main path: ``make_train_step`` over ``loss_fn`` at the
      JAX package's bench widths (vocab 32000, dim 3072, 8 layers, 24/12
      heads, ffn 12288: 1,230,818,304 parameters; flash attention, selective
@@ -294,12 +302,19 @@ def ragged_profile(fn, device, ms, flush):
     return summary
 
 
-def phase_kernel(device):
+def phase_kernel(device, geometry=None):
+    """The ragged kernel against its plain version on the mixed batch (bf16
+    and int8 pools) and the decode batch, at the main path's geometry or
+    at ``geometry`` (Hq, Hkv, D, ps), with planted faults, times, and (at
+    the main path's geometry only) other split sizes and the profiler."""
     import torch.nn.functional as F
     from ray_tpu_torch.ops import paged_attention as tpa
     from ray_tpu_torch.ops.int8 import quantize_kv
 
-    q, kp, vp, pt, qs, ql, kl = mixed_batch(device)
+    extras = geometry is None
+    geometry = geometry or {}
+    tag = "".join(f" {k}={v}" for k, v in geometry.items())
+    q, kp, vp, pt, qs, ql, kl = mixed_batch(device, **geometry)
     T = q.shape[0]
     owned = torch.zeros(T, dtype=torch.bool, device=device)
     for s, n in zip(qs.tolist(), ql.tolist()):
@@ -350,11 +365,12 @@ def phase_kernel(device):
         plain_ms = time_ms(lambda: tpa.ragged_paged_attention_reference(
             q, k, v, pt, qs, ql, kl, **sc, **hints), iters=3, flush=flush)
         launches = ragged_profile(lambda: tpa.ragged_paged_attention(
-            q, k, v, pt, qs, ql, kl, **sc, **hints), device, kern_ms, flush)
+            q, k, v, pt, qs, ql, kl, **sc, **hints), device, kern_ms,
+            flush) if extras else "not taken"
         sweep = {n: round(time_ms(lambda: tpa._ragged_attention_cuda(
             q, k, v, pt, qs, ql, kl, ksc8, vsc8, q.shape[-1] ** -0.5,
             pages_per_split=n, **hints), flush=flush), 4)
-            for n in (4, 16, 32)}
+            for n in ((4, 16, 32) if extras else ())}
         sq, sk, sv, mask, rows, token_vis = sdpa_inputs(
             q, k, v, pt, qs, ql, kl, ksc8, vsc8)
         lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
@@ -369,7 +385,8 @@ def phase_kernel(device):
             sq, sk, sv, attn_mask=mask, enable_gqa=True), flush=flush)
         bound_ms, bound_by = attention_bound_ms(q, k, ql, kl, token_vis,
                                                 pools == "int8")
-        log(f"ragged_paged_attention {pools} pools T={T} rows={len(kl)}: "
+        log(f"ragged_paged_attention{tag} {pools} pools T={T} rows="
+            f"{len(kl)}: "
             f"max_abs_err {err:.3e}, worst {ratio:.3f} x the tolerance, "
             f"kernel {kern_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f}"
@@ -380,7 +397,7 @@ def phase_kernel(device):
                           bound_by=bound_by)
     # the decode loop's shape: 8 decode rows, T == R == 8
     dq, dk, dv, dpt, dqs, dql, dkl = mixed_batch(device, chunks=(),
-                                                 capacity=8)
+                                                 capacity=8, **geometry)
     dhints = dict(decode_rows=8, max_q_len=1)   # as ragged_decode_loop
     dgot = tpa.ragged_paged_attention(dq, dk, dv, dpt, dqs, dql, dkl,
                                       **dhints)
@@ -404,10 +421,12 @@ def phase_kernel(device):
     dms = time_ms(lambda: tpa.ragged_paged_attention(
         dq, dk, dv, dpt, dqs, dql, dkl, **dhints), flush=flush)
     dlaunches = ragged_profile(lambda: tpa.ragged_paged_attention(
-        dq, dk, dv, dpt, dqs, dql, dkl, **dhints), device, dms, flush)
+        dq, dk, dv, dpt, dqs, dql, dkl, **dhints), device, dms,
+        flush) if extras else "not taken"
     dsweep = {n: round(time_ms(lambda: tpa._ragged_attention_cuda(
         dq, dk, dv, dpt, dqs, dql, dkl, None, None, dq.shape[-1] ** -0.5,
-        pages_per_split=n, **dhints), flush=flush), 4) for n in (4, 16, 32)}
+        pages_per_split=n, **dhints), flush=flush), 4)
+        for n in ((4, 16, 32) if extras else ())}
     dplain = time_ms(lambda: tpa.ragged_paged_attention_reference(
         dq, dk, dv, dpt, dqs, dql, dkl), iters=3, flush=flush)
     dbound, dby = attention_bound_ms(dq, dk, dql, dkl, dvis, False)
@@ -420,7 +439,7 @@ def phase_kernel(device):
     assert lib_err <= LIBRARY_ATOL, f"SDPA yardstick differs {lib_err}"
     dlib = time_ms(lambda: F.scaled_dot_product_attention(
         sq, sk, sv, attn_mask=mask, enable_gqa=True), flush=flush)
-    log(f"ragged_paged_attention bf16 pools decode T=8: max_abs_err "
+    log(f"ragged_paged_attention{tag} bf16 pools decode T=8: max_abs_err "
         f"{derr:.3e}, worst {dratio:.3f} x the tolerance, kernel "
         f"{dms:.4f} ms, plain {dplain:.4f} ms, sdpa {dlib:.4f} ms, bound "
         f"{dbound:.4f} ms ({dby}); kernel ms with other pages_per_split: "
@@ -433,13 +452,18 @@ def phase_kernel(device):
 
 # ------------------------------------------------- phase 3b: the decode op
 
-# name: (seq_lens, max_pages, pool pages, pool dtypes). A: the serving
-# config's decode batch (8 slots, max_seq_len 2048, a 512-page pool; 310
-# pages used). B: 8 sequences at Llama 3's 8192-token context.
+# name: (seq_lens, max_pages, pool pages, pool dtypes, geometry). A: the
+# serving config's decode batch (8 slots, max_seq_len 2048, a 512-page
+# pool; 310 pages used). B: 8 sequences at Llama 3's 8192-token context.
+# C: bench_llm.py's serving widths (Hq 16, Hkv 8, head dim 64, pages of
+# 32; max_seq_len 512 and a 1024-page pool) at lengths around its edges.
+BENCH_GEOMETRY = {"Hq": 16, "Hkv": 8, "D": 64, "ps": 32}
 DECODE_BATCHES = {
     "A": ((1, 15, 16, 17, 300, 1024, 1500, 2048), 128, 512,
-          (torch.bfloat16, torch.float32)),
-    "B": ((8192,) * 8, 512, 4100, (torch.bfloat16,)),
+          (torch.bfloat16, torch.float32), {}),
+    "B": ((8192,) * 8, 512, 4100, (torch.bfloat16,), {}),
+    "C": ((1, 31, 32, 33, 128, 300, 500, 512), 16, 1024,
+          (torch.bfloat16, torch.float32), BENCH_GEOMETRY),
 }
 
 
@@ -489,11 +513,12 @@ def phase_decode(device):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     pps = tpa.PAGES_PER_SPLIT
     out = {}
-    for name, (lens, max_pages, P, dtypes) in DECODE_BATCHES.items():
+    for name, (lens, max_pages, P, dtypes, geometry) in \
+            DECODE_BATCHES.items():
         for dtype in dtypes:
             key = f"{name} {str(dtype).split('.')[-1]}"
             q, kp, vp, pt, sl = decode_batch(device, lens, max_pages, P,
-                                             dtype)
+                                             dtype, **geometry)
             scale = q.shape[-1] ** -0.5
             got = tpa.paged_attention(q, kp, vp, pt, sl)
             split = tpa._paged_decode_reference(q, kp, vp, pt, sl, scale,
@@ -545,8 +570,10 @@ def phase_decode(device):
             vis = sl.clamp(0, max_pages * kp.shape[2])
             bound, by = attention_bound_ms(q, kp, torch.ones_like(sl), vis,
                                            vis, False)
-            log(f"paged_attention {key} pools B={len(lens)} max_pages "
-                f"{max_pages} lens {list(lens)}: worst {r_split:.3f} x the "
+            log(f"paged_attention {key} pools B={len(lens)} Hq "
+                f"{q.shape[1]} Hkv {kp.shape[1]} D {q.shape[2]} page "
+                f"{kp.shape[2]} max_pages {max_pages} lens {list(lens)}: "
+                f"worst {r_split:.3f} x the "
                 f"limit against the split plain version, {r_gather:.3f} "
                 f"against the gather version, max_abs_err {err:.3e}; "
                 f"planted fault (each row drops its last slot) fails on "
@@ -665,6 +692,15 @@ MAIN_MODEL = {"preset": "llama3_8b", "param_dtype": "bfloat16"}
 MAIN_ENGINE = {"page_size": 16, "total_pages": 512, "max_batch": 8,
                "max_seq_len": 2048, "decode_chunk": 8, "seed": 0,
                "device": "cuda"}
+# the JAX package's serving benchmark (bench_llm.py:29-33): dim 1024, 16
+# query / 8 kv heads (head dim 64), pages of 32, bf16; 2 of its 8 layers
+BENCH_MODEL = {"preset": "tiny", "vocab_size": 32000, "dim": 1024,
+               "n_layers": 2, "n_heads": 16, "n_kv_heads": 8,
+               "ffn_dim": 2816, "rope_theta": 500000.0,
+               "param_dtype": "bfloat16"}
+BENCH_ENGINE = {"page_size": 32, "total_pages": 1024, "max_batch": 8,
+                "max_seq_len": 512, "decode_chunk": 32, "prefill_chunk": 128,
+                "seed": 0, "device": "cuda"}
 
 
 def _prompt(seed, n, vocab):
@@ -803,14 +839,14 @@ def profile_device(fn, device, unprofiled_ms, focus=()):
 # --------------------------------------------- phase 5: engine vs oracle
 
 
-def phase_oracle(device, cfg=None):
+def phase_oracle(device, cfg=None, page_size=16):
     from ray_tpu_torch.llm.engine import InferenceEngine
     from ray_tpu_torch.models.llama import (LlamaConfig, forward,
                                             init_params)
 
     cfg = cfg or LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device=device)
-    eng = InferenceEngine(cfg, params, page_size=16, total_pages=64,
+    eng = InferenceEngine(cfg, params, page_size=page_size, total_pages=64,
                           max_batch=4, max_seq_len=256, prefill_chunk=16,
                           decode_chunk=4, device=device)
     prompts = [_prompt(7, 37, cfg.vocab_size), _prompt(8, 9, cfg.vocab_size)]
@@ -837,8 +873,9 @@ def phase_oracle(device, cfg=None):
             compared += 1
             toks.append(want)
     assert compared >= 8, f"only {compared} tokens compared"
-    log(f"engine vs full forward (dim {cfg.dim}, vocab {cfg.vocab_size}, "
-        f"{cfg.n_layers} layers, fp32): {compared} of 16 greedy tokens "
+    log(f"engine vs full forward (dim {cfg.dim}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, vocab {cfg.vocab_size}, {cfg.n_layers} layers, "
+        f"page {page_size}, fp32): {compared} of 16 greedy tokens "
         f"compared equal, stats {json.dumps(eng.stats)}")
 
 
@@ -848,10 +885,12 @@ FLASH_SHAPE = (8, 24, 2048, 128)    # B, H, L, D of the training path
 # the planted faults must fail on every query tile of this many rows: the
 # dk/dv kernel's bf16 q tiles (half of the forward's)
 FLASH_TILE = 64
-# the bf16 kernels redesigned for Hopper, whose ptxas report phase 2 prints
-SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_sm90_kernel",
-                "flash_attention_bwd": "flash_dkv_sm90_kernel",
-                "ragged_paged_attention": "ragged_sm90_kernel"}
+# the bf16 kernels redesigned for Hopper, whose ptxas report phase 2
+# prints: (library, kernel)
+SM90_KERNELS = (("flash_attention_fwd", "flash_fwd_sm90_kernel"),
+                ("flash_attention_bwd", "flash_dq_sm90_kernel"),
+                ("flash_attention_bwd", "flash_dkv_sm90_kernel"),
+                ("ragged_paged_attention", "ragged_sm90_kernel"))
 
 
 def causal_off_by_one(q, k, v, scale):
@@ -935,11 +974,19 @@ def phase_flash(device):
         f"query tiles of dq fail, the weakest at "
         f"{caught.min().item():.1f} x the limit")
 
+    # no atomics: the backward repeats bit for bit
+    delta = (do.float() * o_ref.float()).sum(-1)
+    runs = [tfa._bwd_cuda(q, k, v, lse_ref, do, delta - dlse, True, scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), "not repeatable"
+    log("flash backward: two calls give the same bits (dq, dk, dv)")
+    del runs
+
     # times at the training path's shape, causal
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     code = tfa._DTYPE_CODES[q.dtype]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = (do.float() * o_ref.float()).sum(-1)
     kern_ms = {
         "flash_attention_fwd": time_ms(
             lambda: tfa._fwd_cuda(q, k, v, True, scale), flush=flush),
@@ -984,6 +1031,9 @@ def phase_flash(device):
             f"{worst[kern]:.3f} x the tolerance")
     log("flash plain and sdpa times: the backward's (dq and dk/dv "
         "together) stand for both dq and dkv")
+    bwd_ms = kern_ms["flash_attention_dq"] + kern_ms["flash_attention_dkv"]
+    log(f"flash backward kernels, dq + dk/dv: {bwd_ms:.4f} ms = "
+        f"{bwd_ms / lib_bwd:.2f} x SDPA's whole backward ({lib_bwd:.4f} ms)")
     del flush
     return out
 
@@ -1131,7 +1181,7 @@ def main():
     built = _kernels.build()
     log(f"kernels built in {time.monotonic() - t0:.1f} s: "
         f"{sorted(built) or 'all up to date'}")
-    for lib, kernel in SM90_KERNELS.items():
+    for lib, kernel in SM90_KERNELS:
         log(f"ptxas, {kernel}: "
             f"{ptxas_report(built.get(lib) or _kernels.build_log(lib), kernel)}")
 
@@ -1145,6 +1195,20 @@ def main():
     assert launches["ragged_paged_attention_reference_cuda"] == 0, \
         "the plain attention ran on CUDA tensors in the main path"
     phase_oracle(device)
+    # bench_llm.py's widths: the kernels at head dim 64 and pages of 32,
+    # then a server at those widths, its launches counted, and the fp32
+    # engine against the full forward there
+    kern_bench = phase_kernel(device, BENCH_GEOMETRY)
+    _, bench_launches, bench_expected = phase_main_path(
+        BENCH_MODEL, BENCH_ENGINE)
+    assert bench_launches["ragged_paged_attention"] == bench_expected, \
+        (bench_launches, bench_expected)
+    assert bench_launches["ragged_paged_attention_reference_cuda"] == 0, \
+        "the plain attention ran on CUDA tensors at the bench widths"
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    phase_oracle(device, dataclasses.replace(
+        model_config_from_dict(BENCH_MODEL), dtype=torch.float32),
+        page_size=BENCH_ENGINE["page_size"])
 
     flash = phase_flash(device)
     flash_launches, steps, n_layers = phase_train(device)
@@ -1164,7 +1228,8 @@ def main():
         "source": "ray_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:340",
         "launches": launches["ragged_paged_attention"],
-        "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
+        "max_abs_err": max(k["max_abs_err"] for k in [
+            *kern.values(), *kern_bench.values()]),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"]}, {

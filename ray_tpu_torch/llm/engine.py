@@ -41,6 +41,7 @@ from ray_tpu_torch.llm.cache import (SCRATCH_PAGE, PageAllocator,
                                      kv_cache_tag, make_kv_cache)
 from ray_tpu_torch.models.llama import (LlamaConfig, init_params,
                                         resolve_device)
+from ray_tpu_torch.ops.paged_attention import check_kernel_geometry
 
 
 class _SingleChipFns:
@@ -98,6 +99,16 @@ class InferenceEngine:
         defaults = llm_defaults()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.kv_dtype = defaults["llm_kv_dtype"] \
+            if kv_dtype is None else kv_dtype
+        if self.device.type == "cuda":
+            # the attention kernels' geometry, checked before any work:
+            # a geometry they do not take raises here, not in the first
+            # step on a server's engine thread
+            check_kernel_geometry(
+                cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, page_size,
+                cfg.dtype, torch.int8 if self.kv_dtype == "int8"
+                else cfg.dtype)
         if params is None:
             params = init_params(cfg, seed, self.device)
         self.params = _cast_params(params, cfg.dtype, self.device)
@@ -127,8 +138,6 @@ class InferenceEngine:
         self.ragged_rows = max_batch + self.prefill_rows
         self.ragged_tokens = max_batch + self.prefill_rows \
             * self.prefill_chunk
-        self.kv_dtype = defaults["llm_kv_dtype"] \
-            if kv_dtype is None else kv_dtype
         self.kv = make_kv_cache(cfg, total_pages, page_size,
                                 kv_dtype=self.kv_dtype, device=self.device)
         self._fns = _SingleChipFns(cfg, self.decode_chunk,

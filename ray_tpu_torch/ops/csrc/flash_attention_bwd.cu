@@ -20,12 +20,46 @@
 // at the bf16 tensor-core peak of 989 TFLOP/s) and dk/dv 4 (4.12e11 FLOP,
 // 0.42 ms); the bytes take about 0.15 ms.
 //
-// flash_dq_kernel (fp32 and bf16) and flash_dkv_kernel (fp32), the first
-// port's design: as the TPU grids, one block per (bh, q tile) walking the
-// key tiles for dq, and one block per (bh, k tile) walking the query tiles
-// for dk/dv, each accumulating its own rows in shared memory; products
-// through flash::tile_mm (wmma on the tensor cores for bf16, CUDA cores for
-// fp32, the training oracle).
+// flash_dq_kernel and flash_dkv_kernel (fp32, the training oracle, and
+// head dim 64 in both dtypes), the first port's design: as the TPU grids,
+// one block per (bh, q tile) walking the key tiles for dq, and one block
+// per (bh, k tile) walking the query tiles for dk/dv, each accumulating its
+// own rows in shared memory; products through flash::tile_mm (wmma on the
+// tensor cores for bf16, CUDA cores for fp32).
+//
+// bf16 dq at head dim 128, flash_dq_sm90_kernel: one block per (bh,
+// 128-row q tile), the blocks of 8 bh's in flight together so their k and
+// v stay in L2, the longest causal rows first among them. A producer
+// warpgroup, one thread of which issues the TMA loads: q and do of the
+// block once (with their 128 lse and delta values by bulk copy), then
+// 64-key k and v tiles through a 4-slot ring (k and v each with full and
+// empty mbarriers), stopping at the block's diagonal when causal. Two
+// consumer warpgroups own 64 q rows each and hold their q rows in
+// registers as wgmma A fragments, read once; per key tile
+//   s = q . k^T (wgmma m64n64k16, A in registers, k K-major in shared
+//   memory), dp = do . v^T (both in shared memory), p = 2^(s * sm_scale *
+//   log2 e - lse * log2 e) with the causal mask on the warpgroup's
+//   diagonal tile only,
+//   ds = p (dp - delta) in registers, rounded to bf16 as the A operand of
+//   dq += ds . k (wgmma m64n128k16, k read MN-major with the transpose
+//   bit);
+// tile j's s and dp are issued together with tile j-1's dq product, and
+// ds of tile j is formed while that product runs. dq stays in registers
+// (64 fp32 a thread) for the block's life; the Pallas body's per-tile
+// "* sm_scale" is applied once to the fp32 sum in the epilogue, as for
+// dk. A warpgroup stops at its own diagonal tile; warpgroup 0 releases
+// warpgroup 1's diagonal tile unread. dq leaves through shared memory (the
+// warpgroup's q rows) by TMA stores, which drop rows at or past Lq. What
+// the design does about the first port's limits (s, dp and dq in shared
+// memory, wmma, synchronous loads with a block barrier between products):
+// every accumulator lives in registers, wgmma replaces wmma, the loads fly
+// under the math, and setmaxnreg gives the consumers 240 registers. Tuned
+// on the card at the training shape (PERF.md): with 2 ring slots a slot
+// came free only after both warpgroups' dq products on it, and the next
+// tile's products waited on its load (0.746 ms); 3 slots 0.577, 4 slots
+// 0.565, and q in registers, which halves the shared-memory reads of
+// q . k^T, 0.533. Ping-pong between the warpgroups (the forward's) cost
+// 1-2%; do in registers too spilled.
 //
 // bf16 dk/dv, flash_dkv_sm90_kernel: one block per (bh, 128-key tile), the
 // blocks of 8 bh's in flight together so their q and do stay in L2, the
@@ -260,6 +294,286 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16 dq: wgmma + TMA ring
+
+namespace dq90 {
+
+using namespace sm90;
+
+constexpr int kRows = 128;     // q rows of a block (64 per consumer warpgroup)
+constexpr int kKeys = 64;      // keys of a streamed k/v tile
+constexpr int kStages = 4;     // k/v ring slots
+constexpr int kThreads = 384;  // producer + two consumer warpgroups
+constexpr uint32_t kBoxQ = kRows * 128;  // a [128][64] bf16 box: 16 KB
+constexpr uint32_t kBoxK = kKeys * 128;  // a [64][64] bf16 box: 8 KB
+// shared memory, from a 1024-byte aligned base: q and do (two boxes each),
+// lse and delta (128 fp32 each), the k ring and the v ring (two boxes a
+// slot), then the barriers (q/do full; k full, v full, k empty, v empty
+// per slot)
+constexpr uint32_t kQ = 0, kDo = 2 * kBoxQ;
+constexpr uint32_t kLse = 4 * kBoxQ, kDelta = kLse + 4 * kRows;
+constexpr uint32_t kK = kDelta + 4 * kRows;
+constexpr uint32_t kV = kK + kStages * 2 * kBoxK;
+constexpr uint32_t kBars = kV + kStages * 2 * kBoxK;
+constexpr size_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+static_assert(kK % 1024 == 0, "the ring keeps the swizzle");
+
+// s = q.k^T and dp = do.v^T of one key tile: the warpgroup's 64 rows x
+// 64 keys, fp32; q from registers (qf: the A fragments of its 8 k steps),
+// do from shared memory, k and v K-major in shared memory
+__device__ __forceinline__ void products(float (&s)[32], float (&dp)[32],
+                                         const uint32_t (&qf)[32],
+                                         uint32_t doa, uint32_t k_tile,
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    mma_rs_n64<0>(s, qf + 4 * kk, desc_k(k_tile, kBoxK, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    mma_ss_n64(dp, desc_k(doa, kBoxQ, kk), desc_k(v_tile, kBoxK, kk),
+               kk > 0);
+}
+
+// ds = p (dp - delta) into s, p = 2^(s sm_scale log2e - lse log2e) for
+// the thread's two rows (row0, row0 + 8); on an edge tile p is 0 where
+// the row precedes the key (causal), keys counted from k0
+__device__ __forceinline__ void form_ds(float (&s)[32], const float (&dp)[32],
+                                        const float (&lse2)[2],
+                                        const float (&dlt)[2], bool edge,
+                                        int row0, int k0, int t,
+                                        float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = acc_half(i);
+    float p = ex2(s[i] * scale_log2 - lse2[h]);
+    if (edge && row0 + 8 * h < k0 + acc_col(i, t)) p = 0.f;
+    s[i] = p * (dp[i] - dlt[h]);
+  }
+}
+
+// dq += bf16(ds) . k: 4 k steps of 16 keys, k read MN-major
+__device__ __forceinline__ void dq_product(float (&dq)[64],
+                                           const uint32_t (&dsa)[16],
+                                           uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma_rs_n128(dq, dsa + 4 * kk, desc_mn(k_tile, kBoxK, kk));
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dq,
+    const float* __restrict__ lse, const float* __restrict__ delta, int BH,
+    int Lq, int Lk, int causal, float sm_scale) {
+  const int n_tiles = (Lq + kRows - 1) / kRows;
+  const TileOrder order = tile_order(BH, n_tiles);
+  const int bh = order.bh;
+  const int q0 = (n_tiles - 1 - order.rank) * kRows;  // longest rows first
+  const int rows = min(kRows, Lq - q0);  // 64 or 128: Lq is a multiple of 64
+  // the key tiles warpgroup w reads: causal, up to its own diagonal tile
+  const int nk_all = Lk / kKeys;
+  auto tiles_of = [&](int w) {
+    return causal ? min(nk_all, q0 / kKeys + w + 1) : nk_all;
+  };
+  const int nk = tiles_of(1);  // the producer's: the longer of the two
+
+  unsigned char* raw = dynamic_smem();
+  const uint32_t raw_addr = smem_addr(raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;
+  unsigned char* smem = raw + (base - raw_addr);
+  const uint32_t qd_full = base + kBars;
+  auto bar = [&](int kind, int s) {  // kind: k full, v full, k / v empty
+    return base + kBars + 8 + 8 * (kind * kStages + s);
+  };
+  auto k_full = [&](int s) { return bar(0, s); };
+  auto v_full = [&](int s) { return bar(1, s); };
+  auto k_empty = [&](int s) { return bar(2, s); };
+  auto v_empty = [&](int s) { return bar(3, s); };
+  auto k_tile = [&](int s) { return base + kK + s * 2 * kBoxK; };
+  auto v_tile = [&](int s) { return base + kV + s * 2 * kBoxK; };
+  if (threadIdx.x == 0) {
+    bar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(k_full(s), 1);
+      bar_init(v_full(s), 1);
+      bar_init(k_empty(s), 2 * 128);  // every consumer thread
+      bar_init(v_empty(s), 2 * 128);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      bar_expect_tx(qd_full, 4 * kBoxQ + 8 * rows);
+      tma_load(base + kQ, &tm_q, qd_full, 0, q0, bh);
+      tma_load(base + kQ + kBoxQ, &tm_q, qd_full, 64, q0, bh);
+      tma_load(base + kDo, &tm_do, qd_full, 0, q0, bh);
+      tma_load(base + kDo + kBoxQ, &tm_do, qd_full, 64, q0, bh);
+      bulk_load(base + kLse, lse + (size_t)bh * Lq + q0, 4 * rows, qd_full);
+      bulk_load(base + kDelta, delta + (size_t)bh * Lq + q0, 4 * rows,
+                qd_full);
+      for (int kt = 0; kt < nk; ++kt) {
+        const Ring<kStages> r(kt);
+        bar_wait(k_empty(r.slot), r.parity ^ 1);
+        bar_expect_tx(k_full(r.slot), 2 * kBoxK);
+        tma_load(k_tile(r.slot), &tm_k, k_full(r.slot), 0, kt * kKeys, bh);
+        tma_load(k_tile(r.slot) + kBoxK, &tm_k, k_full(r.slot), 64,
+                 kt * kKeys, bh);
+        bar_wait(v_empty(r.slot), r.parity ^ 1);
+        bar_expect_tx(v_full(r.slot), 2 * kBoxK);
+        tma_load(v_tile(r.slot), &tm_v, v_full(r.slot), 0, kt * kKeys, bh);
+        tma_load(v_tile(r.slot) + kBoxK, &tm_v, v_full(r.slot), 64,
+                 kt * kKeys, bh);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns q rows q0 + 64 w .. + 63
+  regs_inc<240>();
+  const int w = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = q0 + 64 * w + 16 * warp + g;    // rows row0, row0 + 8
+  const uint32_t qa = base + kQ + 64 * w * 128;    // this warpgroup's q rows
+  const uint32_t doa = base + kDo + 64 * w * 128;  // and do rows
+  const int n = tiles_of(w);
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  bar_wait(qd_full, 0);
+  // this thread's two rows' lse (log2 units) and delta; rows at or past
+  // Lq read what the shared memory held, and their dq is never stored
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * w + 16 * warp + g + 8 * h;
+    lse2[h] = reinterpret_cast<const float*>(smem + kLse)[r] * kLog2e;
+    dlt[h] = reinterpret_cast<const float*>(smem + kDelta)[r];
+  }
+  // this thread's share of its warpgroup's q rows, read once from the
+  // swizzled tile as the A fragments of q.k^T's 8 k steps (an SS product
+  // of 64 keys reads as many shared-memory bytes per k step as the
+  // tensor cores take clocks to multiply them)
+  uint32_t qf[32];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 64 * w + 16 * warp + g + 8 * (i & 1);
+      const int col = 16 * kk + 8 * (i >> 1) + 2 * t;
+      qf[4 * kk + i] = *reinterpret_cast<const uint32_t*>(
+          smem + kQ + (col >> 6) * kBoxQ + swizzled(row, col & 63));
+    }
+  // causal: a key tile needs the mask where its last key passes the
+  // warpgroup's first row (the warpgroup's diagonal tile)
+  auto edge = [&](int kt) {
+    return causal && kt * kKeys + kKeys - 1 > q0 + 64 * w;
+  };
+
+  uint32_t dsa[16];  // the last tile's ds in bf16: its dq product's A
+  {
+    float s[32], dp[32];
+    bar_wait(k_full(0), 0);
+    bar_wait(v_full(0), 0);
+    wgmma_fence();
+    products(s, dp, qf, doa, k_tile(0), v_tile(0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    bar_arrive(v_empty(0));
+    form_ds(s, dp, lse2, dlt, edge(0), row0, 0, t, scale_log2);
+    a_frag(dsa, s);
+  }
+  // tile kt: its s and dp, then the last tile's dq product, issued back to
+  // back; ds of tile kt is formed while the dq product runs
+  for (int kt = 1; kt < n; ++kt) {
+    const Ring<kStages> r(kt), last(kt - 1);
+    float s[32], dp[32];
+    bar_wait(k_full(r.slot), r.parity);
+    bar_wait(v_full(r.slot), r.parity);
+    wgmma_fence();
+    products(s, dp, qf, doa, k_tile(r.slot), v_tile(r.slot));
+    wgmma_commit();
+    dq_product(dq, dsa, k_tile(last.slot));
+    wgmma_commit();
+    wgmma_wait<1>();  // s and dp done, the dq product may still run
+    fence_regs(s);
+    fence_regs(dp);
+    bar_arrive(v_empty(r.slot));
+    form_ds(s, dp, lse2, dlt, edge(kt), row0, kt * kKeys, t, scale_log2);
+    wgmma_wait<0>();
+    fence_regs(dq);
+    bar_arrive(k_empty(last.slot));
+    a_frag(dsa, s);
+  }
+  {
+    const Ring<kStages> last(n - 1);
+    wgmma_fence();
+    dq_product(dq, dsa, k_tile(last.slot));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    bar_arrive(k_empty(last.slot));
+  }
+  // causal: the tile on warpgroup 1's diagonal lies above every row of
+  // warpgroup 0, which releases it unread once it has arrived (arriving
+  // earlier could count towards the slot's previous phase)
+  for (int kt = n; kt < nk; ++kt) {
+    const Ring<kStages> r(kt);
+    bar_wait(k_full(r.slot), r.parity);
+    bar_wait(v_full(r.slot), r.parity);
+    bar_arrive(k_empty(r.slot));
+    bar_arrive(v_empty(r.slot));
+  }
+
+  // epilogue: dq * sm_scale as bf16 into this warpgroup's q rows (read by
+  // no one now), then TMA stores, which drop rows at or past Lq
+  const float dq_scale[2] = {sm_scale, sm_scale};
+  store_acc_bf16(smem + kQ + 64 * w * 128, kBoxQ, dq, dq_scale, warp, g, t);
+  fence_async_smem();
+  named_sync(1 + w, 128);
+  if (tid == 0 && q0 + 64 * w < Lq) {
+    tma_store(&tm_dq, qa, 0, q0 + 64 * w, bh);
+    tma_store(&tm_dq, qa + kBoxQ, 64, q0 + 64 * w, bh);
+    tma_store_wait();
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int BH, int Lq, int Lk, int causal,
+                   float sm_scale, cudaStream_t stream) {
+  const void* ptrs[] = {q, k, v, dout, lse, delta, dq};
+  cudaError_t err = check_args(BH, Lq, Lk, kKeys, ptrs, 7);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if ((err = make_tmap(&tm_q, q, BH, Lq, kRows)) != cudaSuccess ||
+      (err = make_tmap(&tm_do, dout, BH, Lq, kRows)) != cudaSuccess ||
+      (err = make_tmap(&tm_k, k, BH, Lk, kKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_v, v, BH, Lk, kKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_dq, dq, BH, Lq, 64)) != cudaSuccess)
+    return err;
+  err = allow_smem(flash_dq_sm90_kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = BH * ((Lq + kRows - 1) / kRows);
+  flash_dq_sm90_kernel<<<blocks, kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), BH, Lq, Lk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace dq90
+
 // --------------------------------------------- bf16 dk/dv: wgmma + TMA ring
 
 namespace dkv90 {
@@ -472,22 +786,29 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 fp32, 1 bf16 (q, k, v, do and the gradients alike). q/do/dq
-// [BH, Lq, D], k/v/dk/dv [BH, Lk, D], lse/delta fp32 [BH, Lq]; D 128; Lq
-// and Lk multiples of the tile (64 rows for bf16, 32 for fp32). Each
+// [BH, Lq, D], k/v/dk/dv [BH, Lk, D], lse/delta fp32 [BH, Lq]; D 128 (bf16:
+// the sm90 designs) or 64 (the first designs); Lq and Lk multiples of the
+// tile (64 rows for bf16, 32 for fp32). Each
 // returns 0 on success, else the cudaError_t code.
 int flash_attention_dq(int dtype, const void* q, const void* k,
                        const void* v, const void* dout, const void* lse,
                        const void* delta, void* dq, int BH, int Lq, int Lk,
                        int D, int causal, float sm_scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128) return (int)cudaErrorInvalidValue;  // the head dim built
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if (D == 64)  // the first design at head dim 64, both dtypes
+    return dtype == kF32
+               ? (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, BH,
+                                           Lq, Lk, causal, sm_scale, s)
+               : (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta,
+                                                   dq, BH, Lq, Lk, causal,
+                                                   sm_scale, s);
+  if (D != 128) return (int)cudaErrorInvalidValue;  // a head dim not built
   if (dtype == kF32)
     return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, BH, Lq,
                                       Lk, causal, sm_scale, s);
-  if (dtype == kBF16)
-    return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq,
-                                              BH, Lq, Lk, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dq90::launch(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, causal,
+                           sm_scale, s);
 }
 
 int flash_attention_dkv(int dtype, const void* q, const void* k,
@@ -496,14 +817,21 @@ int flash_attention_dkv(int dtype, const void* q, const void* k,
                         int Lk, int D, int causal, float sm_scale,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return dtype == kF32
+               ? (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk,
+                                            dv, BH, Lq, Lk, causal, sm_scale,
+                                            s)
+               : (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse,
+                                                    delta, dk, dv, BH, Lq, Lk,
+                                                    causal, sm_scale, s);
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
     return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, BH,
                                        Lq, Lk, causal, sm_scale, s);
-  if (dtype == kBF16)
-    return (int)dkv90::launch(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk,
-                              causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dkv90::launch(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk,
+                            causal, sm_scale, s);
 }
 
 const char* kernel_error_string(int code) {

@@ -49,6 +49,8 @@
 // fp32 (the training oracle only; wgmma's fp32 input is TF32):
 // flash_fwd_kernel, one block per (bh, 32-row q tile) with m, l and the
 // accumulator in shared memory, products by flash::tile_mm on CUDA cores.
+// Head dim 64, both dtypes, also takes flash_fwd_kernel (bf16: 64-row
+// tiles, wmma); the sm90 design is built for head dim 128 only.
 //
 // Plain C interface (loaded with ctypes): flash_attention_fwd() launches on
 // the given stream and returns the cudaError_t of the launch.
@@ -435,22 +437,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 fp32, 1 bf16 (q, k, v and o alike). q [BH, Lq, D], k/v
-// [BH, Lk, D], o [BH, Lq, D], lse fp32 [BH, Lq]; D 128; Lq and Lk multiples
-// of 64 (bf16) or 32 (fp32). Returns 0 on success, else the cudaError_t
+// [BH, Lk, D], o [BH, Lq, D], lse fp32 [BH, Lq]; D 128 (bf16: the sm90
+// design) or 64 (the first design); Lq and Lk multiples of 64 (bf16) or 32
+// (fp32). Returns 0 on success, else the cudaError_t
 // code.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* o, void* lse, int BH, int Lq,
                         int Lk, int D, int causal, float sm_scale,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128) return (int)cudaErrorInvalidValue;  // the head dim built
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if (D == 64)  // the first design at head dim 64, both dtypes
+    return dtype == kF32
+               ? (int)launch<float, 64>(q, k, v, o, lse, BH, Lq, Lk, causal,
+                                        sm_scale, s)
+               : (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, BH, Lq, Lk,
+                                                causal, sm_scale, s);
+  if (D != 128) return (int)cudaErrorInvalidValue;  // a head dim not built
   if (dtype == kF32)
     return (int)launch<float, 128>(q, k, v, o, lse, BH, Lq, Lk, causal,
                                    sm_scale, s);
-  if (dtype == kBF16)
-    return (int)fwd90::launch(q, k, v, o, lse, BH, Lq, Lk, causal, sm_scale,
-                              s);
-  return (int)cudaErrorInvalidValue;
+  return (int)fwd90::launch(q, k, v, o, lse, BH, Lq, Lk, causal, sm_scale,
+                            s);
 }
 
 const char* kernel_error_string(int code) {

@@ -358,6 +358,28 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 64, fp32) = (accumulate ? d : 0) + A . B, A (64 x 16 bf16) in
+// registers as four packed pairs (see a_frag), B (16 x 64) in shared
+// memory: MN-major with kTransB (one 128-byte swizzled box wide, so the
+// descriptor's LBO is not read), K-major without
+template <int kTransB>
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : SM90_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(kTransB));
+}
+
 #undef SM90_D32
 #undef SM90_D8
 
@@ -369,7 +391,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // the accumulator's 16-column block kk, rounded to bf16, as the register A
-// operand of a k step: a[4 kk .. 4 kk + 3]
+// operand of a k step: a[4 kk .. 4 kk + 3] (the m64k16 A fragment: for
+// lane 4g + t of warp w, rows 16w + g and 16w + g + 8, columns 2t, 2t + 1
+// and 2t + 8, 2t + 9 of the k step's 16)
 template <int N>
 __device__ __forceinline__ void a_frag(uint32_t* a, const float (&acc)[N]) {
 #pragma unroll
@@ -401,17 +425,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// the m64n128 accumulator, times scale[half] and rounded to bf16, written
-// into a [64, 128] tile held as two swizzled boxes (64 rows each, the
-// second half of d box_bytes after the first) starting at row 0 of tile:
-// the layout a TMA store of the tile reads
+// the m64nN accumulator (N = 2 * R: 128, or 64), times scale[half] and
+// rounded to bf16, written into a [64, N] tile held as N / 64 swizzled
+// boxes (64 rows each, the second half of d box_bytes after the first)
+// starting at row 0 of tile: the layout a TMA store of the tile reads
+template <int R>
 __device__ __forceinline__ void store_acc_bf16(unsigned char* tile,
                                                uint32_t box_bytes,
-                                               const float (&acc)[64],
+                                               const float (&acc)[R],
                                                const float (&scale)[2],
                                                int warp, int g, int t) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = 16 * warp + g + 8 * h;

@@ -33,8 +33,9 @@
 // tail may hold anything, and takes the ids it reads as lying in [0, P).
 // Products run on CUDA cores in fp32: q_per_kv rows against a 16-slot page
 // is too little work per page for tensor cores to pay. Built for head dim
-// 128, pages of 8 or 16 slots and 1, 2, 4 or 8 query heads per kv head
-// (Llama 3: 4); launch() names where another goes.
+// 64 or 128, pages of 8, 16 or 32 slots and 1, 2, 4 or 8 query heads per
+// kv head (Llama 3: 128, 16, 4; the JAX package's serving benchmark: 64,
+// 32, 2); launch() names where another goes.
 //
 // Plain C interface (loaded with ctypes): paged_attention() launches on
 // the given stream and returns the cudaError_t of the launches.
@@ -112,15 +113,25 @@ cudaError_t launch_kernels(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int kPS>
+template <typename T, int kPS, int kD>
 cudaError_t by_q_per_kv(const Args& a) {
   switch (a.Hq / a.Hkv) {
-    case 1: return launch_kernels<T, kPS, 1, 128>(a);
-    case 2: return launch_kernels<T, kPS, 2, 128>(a);
-    case 4: return launch_kernels<T, kPS, 4, 128>(a);
-    case 8: return launch_kernels<T, kPS, 8, 128>(a);
+    case 1: return launch_kernels<T, kPS, 1, kD>(a);
+    case 2: return launch_kernels<T, kPS, 2, kD>(a);
+    case 4: return launch_kernels<T, kPS, 4, kD>(a);
+    case 8: return launch_kernels<T, kPS, 8, kD>(a);
   }
   return cudaErrorInvalidValue;  // a group size not built
+}
+
+template <typename T, int kD>
+cudaError_t by_page_size(const Args& a) {
+  switch (a.ps) {
+    case 8: return by_q_per_kv<T, 8, kD>(a);
+    case 16: return by_q_per_kv<T, 16, kD>(a);
+    case 32: return by_q_per_kv<T, 32, kD>(a);
+  }
+  return cudaErrorInvalidValue;  // a page size not built
 }
 
 template <typename T>
@@ -130,10 +141,9 @@ cudaError_t launch(const Args& a) {
   if ((uintptr_t)a.q % 16 != 0 || (uintptr_t)a.k_pages % 16 != 0 ||
       (uintptr_t)a.v_pages % 16 != 0)
     return cudaErrorMisalignedAddress;
-  if (a.D != 128) return cudaErrorInvalidValue;  // a head dim not built
-  if (a.ps == 8) return by_q_per_kv<T, 8>(a);
-  if (a.ps == 16) return by_q_per_kv<T, 16>(a);
-  return cudaErrorInvalidValue;  // a page size not built
+  if (a.D == 64) return by_page_size<T, 64>(a);
+  if (a.D == 128) return by_page_size<T, 128>(a);
+  return cudaErrorInvalidValue;  // a head dim not built
 }
 
 }  // namespace

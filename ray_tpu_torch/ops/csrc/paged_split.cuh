@@ -9,7 +9,8 @@
 // dots are summed over the slot's TPS lanes by shuffles; one warp per
 // query head then makes the page's online-softmax update; V goes to shared
 // memory as fp32 (slots past the length as 0), and each thread accumulates
-// p.v for one head-dim column of every query head in registers. The next
+// p.v for one head-dim column of every query head in registers (at head
+// dim 64, threads 0..63; the rest sit p.v out). The next
 // page's K and V loads are issued before this page's softmax and p.v, so
 // they fly during them. A split that starts past its sequence's end writes
 // an empty partial (m = -inf, l = 0) and stops; with a single split the
@@ -82,6 +83,14 @@ struct Raw<8> {
     return i == 0 ? v.x : v.y;
   }
 };
+template <>
+struct Raw<4> {
+  uint32_t v;
+  __device__ __forceinline__ void load(const void* p) {
+    v = *reinterpret_cast<const uint32_t*>(p);
+  }
+  __device__ __forceinline__ uint32_t word(int) const { return v; }
+};
 
 // the elements of a Raw, widened to fp32 (f holds kBytes / sizeof(T))
 template <int kBytes>
@@ -147,18 +156,23 @@ __device__ __forceinline__ void split_walk(
     const SplitOut<QT>& dst) {
   constexpr int kTPS = kThreads / kPS;       // threads per slot
   constexpr int kEPT = kD / kTPS;            // head-dim elements per thread
-  constexpr int kQN = 16 / sizeof(QT);       // q elements per 16 bytes
+  constexpr int kQB = kEPT * sizeof(QT) < 16 ? kEPT * sizeof(QT) : 16;
+  constexpr int kQN = kQB / sizeof(QT);      // q elements per vector
   constexpr int kQVec = kEPT / kQN;          // q vectors per row and thread
   constexpr int kBytes = kEPT * sizeof(KT);  // K (and V) bytes per thread
   constexpr int kVB = kBytes < 16 ? kBytes : 16;  // bytes per V vector
   constexpr int kVE = kVB / sizeof(KT);           // elements per V vector
   constexpr int kVVec = kBytes / kVB;             // V vectors per thread
-  constexpr int kCols = kD / kThreads;            // p.v columns per thread
+  // p.v: thread tid < kColT accumulates columns tid, tid + kColT, ... (at
+  // head dim 64 the other half of the block sits this part out)
+  constexpr int kColT = kD < kThreads ? kD : kThreads;
+  constexpr int kCols = kD / kColT;               // p.v columns per thread
   constexpr int kRows = (kQpk + kWarps - 1) / kWarps;  // heads per warp
   static_assert(kTPS * kPS == kThreads && kTPS <= 32, "page size");
-  static_assert(kEPT % kQN == 0 && kD % kThreads == 0, "head dim");
+  static_assert(kEPT % kQN == 0 && kD % kColT == 0, "head dim");
   static_assert(kVVec * kVE * kThreads == kPS * kD, "V vectors per thread");
-  static_assert(kVB == 8 || kVB == 16, "V vectors of 8 or 16 bytes");
+  static_assert(kVB == 4 || kVB == 8 || kVB == 16,
+                "V vectors of 4, 8 or 16 bytes");
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* m_w = dst.work;                                // [rows, n_splits]
@@ -185,7 +199,7 @@ __device__ __forceinline__ void split_walk(
   for (int qi = 0; qi < kQpk; ++qi)
 #pragma unroll
     for (int v = 0; v < kQVec; ++v) {
-      Raw<16> r;
+      Raw<kQB> r;
       r.load(q_rows + qi * kD + c * kEPT + v * kQN);
       unpack(r, &qf[qi][v * kQN], q_rows);
     }
@@ -288,32 +302,35 @@ __device__ __forceinline__ void split_walk(
     }
     __syncthreads();
 
-    // acc = acc * corr + p.v for column tid (+ kThreads ...) of each head
-#pragma unroll
-    for (int qi = 0; qi < kQpk; ++qi) {
-      const float corr = sm.c_s[qi];
-#pragma unroll
-      for (int col = 0; col < kCols; ++col) acc[qi][col] *= corr;
-    }
-#pragma unroll
-    for (int j0 = 0; j0 < kPS; j0 += 4) {
-      float vv[4][kCols];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int col = 0; col < kCols; ++col)
-          vv[t][col] = vb[(j0 + t) * kD + col * kThreads + tid];
+    // acc = acc * corr + p.v for column tid (+ kColT ...) of each head
+    if (tid < kColT) {
 #pragma unroll
       for (int qi = 0; qi < kQpk; ++qi) {
-        const float4 pp = *reinterpret_cast<const float4*>(&sm.p_s[qi][j0]);
+        const float corr = sm.c_s[qi];
 #pragma unroll
-        for (int col = 0; col < kCols; ++col) {
-          float a = acc[qi][col];
-          a = fmaf(pp.x, vv[0][col], a);
-          a = fmaf(pp.y, vv[1][col], a);
-          a = fmaf(pp.z, vv[2][col], a);
-          a = fmaf(pp.w, vv[3][col], a);
-          acc[qi][col] = a;
+        for (int col = 0; col < kCols; ++col) acc[qi][col] *= corr;
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < kPS; j0 += 4) {
+        float vv[4][kCols];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int col = 0; col < kCols; ++col)
+            vv[t][col] = vb[(j0 + t) * kD + col * kColT + tid];
+#pragma unroll
+        for (int qi = 0; qi < kQpk; ++qi) {
+          const float4 pp =
+              *reinterpret_cast<const float4*>(&sm.p_s[qi][j0]);
+#pragma unroll
+          for (int col = 0; col < kCols; ++col) {
+            float a = acc[qi][col];
+            a = fmaf(pp.x, vv[0][col], a);
+            a = fmaf(pp.y, vv[1][col], a);
+            a = fmaf(pp.z, vv[2][col], a);
+            a = fmaf(pp.w, vv[3][col], a);
+            acc[qi][col] = a;
+          }
         }
       }
     }
@@ -330,21 +347,25 @@ __device__ __forceinline__ void split_walk(
   }
   __syncthreads();
   if (n_splits == 1) {
+    if (tid < kColT) {
 #pragma unroll
-    for (int qi = 0; qi < kQpk; ++qi) {
-      const float l = fmaxf(sm.l_s[qi], 1e-30f);
+      for (int qi = 0; qi < kQpk; ++qi) {
+        const float l = fmaxf(sm.l_s[qi], 1e-30f);
 #pragma unroll
-      for (int col = 0; col < kCols; ++col)
-        store_f(dst.out + qi * kD + col * kThreads + tid, acc[qi][col] / l);
+        for (int col = 0; col < kCols; ++col)
+          store_f(dst.out + qi * kD + col * kColT + tid, acc[qi][col] / l);
+      }
     }
     return;
   }
+  if (tid < kColT) {
 #pragma unroll
-  for (int qi = 0; qi < kQpk; ++qi)
+    for (int qi = 0; qi < kQpk; ++qi)
 #pragma unroll
-    for (int col = 0; col < kCols; ++col)
-      acc_w[((row0 + qi) * n_splits + split) * kD + col * kThreads + tid] =
-          acc[qi][col];
+      for (int col = 0; col < kCols; ++col)
+        acc_w[((row0 + qi) * n_splits + split) * kD + col * kColT + tid] =
+            acc[qi][col];
+  }
   if (tid < kQpk) {
     m_w[(row0 + tid) * n_splits + split] = sm.m_s[tid];
     l_w[(row0 + tid) * n_splits + split] = sm.l_s[tid];
@@ -359,8 +380,10 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ work,
                                              size_t rows, size_t r,
                                              int n_splits,
                                              T* __restrict__ out_row) {
-  constexpr int kCols = kD / kThreads;
+  constexpr int kColT = kD < kThreads ? kD : kThreads;  // as split_walk
+  constexpr int kCols = kD / kColT;
   const int tid = threadIdx.x;
+  if (tid >= kColT) return;
   const float* m_w = work + r * n_splits;
   const float* l_w = work + rows * n_splits + r * n_splits;
   const float* acc_w = work + 2 * rows * n_splits + r * n_splits * kD;
@@ -378,11 +401,11 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ work,
     den += w * l_w[s];
 #pragma unroll
     for (int col = 0; col < kCols; ++col)
-      num[col] += w * acc_w[(size_t)s * kD + col * kThreads + tid];
+      num[col] += w * acc_w[(size_t)s * kD + col * kColT + tid];
   }
 #pragma unroll
   for (int col = 0; col < kCols; ++col)
-    store_f(out_row + col * kThreads + tid, num[col] / fmaxf(den, 1e-30f));
+    store_f(out_row + col * kColT + tid, num[col] / fmaxf(den, 1e-30f));
 }
 
 }  // namespace paged

@@ -40,8 +40,9 @@
 //     the fp32 accumulator (2^x by ex2.approx; a token's mask at vis only
 //     on the tiles that reach past the block's first token), and p,
 //     rounded to bf16 in registers, is the A operand of o += p.v (wgmma
-//     m64n128k16, V read MN-major). o leaves through shared memory, row by
-//     row up to the row's q_len: tokens past it belong to the next row.
+//     m64n128k16, m64n64k16 at head dim 64; V read MN-major). o leaves
+//     through shared memory, row by row up to the row's q_len: tokens past
+//     it belong to the next row.
 //   - decode rows: rows r < decode_rows (q_len <= 1 by contract), one
 //     block per (row, kv head, split of pages_per_split pages): the decode
 //     op's split walk (paged_split.cuh), so a short decode batch spreads
@@ -67,8 +68,11 @@
 // tiles on CUDA cores in fp32, K/V dequantized on load into shared memory,
 // the next tile's 16-byte loads in flight during this tile's math.
 //
-// Built for head dim 128; the bf16 path for pages of 8 or 16 slots and 1,
-// 2, 4 or 8 query heads per kv head (Llama 3: 4). Plain C interface
+// Built for head dim 64 or 128 (the bf16 prefill tiles templated on it: at
+// 64 a bf16 row is one 128-byte swizzled box, q.k^T takes 4 k steps and
+// p.v is wgmma m64n64k16); the bf16 path for pages of 8, 16 or 32 slots
+// and 1, 2, 4 or 8 query heads per kv head (Llama 3: 128, 16, 4; the JAX
+// package's serving benchmark: 64, 32, 2). Plain C interface
 // (loaded with ctypes): ragged_paged_attention() launches on the given
 // stream and returns the cudaError_t of the launches.
 
@@ -319,9 +323,8 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   }
 }
 
-template <typename KT, bool kHasScales>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int D = 128;
+template <typename KT, bool kHasScales, int D>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
   const int qpk = a.Hq / a.Hkv;
   const size_t smem = sizeof(float) * (2 * qpk * D + kTile * (D + 1) +
                                        kTile * D + qpk * kTile + 3 * qpk);
@@ -342,6 +345,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename KT, bool kHasScales>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.D == 64) return launch_d<KT, kHasScales, 64>(a, stream);
+  return launch_d<KT, kHasScales, 128>(a, stream);
+}
+
 }  // namespace f32
 
 // -------------------------------- bf16 q: prefill tiles and decode splits
@@ -353,28 +362,30 @@ using paged::kThreads;  // 128: one warpgroup
 using paged::kWarps;
 using BF = __nv_bfloat16;
 
-constexpr int kD = 128;
 constexpr int kRows = 64;                 // prefill tile rows: tokens x heads
 constexpr int kKeys = 64;                 // slots of a key tile
 constexpr uint32_t kBox = 64 * 128;       // [64 rows][64 bf16], swizzled: 8 KB
-constexpr uint32_t kTileB = 2 * kBox;     // a [64, 128] bf16 tile: 16 KB
-constexpr uint32_t kRawB = kKeys * kD;    // a [64, 128] int8 tile: 8 KB
 constexpr uint32_t kScaleB = kKeys * 2;   // a tile's 64 bf16 scales
 
-// Shared memory of a prefill block, from a 1024-byte aligned base: the q
-// tile (its rows also carry o out), then a two-stage ring. bf16 pools: a
-// stage holds the K and V tiles the products read. int8 pools: a stage
-// holds the int8 K and V tiles (row = slot, unswizzled) and their scales,
-// widened at their turn into one pair of bf16 tiles.
-template <typename KT>
+// Shared memory of a prefill block at head dim kD, from a 1024-byte
+// aligned base: the q tile (its rows also carry o out), then a two-stage
+// ring. A [64, kD] bf16 tile is kD / 64 swizzled boxes of 64 columns. bf16
+// pools: a stage holds the K and V tiles the products read. int8 pools: a
+// stage holds the int8 K and V tiles (row = slot, unswizzled) and their
+// scales, widened at their turn into one pair of bf16 tiles.
+template <typename KT, int kD>
 struct Layout {
   static constexpr bool kI8 = std::is_same<KT, int8_t>::value;
+  static constexpr uint32_t kTileB = (kD / 64) * kBox;  // a [64, kD] tile
+  static constexpr uint32_t kRawB = kKeys * kD;        // its int8 form
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kTileB, kV = 2 * kTileB;  // int8: bf16 K, V
   static constexpr uint32_t kRing = kI8 ? 3 * kTileB : kTileB;
   static constexpr uint32_t kStage =
       kI8 ? 2 * kRawB + 2 * kScaleB : 2 * kTileB;
-  static constexpr uint32_t kBytes = kRing + 2 * kStage;  // 80 or 80.25 KB
+  // D 128: 80 or 80.25 KB; D 64: 40 or 40.25 KB
+  static constexpr uint32_t kBytes = kRing + 2 * kStage;
+  static_assert(kD == 64 || kD == 128, "head dim");
 };
 
 // The prefill tile's online-softmax step on this thread's 32 scores (two
@@ -421,13 +432,15 @@ __device__ __forceinline__ void softmax_tile(
 
 // One prefill block: (row, first q block, kv head) from its index, the
 // last q blocks first (the host's ragged_prefill_block mirrors this).
-template <typename KT, int kPS, int kQpk>
+template <typename KT, int kPS, int kQpk, int kD>
 __device__ __forceinline__ void prefill_block(const Args& a, int blk,
                                               unsigned char* smem,
                                               uint32_t base) {
-  using L = Layout<KT>;
+  using L = Layout<KT, kD>;
   constexpr bool kI8 = L::kI8;
   constexpr int kBM = kRows / kQpk;  // tokens of a q block
+  constexpr int kVecB = kD / 8;      // 16-byte vectors of a bf16 row
+  constexpr int kVecI = kD / 16;     // of an int8 row
   static_assert(kKeys % kPS == 0 && kPS % 8 == 0, "page size");
   const int Hkv = a.Hkv, Hq = a.Hq;
   const int Rp = a.R - a.decode_rows;
@@ -469,9 +482,9 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
       const int s0 = kt * kKeys;
       if constexpr (!kI8) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int e = tid + i * kThreads;  // 16 vectors a slot
-          const int slot = e >> 4, chunk = e & 15;
+        for (int i = 0; i < kKeys * kVecB / kThreads; ++i) {
+          const int e = tid + i * kThreads;
+          const int slot = e / kVecB, chunk = e % kVecB;
           const int pos = s0 + slot;
           const bool ok = pos < vis_hi;
           const size_t off =
@@ -481,21 +494,21 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
           const uint32_t o =
               (chunk >> 3) * kBox + swizzled(slot, (chunk & 7) * 8);
           cp_async16(dst + o, kp + off, ok);
-          cp_async16(dst + kTileB + o, vp + off, ok);
+          cp_async16(dst + L::kTileB + o, vp + off, ok);
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e = tid + i * kThreads;  // 8 vectors a slot
-          const int slot = e >> 3, chunk = e & 7;
+        for (int i = 0; i < kKeys * kVecI / kThreads; ++i) {
+          const int e = tid + i * kThreads;
+          const int slot = e / kVecI, chunk = e % kVecI;
           const int pos = s0 + slot;
           const bool ok = pos < vis_hi;
           const size_t off =
               ok ? (((size_t)pt[pos / kPS] * Hkv + h) * kPS + pos % kPS) * kD +
                        chunk * 16
                  : 0;
-          cp_async16(dst + slot * 128 + chunk * 16, kp + off, ok);
-          cp_async16(dst + kRawB + slot * 128 + chunk * 16, vp + off, ok);
+          cp_async16(dst + slot * kD + chunk * 16, kp + off, ok);
+          cp_async16(dst + L::kRawB + slot * kD + chunk * 16, vp + off, ok);
         }
         if (tid < 16) {  // the scales: 8 slots (of one page) a vector
           const int which = tid >> 3, pos = s0 + 8 * (tid & 7);
@@ -504,23 +517,23 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
               ok ? ((size_t)pt[pos / kPS] * Hkv + h) * kPS + pos % kPS : 0;
           const BF* src =
               static_cast<const BF*>(which ? a.v_scale : a.k_scale) + off;
-          cp_async16(dst + 2 * kRawB + which * kScaleB + (tid & 7) * 16, src,
-                     ok);
+          cp_async16(dst + 2 * L::kRawB + which * kScaleB + (tid & 7) * 16,
+                     src, ok);
         }
       }
     };
 
-    float acc[64];
+    float acc[kD / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units)
     float l[2] = {0.f, 0.f};              // this thread's share of the sum
     if (n_kt > 0) {
       // the q tile: row r is token j0 + r / kQpk, head h * kQpk + r % kQpk
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < kRows * kVecB / kThreads; ++i) {
         const int e = tid + i * kThreads;
-        const int r = e >> 4, chunk = e & 15;
+        const int r = e / kVecB, chunk = e % kVecB;
         const int tok = r / kQpk, tq = qs + j0 + tok;
         const bool ok = tok < n_tok && tq < a.T;
         const BF* src =
@@ -544,17 +557,17 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
       }
       const unsigned char* stage = smem + L::kRing + st * L::kStage;
       uint32_t k_addr = base + L::kRing + st * L::kStage;
-      uint32_t v_addr = k_addr + kTileB;
+      uint32_t v_addr = k_addr + L::kTileB;
       if constexpr (kI8) {  // the int8 tiles, widened to bf16 (exact)
         __syncthreads();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kKeys * kVecI / kThreads; ++i) {
           const int e = tid + i * kThreads;
-          const int slot = e >> 3, chunk = e & 7;
+          const int slot = e / kVecI, chunk = e % kVecI;
 #pragma unroll
           for (int kv = 0; kv < 2; ++kv) {
             const uint4 u = *reinterpret_cast<const uint4*>(
-                stage + kv * kRawB + slot * 128 + chunk * 16);
+                stage + kv * L::kRawB + slot * kD + chunk * 16);
             const uint32_t w[4] = {u.x, u.y, u.z, u.w};
             uint32_t bw[8];
 #pragma unroll
@@ -580,24 +593,24 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
       fence_async_smem();  // the copies and stores, seen by wgmma
       __syncthreads();
 
-      // s = q.k^T (64 x 64, fp32)
+      // s = q.k^T (64 x 64, fp32), kD / 16 k steps
       float s[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kD / 16; ++kk)
         mma_ss_n64(s, desc_k(base + L::kQ, kBox, kk), desc_k(k_addr, kBox, kk),
                    kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      const BF* ks = reinterpret_cast<const BF*>(stage + 2 * kRawB);
+      const BF* ks = reinterpret_cast<const BF*>(stage + 2 * L::kRawB);
       const BF* vs = ks + kKeys;
       float corr[2];
       const int k0 = kt * kKeys;
       const bool edge = k0 + kKeys > vis_lo;
       softmax_tile<kI8>(s, m, l, corr, edge, k0, vis, t, scale_log2, ks);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] *= corr[acc_half(i)];
+      for (int i = 0; i < kD / 2; ++i) acc[i] *= corr[acc_half(i)];
       // p (int8: times the column's v scale, 0 where masked) in bf16: the
       // A operand of p.v, 16 slots a k step
       uint32_t pa[16];
@@ -613,8 +626,12 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
       }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs_n128(acc, pa + 4 * kk, desc_mn(v_addr, kBox, kk));
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (kD == 128)
+          mma_rs_n128(acc, pa + 4 * kk, desc_mn(v_addr, kBox, kk));
+        else
+          mma_rs_n64<1>(acc, pa + 4 * kk, desc_mn(v_addr, kBox, kk), 1);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -629,9 +646,9 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
     store_acc_bf16(smem + L::kQ, kBox, acc, inv, warp, g, t);
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kRows * kVecB / kThreads; ++i) {
       const int e = tid + i * kThreads;
-      const int r = e >> 4, chunk = e & 15;
+      const int r = e / kVecB, chunk = e % kVecB;
       const int tok = r / kQpk, tq = qs + j0 + tok;
       if (tok < n_tok && tq < a.T)
         *reinterpret_cast<uint4*>(
@@ -645,7 +662,7 @@ __device__ __forceinline__ void prefill_block(const Args& a, int blk,
 
 // One decode block: (row, kv head, split) from its index, the split walk
 // of paged_split.cuh on token q_start[row] (an inactive row: nothing).
-template <typename KT, int kPS, int kQpk>
+template <typename KT, int kPS, int kQpk, int kD>
 __device__ __forceinline__ void decode_block(const Args& a, int i,
                                              unsigned char* smem) {
   const int S = a.n_splits;
@@ -668,22 +685,23 @@ __device__ __forceinline__ void decode_block(const Args& a, int i,
 }
 
 // blocks [0, prefill_blocks) take prefill tiles, the rest decode splits
-template <typename KT, int kPS, int kQpk>
+template <typename KT, int kPS, int kQpk, int kD>
 __global__ void __launch_bounds__(kThreads) ragged_sm90_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char dyn_smem[];
   const uint32_t raw = smem_addr(dyn_smem);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* smem = dyn_smem + (base - raw);
   if ((int)blockIdx.x < a.prefill_blocks)
-    prefill_block<KT, kPS, kQpk>(a, blockIdx.x, smem, base);
+    prefill_block<KT, kPS, kQpk, kD>(a, blockIdx.x, smem, base);
   else
-    decode_block<KT, kPS, kQpk>(a, blockIdx.x - a.prefill_blocks, smem);
+    decode_block<KT, kPS, kQpk, kD>(a, blockIdx.x - a.prefill_blocks, smem);
 }
 
 // The second launch: blocks [0, merge) merge the decode rows' splits (one
 // per (row, query head)); then one warp per token writes 0 over every token
 // that no block of the first launch wrote (a decode row writes q_start, a
 // prefill row q_start .. q_start + q_len - 1).
+template <int kD>
 __global__ void __launch_bounds__(kThreads) ragged_finish_kernel(
     const Args a) {
   const int merge = a.n_splits > 1 ? a.decode_rows * a.Hq : 0;
@@ -714,11 +732,12 @@ __global__ void __launch_bounds__(kThreads) ragged_finish_kernel(
   for (int e = lane; e < a.Hq * kD / 8; e += 32) dst[e] = make_uint4(0, 0, 0, 0);
 }
 
-template <typename KT, int kPS, int kQpk>
+template <typename KT, int kPS, int kQpk, int kD>
 cudaError_t launch_kernels(const Args& a, cudaStream_t stream) {
-  auto kernel = ragged_sm90_kernel<KT, kPS, kQpk>;
-  const size_t prefill_smem = Layout<KT>::kBytes + 1024;  // + alignment
-  const size_t decode_smem = sizeof(paged::SplitSmem<kPS, kQpk, kD>) + 1024;
+  auto kernel = ragged_sm90_kernel<KT, kPS, kQpk, kD>;
+  const size_t prefill_smem = Layout<KT, kD>::kBytes + 1024;  // + alignment
+  const size_t decode_smem =
+      sizeof(paged::SplitSmem<kPS, kQpk, kD>) + 1024;
   const size_t most = std::max(prefill_smem, decode_smem);
   const size_t smem = a.prefill_blocks > 0 ? most : decode_smem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -732,26 +751,35 @@ cudaError_t launch_kernels(const Args& a, cudaStream_t stream) {
   }
   const int merge = a.n_splits > 1 ? a.decode_rows * a.Hq : 0;
   const int zero = (a.T + kWarps - 1) / kWarps;
-  ragged_finish_kernel<<<merge + zero, kThreads, 0, stream>>>(a);
+  ragged_finish_kernel<kD><<<merge + zero, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename KT, int kPS>
+template <typename KT, int kPS, int kD>
 cudaError_t by_q_per_kv(const Args& a, cudaStream_t stream) {
   switch (a.Hq / a.Hkv) {
-    case 1: return launch_kernels<KT, kPS, 1>(a, stream);
-    case 2: return launch_kernels<KT, kPS, 2>(a, stream);
-    case 4: return launch_kernels<KT, kPS, 4>(a, stream);
-    case 8: return launch_kernels<KT, kPS, 8>(a, stream);
+    case 1: return launch_kernels<KT, kPS, 1, kD>(a, stream);
+    case 2: return launch_kernels<KT, kPS, 2, kD>(a, stream);
+    case 4: return launch_kernels<KT, kPS, 4, kD>(a, stream);
+    case 8: return launch_kernels<KT, kPS, 8, kD>(a, stream);
   }
   return cudaErrorInvalidValue;  // a group size not built
 }
 
+template <typename KT, int kD>
+cudaError_t by_page_size(const Args& a, cudaStream_t stream) {
+  switch (a.ps) {
+    case 8: return by_q_per_kv<KT, 8, kD>(a, stream);
+    case 16: return by_q_per_kv<KT, 16, kD>(a, stream);
+    case 32: return by_q_per_kv<KT, 32, kD>(a, stream);
+  }
+  return cudaErrorInvalidValue;  // a page size not built
+}
+
 template <typename KT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if (a.ps == 8) return by_q_per_kv<KT, 8>(a, stream);
-  if (a.ps == 16) return by_q_per_kv<KT, 16>(a, stream);
-  return cudaErrorInvalidValue;  // a page size not built
+  if (a.D == 64) return by_page_size<KT, 64>(a, stream);
+  return by_page_size<KT, 128>(a, stream);
 }
 
 }  // namespace bf16
@@ -763,7 +791,7 @@ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 extern "C" {
 
 // q_dtype: 0 fp32, 1 bf16. kv_dtype: q_dtype, or 2 int8 (scales
-// required). Head dim 128. Row descriptors q_start/q_len/kv_len are int32
+// required). Head dim 64 or 128; for bf16 q pages of 8, 16 or 32 slots. Row descriptors q_start/q_len/kv_len are int32
 // [R], page_table int32 [R, max_pages]. Hints, for bf16 q (fp32 q ignores
 // them): rows [0, decode_rows) have q_len <= 1 and go to the decode
 // splits of pages_per_split pages; every other row to prefill tiles,
@@ -781,7 +809,8 @@ int ragged_paged_attention(int q_dtype, int kv_dtype, const void* q,
                            int q_blocks, int pages_per_split, float sm_scale,
                            void* stream) {
   if (T == 0) return 0;
-  if (R <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != 128 || ps <= 0 ||
+  if (R <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128) ||
+      ps <= 0 ||
       max_pages <= 0 || decode_rows < 0 || decode_rows > R ||
       q_blocks < 1 || pages_per_split < 1)
     return (int)cudaErrorInvalidValue;

@@ -14,7 +14,9 @@ each with two implementations:
     ``blockwise_attention`` computes: the fp32 score is scaled, not q;
   - hand-written CUDA kernels for CUDA tensors: ``csrc/flash_attention_fwd.cu``
     (replacing the TPU's ``_fwd_kernel``) and ``csrc/flash_attention_bwd.cu``
-    (``_dq_kernel`` and ``_dkv_kernel``). They pick their own tiles; the
+    (``_dq_kernel`` and ``_dkv_kernel``; bf16 at head dim 128 runs the
+    Hopper designs ``flash_fwd_sm90_kernel``, ``flash_dq_sm90_kernel`` and
+    ``flash_dkv_sm90_kernel``). They pick their own tiles; the
     wrappers raise on what they do not take. There is no fallback from the
     card to the plain versions.
 ``_fwd_call`` / ``_bwd_call`` dispatch by the tensors' device.
@@ -41,8 +43,9 @@ launch_counts = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
                  "flash_attention_bwd_reference_cuda": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels are instantiated for (Llama: 128)
-KERNEL_HEAD_DIMS = (128,)
+#: head dims the CUDA kernels are instantiated for (Llama: 128; bf16 at 64
+#: takes the first designs, the Hopper designs being built for 128 only)
+KERNEL_HEAD_DIMS = (64, 128)
 #: sequence lengths must be multiples of the kernels' tile rows (64 for
 #: bf16; the fp32 tiles, 32 rows, divide it)
 KERNEL_TILE = 64

@@ -165,8 +165,47 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-#: head dims the CUDA kernel is instantiated for (Llama 3: 128)
-KERNEL_HEAD_DIMS = (128,)
+#: head dims the CUDA kernels are instantiated for (Llama 3: 128; the JAX
+#: package's serving benchmark, bench_llm.py: 64)
+KERNEL_HEAD_DIMS = (64, 128)
+#: page sizes and query heads per kv head of the split walk
+#: (paged_split.cuh), which the decode op and the bf16 ragged kernel run
+DECODE_PAGE_SIZES = (8, 16, 32)
+DECODE_Q_PER_KV = (1, 2, 4, 8)
+
+
+def check_kernel_geometry(Hq: int, Hkv: int, D: int, page_size: int,
+                          q_dtype, kv_dtype, *, decode_op: bool = False
+                          ) -> None:
+    """Raise (ValueError, TypeError) on an attention geometry the CUDA
+    kernels are not built for: the ragged op (the engine's), or with
+    ``decode_op`` the decode op. Both wrappers call it before a launch,
+    and ``InferenceEngine`` at construction on a CUDA device, so a
+    server never starts on a geometry its first step would refuse.
+
+    q in fp32 or bf16; pools in q's dtype, or (ragged op only) int8; head
+    dim in KERNEL_HEAD_DIMS; the decode op and the bf16 ragged kernel also
+    need a page size in DECODE_PAGE_SIZES and a query-head group in
+    DECODE_Q_PER_KV (the fp32 ragged kernel takes any)."""
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} kv "
+                         f"heads")
+    if q_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q dtype {q_dtype}: the kernels take fp32 or bf16")
+    pools = (q_dtype,) if decode_op else (q_dtype, torch.int8)
+    if kv_dtype not in pools:
+        raise TypeError(f"pool dtypes {kv_dtype}: the kernel takes pools in "
+                        f"q's dtype ({q_dtype})"
+                        + ("" if decode_op else " or int8"))
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernels are built for "
+                         f"{KERNEL_HEAD_DIMS}")
+    if (decode_op or q_dtype == torch.bfloat16) and (
+            page_size not in DECODE_PAGE_SIZES
+            or Hq // Hkv not in DECODE_Q_PER_KV):
+        raise ValueError(f"page size {page_size}, {Hq // Hkv} query heads "
+                         f"per kv head: the kernels are built for pages of "
+                         f"{DECODE_PAGE_SIZES} and {DECODE_Q_PER_KV}")
 
 
 def _check_placement(q, tensors) -> None:
@@ -260,21 +299,15 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
     if scales:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
     _check_placement(q, tensors)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes fp32 or bf16")
-    if k_pages.dtype not in (q.dtype, torch.int8) \
-            or v_pages.dtype != k_pages.dtype:
+    if v_pages.dtype != k_pages.dtype:
         raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype}: the "
-                        f"kernel takes pools in q's dtype ({q.dtype}) or "
-                        f"int8, both alike")
-    if (k_pages.dtype == torch.int8) != scales:
-        raise TypeError("int8 pools need k_scale/v_scale, fp pools none")
+                        f"kernel takes both alike")
     if v_pages.shape != k_pages.shape or Dk != D or Hq % Hkv:
         raise ValueError(f"shapes q {tuple(q.shape)}, pools "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel is built for "
-                         f"{KERNEL_HEAD_DIMS}")
+    check_kernel_geometry(Hq, Hkv, D, ps, q.dtype, k_pages.dtype)
+    if (k_pages.dtype == torch.int8) != scales:
+        raise TypeError("int8 pools need k_scale/v_scale, fp pools none")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("pools must start on 16 bytes (vector loads)")
     if scales and (k_scale.dtype != KV_SCALE_DTYPE
@@ -292,11 +325,6 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
         raise ValueError(f"max_pages {max_pages}, decode_rows {decode_rows}"
                          f", pages_per_split {pages_per_split}")
     tiles = q.dtype == torch.bfloat16
-    if tiles and (ps not in DECODE_PAGE_SIZES
-                  or Hq // Hkv not in DECODE_Q_PER_KV):
-        raise ValueError(f"page size {ps}, {Hq // Hkv} query heads per kv "
-                         f"head: the bf16 kernel is built for pages of "
-                         f"{DECODE_PAGE_SIZES} and {DECODE_Q_PER_KV}")
     if tiles and (q.data_ptr() % 16 or scales and (
             k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16)):
         raise ValueError("q and the scales must start on 16 bytes (vector "
@@ -361,9 +389,6 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start,
 #: tokens (128 pages of 16) is then 8 splits x 8 kv heads x 8 sequences =
 #: 512 blocks, about four per SM of an H100
 PAGES_PER_SPLIT = 16
-#: page sizes and query heads per kv head the decode kernel is built for
-DECODE_PAGE_SIZES = (8, 16)
-DECODE_Q_PER_KV = (1, 2, 4, 8)
 
 
 def _decode_pages(page_table, seq_lens, ps: int):
@@ -479,11 +504,9 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
     tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                "page_table": page_table, "seq_lens": seq_lens}
     _check_placement(q, tensors)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes fp32 or bf16")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    if v_pages.dtype != k_pages.dtype:
         raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype}: the "
-                        f"kernel takes pools in q's dtype ({q.dtype})")
+                        f"kernel takes both alike")
     for name in ("page_table", "seq_lens"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32")
@@ -493,13 +516,8 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
                          f"page_table {tuple(page_table.shape)}, seq_lens "
                          f"{tuple(seq_lens.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel is built for "
-                         f"{KERNEL_HEAD_DIMS}")
-    if ps not in DECODE_PAGE_SIZES or Hq // Hkv not in DECODE_Q_PER_KV:
-        raise ValueError(f"page size {ps}, {Hq // Hkv} query heads per kv "
-                         f"head: the kernel is built for pages of "
-                         f"{DECODE_PAGE_SIZES} and {DECODE_Q_PER_KV}")
+    check_kernel_geometry(Hq, Hkv, D, ps, q.dtype, k_pages.dtype,
+                          decode_op=True)
     if q.data_ptr() % 16 or k_pages.data_ptr() % 16 \
             or v_pages.data_ptr() % 16:
         raise ValueError("q and the pools must start on 16 bytes (vector "

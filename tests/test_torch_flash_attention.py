@@ -108,8 +108,8 @@ def _worst_ratio(got, want, rtol):
 
 
 # the bf16 CUDA kernels' tiles: the forward's 128 q rows x 128 keys, the
-# dk/dv kernel's 64 q rows x 128 keys
-FWD_TILES, BWD_TILES = (128, 128), (64, 128)
+# dk/dv kernel's 64 q rows x 128 keys, the dq kernel's 128 q rows x 64 keys
+FWD_TILES, BWD_TILES, DQ_TILES = (128, 128), (64, 128), (128, 64)
 CARD_RTOL = 2.0 ** -6   # chip_smoke.py's and the card tests' per-row limit
 
 
@@ -153,6 +153,38 @@ def test_plain_versions_at_the_kernel_tiles_hold_the_card_limit(causal):
     assert max(vs_pallas.values()) <= 1, f"vs Pallas: {vs_pallas}"
     np.testing.assert_allclose(_np(lse_t), _np(jlse)[:, 0], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_dq_at_the_dq_kernel_tiles_holds_the_card_limit(causal):
+    """The same for dq at the sm90 dq kernel's tiles (128 q rows x 64 keys,
+    ds rounded to bf16 per tile): against the default 256-row blocks within
+    CARD_RTOL, and against the Pallas kernels in interpret mode at the same
+    tiles within this module's own limit."""
+    BH, L, D = 2, 512, 128
+    q, k, v, do = _arrays((BH, L, D), 12, 4)
+    dlse = _arrays((BH, L), 13)[0]
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (_torch(a, "bfloat16") for a in (q, k, v, do))
+    o_d, lse_d = tfa._fwd_reference(tq, tk, tv, causal, scale)
+    delta = (tdo.float() * o_d.float()).sum(-1) - torch.from_numpy(dlse)
+    dq_t = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale,
+                              *DQ_TILES)[0]
+    dq_d = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal,
+                              scale)[0]
+    ratio = _worst_ratio(dq_t, dq_d, CARD_RTOL)
+    assert ratio <= 1, f"dq tiles vs 256-row blocks: {ratio}"
+
+    jq, jk, jv, jdo = (_jax(a, "bfloat16") for a in (q, k, v, do))
+    jo, jlse = jfa._fwd_call(jq, jk, jv, causal, scale, 256, 256, True)
+    jdq = jfa._bwd_call(jq, jk, jv, jo, jlse, jdo, causal, scale,
+                        *DQ_TILES, True, dlse=jnp.asarray(dlse))[0]
+    o_j = torch.from_numpy(_np(jo).copy()).to(torch.bfloat16)
+    lse_j = torch.from_numpy(_np(jlse)[:, 0].copy())
+    tdq = tfa._bwd_call(tq, tk, tv, o_j, lse_j, tdo, causal, scale,
+                        *DQ_TILES, dlse=torch.from_numpy(dlse))[0]
+    ratio = _worst_ratio(tdq, jdq, BF16_RTOL["grad"])
+    assert ratio <= 1, f"dq vs Pallas at the dq tiles: {ratio}"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

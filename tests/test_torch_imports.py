@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     assert _run(code) == "[]"
 
 
-@pytest.mark.parametrize("script", ["chip_smoke"])
+@pytest.mark.parametrize("script", ["chip_smoke", "chip_compare"])
 def test_script_imports_without_jax_or_ray_tpu(script):
     """Scripts at the repo's root that drive the port on the card."""
     assert (ROOT / f"{script}.py").is_file()

@@ -7,10 +7,14 @@ on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import time
+
 import pytest
 import torch
 
-from ray_tpu_torch.models.llama import head_logits
+from ray_tpu_torch.llm.engine import InferenceEngine
+from ray_tpu_torch.llm.serve_llm import LLMServer
+from ray_tpu_torch.models.llama import LlamaConfig, head_logits
 from ray_tpu_torch.ops import flash_attention as tfa
 from ray_tpu_torch.ops import paged_attention as tpa
 from ray_tpu_torch.ops.int8 import int8_matmul, quantize_kv
@@ -64,7 +68,10 @@ def _mixed_batch(device, Hq, Hkv, D, ps, pages=12, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Hq,Hkv,D,ps", [
-    (8, 8, 128, 8), (8, 4, 128, 16), (8, 1, 128, 16), (32, 8, 128, 16)])
+    (8, 8, 128, 8), (8, 4, 128, 16), (8, 1, 128, 16), (32, 8, 128, 16),
+    # bench_llm.py's serving widths (head dim 64, pages of 32, 2 query heads
+    # per kv head), and the other head dim 64 and page 32 neighbours
+    (16, 8, 64, 32), (8, 1, 64, 8), (8, 4, 64, 16), (32, 8, 128, 32)])
 def test_ragged_kernel_matches_plain_version(cuda, Hq, Hkv, D, ps):
     q, kp, vp, pt, qs, ql, kl = _mixed_batch(cuda, Hq, Hkv, D, ps)
     for qdt, pools in PAIRS:
@@ -99,22 +106,22 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
         tpa.ragged_paged_attention(q.half(), kp, vp, pt, qs, ql, kl)
     with pytest.raises(TypeError, match="pool dtypes"):   # mixed fp pair
         tpa.ragged_paged_attention(q.bfloat16(), kp, vp, pt, qs, ql, kl)
-    q64, kp64, vp64, *_ = _mixed_batch(cuda, 8, 4, 64, 16)
+    q96, kp96, vp96, *_ = _mixed_batch(cuda, 8, 4, 96, 16)
     with pytest.raises(ValueError, match="head dim"):
-        tpa.ragged_paged_attention(q64, kp64, vp64, pt, qs, ql, kl)
+        tpa.ragged_paged_attention(q96, kp96, vp96, pt, qs, ql, kl)
     with pytest.raises(ValueError, match="reference"):
         tpa.ragged_paged_attention(q, kp, vp, pt, qs, ql, kl,
                                    impl="reference")
     with pytest.raises(ValueError):
         tpa.ragged_paged_attention(q, kp.cpu(), vp, pt, qs, ql, kl)
-    # the bf16 kernel: pages of 8 or 16 slots, 1, 2, 4 or 8 query heads
-    # per kv head, and hints that make sense
+    # the bf16 kernel: pages of 8, 16 or 32 slots, 1, 2, 4 or 8 query
+    # heads per kv head, and hints that make sense
     qb, kb, vb = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
     with pytest.raises(ValueError, match="page size"):
-        tpa.ragged_paged_attention(qb, kb.reshape(12, 4, 32, 64)
-                                   .repeat(1, 1, 1, 2).contiguous(),
-                                   vb.reshape(12, 4, 32, 64)
-                                   .repeat(1, 1, 1, 2).contiguous(),
+        tpa.ragged_paged_attention(qb, kb.reshape(12, 4, 64, 32)
+                                   .repeat(1, 1, 1, 4).contiguous(),
+                                   vb.reshape(12, 4, 64, 32)
+                                   .repeat(1, 1, 1, 4).contiguous(),
                                    pt, qs, ql, kl)
     q6, kp6, vp6, *_ = _mixed_batch(cuda, 6, 2, 128, 16)
     with pytest.raises(ValueError, match="query heads"):
@@ -125,15 +132,16 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
                                    decode_rows=-1)
 
 
-def _ragged_rows(device, rows, T, Hq, Hkv, ps, max_pages, pools, seed):
+def _ragged_rows(device, rows, T, Hq, Hkv, ps, max_pages, pools, seed,
+                 D=128):
     """A ragged batch of rows (q_start, q_len, kv_len) over pages drawn
     without repeats from 1..P-1; bf16 q, pools bf16 or int8 (with
     scales). Returns q, k, v, the scales dict, the table, the descriptors
     and the owned-token mask."""
     g = torch.Generator(device=device).manual_seed(seed)
     P = 1 + sum(-(-L // ps) for _, _, L in rows)
-    q = torch.randn(T, Hq, 128, generator=g, device=device).bfloat16()
-    kp, vp = (torch.randn(P, Hkv, ps, 128, generator=g, device=device)
+    q = torch.randn(T, Hq, D, generator=g, device=device).bfloat16()
+    kp, vp = (torch.randn(P, Hkv, ps, D, generator=g, device=device)
               for _ in range(2))
     perm = torch.randperm(P - 1, generator=g, device=device) + 1
     pt = torch.zeros(len(rows), max_pages, dtype=torch.int32, device=device)
@@ -157,10 +165,11 @@ def _ragged_rows(device, rows, T, Hq, Hkv, ps, max_pages, pools, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pools", [BF16, I8])
-@pytest.mark.parametrize("ps", [8, 16])
-@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 1)])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (8, 1, 128),
+                                      (16, 8, 64)])
 def test_ragged_decode_rows_at_split_and_page_edges(cuda, pools, ps, Hq,
-                                                     Hkv):
+                                                     Hkv, D):
     # decode rows whose lengths sit at the page and split edges, one
     # inactive slot; T == R as in the decode loop, and 3 tokens more
     split = tpa.RAGGED_PAGES_PER_SPLIT * ps
@@ -168,7 +177,7 @@ def test_ragged_decode_rows_at_split_and_page_edges(cuda, pools, ps, Hq,
     rows = [(i, 1, n) for i, n in enumerate(lens)] + [(len(lens), 0, 0)]
     for T in (len(rows), len(rows) + 3):
         q, k, v, sc, pt, qs, ql, kl, owned = _ragged_rows(
-            cuda, rows, T, Hq, Hkv, ps, 2048 // ps, pools, ps + Hq)
+            cuda, rows, T, Hq, Hkv, ps, 2048 // ps, pools, ps + Hq, D)
         got = tpa.ragged_paged_attention(q, k, v, pt, qs, ql, kl, **sc,
                                          max_q_len=1, decode_rows=len(rows))
         want = tpa.ragged_paged_attention_reference(q, k, v, pt, qs, ql, kl,
@@ -182,16 +191,17 @@ def test_ragged_decode_rows_at_split_and_page_edges(cuda, pools, ps, Hq,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pools", [BF16, I8])
-@pytest.mark.parametrize("Hq,Hkv,ps", [(32, 8, 16), (8, 4, 16), (8, 1, 8),
-                                        (8, 8, 16)])
-def test_ragged_prefill_chunks_across_edges(cuda, pools, Hq, Hkv, ps):
+@pytest.mark.parametrize("Hq,Hkv,ps,D", [
+    (32, 8, 16, 128), (8, 4, 16, 128), (8, 1, 8, 128), (8, 8, 16, 128),
+    (16, 8, 32, 64), (8, 1, 8, 64), (32, 8, 32, 128)])
+def test_ragged_prefill_chunks_across_edges(cuda, pools, Hq, Hkv, ps, D):
     # two decode rows, then chunks that cross page, q-block and key-tile
     # edges: 37 tokens after a 27-token prefix, 9 tokens after 64, and 69
     # tokens that end exactly at the token capacity
     rows = [(0, 1, 40), (1, 1, 3), (2, 37, 64), (39, 9, 73), (48, 69, 69)]
     T = 48 + 69
     q, k, v, sc, pt, qs, ql, kl, owned = _ragged_rows(
-        cuda, rows, T, Hq, Hkv, ps, 10, pools, Hq * ps)
+        cuda, rows, T, Hq, Hkv, ps, 10, pools, Hq * ps, D)
     want = tpa.ragged_paged_attention_reference(q, k, v, pt, qs, ql, kl,
                                                 **sc)
     for hints in (dict(), dict(decode_rows=2, max_q_len=69),
@@ -253,18 +263,19 @@ def _decode_batch(device, Hq, Hkv, D, ps, lens, max_pages, tail=0, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("ps", [8, 16, 32])
 @pytest.mark.parametrize("Hq,Hkv", [(8, 4), (8, 2), (32, 8)])
-def test_decode_kernel_matches_plain_version(cuda, dtype, ps, Hq, Hkv):
+@pytest.mark.parametrize("D", [128, 64])
+def test_decode_kernel_matches_plain_version(cuda, dtype, ps, Hq, Hkv, D):
     # lengths: 0, 1, a page, one past, mid-page, the table, past the
     # table; the unused tail holds -1, which the kernel must never read
     max_pages = 6
     lens = [0, 1, ps, ps + 1, 3 * ps + 5, max_pages * ps,
             max_pages * ps + 9]
-    q, kp, vp, pt, sl = _decode_batch(cuda, Hq, Hkv, 128, ps, lens,
+    q, kp, vp, pt, sl = _decode_batch(cuda, Hq, Hkv, D, ps, lens,
                                       max_pages, tail=-1, seed=Hq + ps)
     q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
-    scale = 128 ** -0.5
+    scale = D ** -0.5
     for pps in (1, 2, 4, tpa.PAGES_PER_SPLIT):
         before = tpa.launch_counts["paged_attention"]
         got = tpa._paged_attention_cuda(q, kp, vp, pt, sl, scale, pps)
@@ -300,15 +311,18 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     q96, kp96, vp96, *_ = _decode_batch(cuda, 8, 2, 96, 16, [5, 20], 2)
     with pytest.raises(ValueError, match="head dim"):
         tpa.paged_attention(q96, kp96, vp96, pt, sl)
+    q24, kp24, vp24, *_ = _decode_batch(cuda, 8, 2, 128, 24, [5, 20], 2)
+    with pytest.raises(ValueError, match="page size"):
+        tpa.paged_attention(q24, kp24, vp24, pt, sl)
     with pytest.raises(ValueError, match="reference"):
         tpa.paged_attention(q, kp, vp, pt, sl, impl="reference")
 
 
-def _flash_inputs(device, dtype, BH, Lq, Lk, seed):
+def _flash_inputs(device, dtype, BH, Lq, Lk, seed, D=128):
     g = torch.Generator(device=device).manual_seed(seed)
-    q, do = (torch.randn(BH, Lq, 128, generator=g, device=device).to(dtype)
+    q, do = (torch.randn(BH, Lq, D, generator=g, device=device).to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(BH, Lk, 128, generator=g, device=device).to(dtype)
+    k, v = (torch.randn(BH, Lk, D, generator=g, device=device).to(dtype)
             for _ in range(2))
     dlse = torch.randn(BH, Lq, generator=g, device=device)
     return q, k, v, do, dlse
@@ -328,11 +342,14 @@ def _flash_inputs(device, dtype, BH, Lq, Lk, seed):
                                       # 9 bh: the block order's last group
                                       # of 8 bh holds one
                                       (9, 256, 128)])
+@pytest.mark.parametrize("D", [128, 64])
 def test_flash_kernels_match_plain_versions(cuda, dtype, causal, BH, Lq,
-                                            Lk):
+                                            Lk, D):
+    # bf16 at D 128: the Hopper designs (dq among them, with the lse
+    # cotangent folded into delta); D 64 and fp32: the first designs
     q, k, v, do, dlse = _flash_inputs(cuda, dtype, BH, Lq, Lk,
-                                      BH * Lq + Lk)
-    scale = 128 ** -0.5
+                                      BH * Lq + Lk, D)
+    scale = D ** -0.5
     # the plain versions' blocks must divide L (64 for 192 and 320)
     blocks = (tfa.pick_block(Lq), tfa.pick_block(Lk))
     before = dict(tfa.launch_counts)
@@ -359,7 +376,7 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, BH, Lq,
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_are_repeatable(cuda, causal):
     # no atomics and a fixed order of sums: two calls on the same inputs
-    # give the same bits (forward, and dk/dv, which the bf16 path redesigned)
+    # give the same bits (the bf16 path's Hopper forward, dq and dk/dv)
     q, k, v, do, dlse = _flash_inputs(cuda, BF16, 3, 320, 192, 7)
     scale = 128 ** -0.5
     runs = []
@@ -405,9 +422,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         tfa._fwd_cuda(q.half(), q.half(), q.half(), True, 0.1)
     with pytest.raises(TypeError, match="one dtype"):
         tfa._fwd_cuda(q, q.float(), q, True, 0.1)
-    q64 = torch.randn(2, 128, 64, device=cuda).bfloat16()
+    q32 = torch.randn(2, 128, 32, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="head dim"):
-        tfa._fwd_cuda(q64, q64, q64, True, 0.1)
+        tfa._fwd_cuda(q32, q32, q32, True, 0.1)
     q96 = torch.randn(2, 96, 128, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="kernel tile"):
         tfa._fwd_cuda(q96, q96, q96, True, 0.1)
@@ -452,3 +469,47 @@ def test_int8_matmul_on_card_matches_cpu(cuda):
         outs.append((out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
     for got, want in zip(outs[1], outs[0]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_dq_at_a_training_shape(cuda, causal, D):
+    # dq alone at a cut of the training path's shape (L 1024, BH 9: the
+    # block order's last group of 8 bh holds one), with an lse cotangent;
+    # one launch per call, and the result repeats bit for bit
+    q, k, v, do, dlse = _flash_inputs(cuda, BF16, 9, 1024, 1024, 5 + D, D)
+    scale = D ** -0.5
+    o, lse = tfa._fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    before = tfa.launch_counts["flash_attention_dq"]
+    runs = []
+    for _ in range(2):
+        dq = torch.empty_like(q)
+        tfa._launch("flash_attention_bwd", "flash_attention_dq", cuda, 1, q,
+                    k, v, do, lse, delta, dq, 9, 1024, 1024, D, int(causal),
+                    scale)
+        runs.append(dq)
+    want = tfa._bwd_reference(q, k, v, lse, do, delta, causal, scale)[0]
+    torch.cuda.synchronize()
+    assert tfa.launch_counts["flash_attention_dq"] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    assert tolerance_ratio(runs[0], want, FLASH_TOL) <= 1
+
+
+@pytest.mark.cuda
+def test_server_on_a_geometry_the_kernels_refuse_raises_at_construction(
+        cuda):
+    # the default server (preset "tiny": head dim 8) on the card: the
+    # constructor names the geometry within seconds, instead of the
+    # engine thread dying in its first step and callers waiting 300 s
+    t0 = time.monotonic()
+    with pytest.raises(ValueError, match="head dim 8"):
+        LLMServer()
+    with pytest.raises(ValueError, match="head dim 8"):
+        InferenceEngine(LlamaConfig.tiny(), device=cuda)
+    with pytest.raises(ValueError, match="page size 24"):
+        InferenceEngine(LlamaConfig.tiny(dim=1024, n_heads=16,
+                                         n_kv_heads=8, n_layers=1),
+                        page_size=24, device=cuda)
+    assert time.monotonic() - t0 < 30

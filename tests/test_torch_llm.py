@@ -567,3 +567,25 @@ def test_engine_requires_card_unless_cpu_requested():
         pytest.skip("this machine has a card: the default device works")
     with pytest.raises(RuntimeError, match="cuda"):
         TEngine(TCFG, total_pages=4, max_batch=1, max_seq_len=16)
+
+
+def test_engine_on_a_card_checks_the_kernel_geometry_first(monkeypatch):
+    """On a CUDA device the constructor checks the attention kernels'
+    geometry before it allocates anything, so the default server (preset
+    "tiny", head dim 8) raises at construction and starts no engine
+    thread. The device is stood in for here: resolve_device hands back a
+    CUDA device without a card, and the check must raise before any
+    tensor is made on it."""
+    import threading
+
+    from ray_tpu_torch.llm import engine as te
+    monkeypatch.setattr(te, "resolve_device", torch.device)
+    threads = threading.active_count()
+    with pytest.raises(ValueError, match="head dim 8"):
+        LLMServer()
+    with pytest.raises(ValueError, match="page size 24"):
+        TEngine(tl.LlamaConfig.tiny(dim=1024, n_heads=16, n_kv_heads=8),
+                page_size=24)
+    with pytest.raises(TypeError, match="q dtype"):
+        TEngine(tl.LlamaConfig.llama3_8b(dtype=torch.float16))
+    assert threading.active_count() == threads

@@ -173,3 +173,72 @@ def test_dispatcher_rejects_kernel_on_cpu_and_bad_impl():
     before = dict(tpa.launch_counts)
     tpa.ragged_paged_attention(*args, impl="reference")
     assert tpa.launch_counts == before   # CPU work launches nothing
+
+
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("Hq,Hkv,D,ps,q_dtype,kv_dtype,decode_op,error", [
+    # the default server's preset "tiny": head dim 8 stays CPU-only
+    (8, 4, 8, 16, BF16, BF16, False, "head dim 8"),
+    (32, 8, 128, 24, BF16, BF16, False, "page size 24"),
+    (32, 8, 128, 64, BF16, I8, False, "page size 64"),
+    (24, 8, 128, 16, BF16, BF16, False, "3 query heads"),
+    (32, 8, 128, 24, F32, F32, True, "page size 24"),
+    (32, 8, 128, 16, BF16, I8, True, "pool dtypes"),
+    (32, 8, 128, 16, torch.float16, torch.float16, False, "q dtype"),
+    (12, 8, 128, 16, BF16, BF16, False, "not a multiple"),
+])
+def test_kernel_geometry_rejects(Hq, Hkv, D, ps, q_dtype, kv_dtype,
+                                 decode_op, error):
+    with pytest.raises((ValueError, TypeError), match=error):
+        tpa.check_kernel_geometry(Hq, Hkv, D, ps, q_dtype, kv_dtype,
+                                  decode_op=decode_op)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D,ps,q_dtype,kv_dtype,decode_op", [
+    # Llama-3-8B widths (head dim 128, 4 query heads per kv head, pages
+    # of 16) and bench_llm.py's (head dim 64, 2 per kv head, pages of 32)
+    (32, 8, 128, 16, BF16, BF16, False),
+    (32, 8, 128, 16, BF16, I8, False),
+    (32, 8, 128, 16, BF16, BF16, True),
+    (16, 8, 64, 32, BF16, BF16, False),
+    (16, 8, 64, 32, BF16, I8, False),
+    (16, 8, 64, 32, BF16, BF16, True),
+    (16, 8, 64, 32, F32, F32, True),
+    # the fp32 ragged kernel takes any page size and head group
+    (24, 8, 128, 24, F32, I8, False),
+])
+def test_kernel_geometry_accepts(Hq, Hkv, D, ps, q_dtype, kv_dtype,
+                                 decode_op):
+    tpa.check_kernel_geometry(Hq, Hkv, D, ps, q_dtype, kv_dtype,
+                              decode_op=decode_op)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_serving_benchmark_geometry_matches_jax(int8):
+    """bench_llm.py's attention widths (Hq 16, Hkv 8, head dim 64, pages
+    of 32), fp32 or int8 pools: the port's plain version against the JAX
+    reference and the Pallas kernel in interpret mode."""
+    Hq, Hkv, D, ps = 16, 8, 64, 32
+    q, kp, vp, pt, qs, ql, kl = _mixed_batch(17 + int8, Hq, Hkv, D, ps=ps)
+    if int8:
+        (jk, jks), (jv, jvs) = (jint8.quantize_kv(jnp.asarray(x))
+                                for x in (kp, vp))
+        (tk, tks), (tv, tvs) = (tint8.quantize_kv(torch.from_numpy(x))
+                                for x in (kp, vp))
+    else:
+        jk, jv, jks, jvs = jnp.asarray(kp), jnp.asarray(vp), None, None
+        tk, tv = torch.from_numpy(kp), torch.from_numpy(vp)
+        tks = tvs = None
+    jargs = [jnp.asarray(q), jk, jv] + _j((pt, qs, ql, kl))
+    want = np.asarray(jpa.ragged_paged_attention_reference(
+        *jargs, k_scale=jks, v_scale=jvs))
+    kern = np.asarray(jpa._ragged_attention_pallas(
+        *jargs, jks, jvs, D ** -0.5, interpret=True))
+    got = tpa.ragged_paged_attention(
+        torch.from_numpy(q), tk, tv, *_t((pt, qs, ql, kl)), k_scale=tks,
+        v_scale=tvs, decode_rows=2, max_q_len=6).numpy()
+    np.testing.assert_allclose(got, want, atol=REF_ATOL)
+    np.testing.assert_allclose(got, kern, atol=PALLAS_ATOL)
+    assert np.all(got[~_owned(qs, ql, q.shape[0])] == 0.0)

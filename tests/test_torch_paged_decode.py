@@ -33,7 +33,9 @@ torch.set_num_threads(1)
 # fp32 gathers on both sides: only summation order differs
 REF_ATOL = 1e-5
 ROW_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (2.0 ** -7, 1e-5)}
-LAYOUTS = [(8, 4, 64, 8), (8, 2, 128, 16), (32, 8, 128, 16)]
+LAYOUTS = [(8, 4, 64, 8), (8, 2, 128, 16), (32, 8, 128, 16),
+           # bench_llm.py's serving widths: head dim 64, pages of 32
+           (16, 8, 64, 32)]
 
 
 def _batch(seed, Hq, Hkv, D, ps, lens, max_pages, tail=0):
@@ -120,6 +122,25 @@ def test_decode_reference_matches_interpret_kernel(dtype, pages_per_split):
                                       pages_per_split)
     assert got.dtype == getattr(torch, dtype)
     assert_rows_close(got, _interpret(dtype), dtype)
+
+
+# bench_llm.py's attention widths: Hq 16, Hkv 8, head dim 64, pages of
+# 32, 4 pages a row; lengths 1, a page multiple, one past a multiple, the
+# whole table
+SERVING_ARGS = (6, 16, 8, 64, 32, [1, 64, 33, 128], 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pages_per_split", [1, 3, None])
+def test_serving_geometry_matches_interpret_kernel(dtype, pages_per_split):
+    args = _batch(*SERVING_ARGS)
+    D = args[0].shape[-1]
+    want = np.asarray(jnp.asarray(jpa._paged_attention_pallas(
+        *_j(args, dtype), D ** -0.5, interpret=True), jnp.float32))
+    got = tpa._paged_decode_reference(*_t(args, dtype), D ** -0.5,
+                                      pages_per_split)
+    assert_rows_close(got, want, dtype)
+    assert_rows_close(tpa.paged_attention(*_t(args, dtype)), want, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

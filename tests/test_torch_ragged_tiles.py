@@ -155,9 +155,8 @@ def _owned(qs, ql, T):
     return owned
 
 
-@pytest.mark.parametrize("pools", ["bf16", "int8"])
-def test_kernel_order_holds_the_card_limit(pools):
-    q, kp, vp, pt, qs, ql, kl = _batch(5)
+def _check_kernel_order(pools, **geometry):
+    q, kp, vp, pt, qs, ql, kl = _batch(5, **geometry)
     k, v, ks, vs = _pools(kp, vp, pools)
     tq = torch.from_numpy(q).bfloat16()
     tpt, tqs, tql, tkl = (torch.from_numpy(a) for a in (pt, qs, ql, kl))
@@ -185,6 +184,19 @@ def test_kernel_order_holds_the_card_limit(pools):
     assert _ratio(got.float(), pallas) <= 1
     owned = _owned(qs, ql, CAPACITY)
     assert bool((got[torch.from_numpy(~owned)] == 0).all())
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_kernel_order_holds_the_card_limit(pools):
+    _check_kernel_order(pools)
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_kernel_order_at_the_serving_benchmark_geometry(pools):
+    # bench_llm.py's widths: head dim 64 (one 128-byte box a row, 4 k steps
+    # of q.k^T, p.v on m64n64), pages of 32, 2 query heads per kv head
+    # (32-token q blocks)
+    _check_kernel_order(pools, Hq=16, Hkv=8, D=64, ps=32)
 
 
 @pytest.mark.parametrize("decode_rows", [0, len(DECODE_LENS)])

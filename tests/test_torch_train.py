@@ -169,8 +169,31 @@ def test_int8_mlp_loss_and_grads_match_jax(setup):
     assert_trees_close(grads, jgrads, rtol=1e-4)
 
 
+def _load_adam_state(params, opt, jp, jstate):
+    """Put JAX's parameters and optax's Adam moments into the torch
+    parameters and ``torch.optim.AdamW``'s state: mu -> exp_avg, nu ->
+    exp_avg_sq, count -> step (a float tensor), leaf by leaf in JAX's
+    flattening order."""
+    adam = next(s for s in jstate if isinstance(s, optax.ScaleByAdamState))
+    leaves = param_leaves(params)
+    with torch.no_grad():
+        for leaf, p, mu, nu in zip(leaves, _leaves_np(jp),
+                                   _leaves_np(adam.mu), _leaves_np(adam.nu)):
+            leaf.copy_(torch.from_numpy(p.copy()))
+            opt.state[leaf] = {
+                "step": torch.tensor(float(adam.count)),
+                "exp_avg": torch.from_numpy(mu.copy()),
+                "exp_avg_sq": torch.from_numpy(nu.copy())}
+
+
 @pytest.mark.parametrize("name", ["sgd", "adamw"])
 def test_train_step_matches_optax(setup, name):
+    """SGD: three chained steps. AdamW: each of three steps from JAX's
+    state (parameters and optax's moments loaded into torch's), because
+    chained Adam steps drift apart with the machine's fp32 sum order:
+    1/sqrt(nu) turns fp32 noise in near-zero gradients into updates of
+    nearly +-lr (a loss gap of 1e-5 by the third step), while one step from
+    a common state agrees to 1e-6 in the loss."""
     jparams, tokens = setup
     jcfg, tcfg = _configs(attention="flash", remat_policy="selective")
     jopt, topt = {
@@ -188,6 +211,8 @@ def test_train_step_matches_optax(setup, name):
     opt = init(params)
     batch = torch.from_numpy(tokens)
     for _ in range(3):
+        if name == "adamw":
+            _load_adam_state(params, opt, jp, jstate)
         jp, jstate, jm = jstep(jp, jstate, jnp.asarray(tokens))
         out, opt, m = step(params, opt, batch)
         assert out is params
@@ -195,6 +220,8 @@ def test_train_step_matches_optax(setup, name):
                                                  abs=LOSS_TOL)
         assert float(m["grad_norm"]) == pytest.approx(
             float(jm["grad_norm"]), rel=1e-5)
+        if name == "adamw":
+            assert_trees_close(params, jp)
     assert all(leaf.grad is None for leaf in param_leaves(params))
     assert_trees_close(params, jp)
 
