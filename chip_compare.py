@@ -8,6 +8,36 @@
         in turns: parent, this, this, parent, each in its own process
         after both have built their kernels. Make the parent's checkout
         with ``git archive <commit> | tar -x -C PARENT_DIR``.
+    python3 chip_compare.py decode PARENT_DIR
+        the decode op (``paged_attention``, bf16 pools) on chip_smoke.py's
+        batches A, B and C for the checkout in PARENT_DIR and for this
+        one, in turns (parent, this, this, parent), each in its own process
+        after both have built their kernels, each batch timed over 50
+        calls with the L2 flushed before each; this tree's outputs are
+        checked against the plain version first.
+    python3 chip_compare.py flash PARENT_DIR
+        the three flash kernels (forward, dq, dk/dv) at the training path's
+        shape (B 8, H 24, L 2048, D 128, bf16, causal) for the checkout in
+        PARENT_DIR and for this one, in turns (parent, this, this,
+        parent), each in its own process, each kernel timed over 20 calls
+        with the L2 flushed before each.
+    python3 chip_compare.py phase6 PARENT_DIR
+        chip_smoke.py's phase 6 itself (the flash kernels against their
+        plain versions, then timed at the training path's shape), twice
+        in each process, for the checkout in PARENT_DIR and for this one,
+        in turns (parent, this, this, parent).
+    python3 chip_compare.py ring
+        variants of the decode op's bf16 ring walk (paged_ring.cuh), each
+        built from this checkout's ops/csrc sources with a few lines of
+        the header replaced (ring stages; the pages stored unswizzled, as
+        in the pool, whose ldmatrix and K loads then meet bank conflicts;
+        a walk that only streams the pages, skipping the products, as a
+        bound on what the loads allow; one consumer warp instead of two),
+        checked against the plain version (all but the streaming one),
+        then timed twice each, in turns, on chip_smoke.py's batches A, B
+        and C (bf16); the design, the unswizzled walk and the streaming
+        variant also with the L2 left clean before each call (a read
+        flush), where chip_smoke.py's written flush leaves it dirty.
     python3 chip_compare.py dq
         variants of the bf16 dq kernel (flash_dq_sm90_kernel), each built
         from this checkout's ops/csrc/flash_attention_bwd.cu with a few
@@ -22,6 +52,7 @@ without a CUDA device.
 """
 
 import ctypes
+import json
 import subprocess
 import sys
 import time
@@ -43,12 +74,17 @@ chip_smoke.phase_train(torch.device('cuda'))
 """
 
 
-def compare_train(parent: Path) -> None:
+def _build_both(parent: Path) -> None:
+    """Build the parent's kernels and this checkout's, together."""
     build = ("import sys; sys.path.insert(0, '.'); "
              "from ray_tpu_torch.ops import _kernels; _kernels.build()")
     procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d)
              for d in (parent, REPO)]
     assert all(p.wait() == 0 for p in procs), "a build failed"
+
+
+def compare_train(parent: Path) -> None:
+    _build_both(parent)
     for tag, d in (("parent", parent), ("this", REPO), ("this", REPO),
                    ("parent", parent)):
         out = subprocess.run([sys.executable, "-c", TRAIN], cwd=d,
@@ -57,6 +93,99 @@ def compare_train(parent: Path) -> None:
             if line.startswith("training: step") or "profile_train" in line \
                     or "under the profiler" in line:
                 print(f"{tag}: {line[:400]}", flush=True)
+
+
+# ------------------------------------------------------------- decode op
+
+DECODE = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from ray_tpu_torch.ops import paged_attention as tpa
+CHECK = sys.argv[1:] == ['check']
+dev = torch.device('cuda')
+flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+out = {}
+for name, (lens, max_pages, P, _, geometry) in cs.DECODE_BATCHES.items():
+    q, kp, vp, pt, sl = cs.decode_batch(dev, lens, max_pages, P,
+                                        torch.bfloat16, **geometry)
+    if CHECK:
+        got = tpa.paged_attention(q, kp, vp, pt, sl)
+        ref = tpa.paged_attention_reference(q, kp, vp, pt, sl)
+        assert cs.decode_ratios(got, ref).max().item() <= 1, name
+    out[name] = cs.time_ms(lambda: tpa.paged_attention(q, kp, vp, pt, sl),
+                           iters=50, flush=flush)
+    del q, kp, vp, pt, sl
+print('TIMES ' + json.dumps(out))
+"""
+
+
+FLASH = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from ray_tpu_torch.ops import flash_attention as tfa
+dev = torch.device('cuda')
+B, H, L, D = cs.FLASH_SHAPE
+BH, scale = B * H, D ** -0.5
+g = torch.Generator(device=dev).manual_seed(2)
+q, k, v, do = (torch.randn(BH, L, D, generator=g, device=dev).bfloat16()
+               for _ in range(4))
+o, lse = tfa._fwd_cuda(q, k, v, True, scale)
+delta = (do.float() * o.float()).sum(-1)
+dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+out = {
+    'fwd': cs.time_ms(lambda: tfa._fwd_cuda(q, k, v, True, scale),
+                      iters=20, flush=flush),
+    'dq': cs.time_ms(lambda: tfa._launch(
+        'flash_attention_bwd', 'flash_attention_dq', dev, 1, q, k, v, do,
+        lse, delta, dq, BH, L, L, D, 1, scale), iters=20, flush=flush),
+    'dkv': cs.time_ms(lambda: tfa._launch(
+        'flash_attention_bwd', 'flash_attention_dkv', dev, 1, q, k, v, do,
+        lse, delta, dk, dv, BH, L, L, D, 1, scale), iters=20, flush=flush)}
+print('TIMES ' + json.dumps(out))
+"""
+
+
+def _in_turns(parent: Path, code: str, what: str) -> None:
+    """Run code (which prints one line "TIMES {json}") in the parent's
+    checkout and this one, P C C P, each in its own process after both
+    have built their kernels; print each run and each key's times."""
+    _build_both(parent)
+    times = {}
+    for tag, d in (("parent", parent), ("this", REPO), ("this", REPO),
+                   ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", code], cwd=d,
+                             capture_output=True, text=True, check=True)
+        line = [ln for ln in out.stdout.splitlines()
+                if ln.startswith("TIMES ")][-1]
+        print(f"{tag}: {what} ms {line[6:]}", flush=True)
+        for name, ms in json.loads(line[6:]).items():
+            times.setdefault(name, {}).setdefault(tag, []).append(ms)
+    for name, by in times.items():
+        print(f"{what} {name}: parent "
+              f"{' / '.join(f'{t:.4f}' for t in by['parent'])} ms, this "
+              f"{' / '.join(f'{t:.4f}' for t in by['this'])} ms", flush=True)
+
+
+PHASE6 = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+runs = [cs.phase_flash(torch.device('cuda')) for _ in range(2)]
+print('TIMES ' + json.dumps({f'{kern} (run {i + 1})': r[kern]['ms']
+                             for i, r in enumerate(runs) for kern in r}))
+"""
+
+
+def compare_decode(parent: Path) -> None:
+    # this tree's outputs held against the plain version first
+    subprocess.run([sys.executable, "-c", DECODE, "check"], cwd=REPO,
+                   check=True)
+    _in_turns(parent, DECODE, "decode op")
 
 
 # ------------------------------------------------------------- dq variants
@@ -201,6 +330,136 @@ def compare_dq() -> None:
               flush=True)
 
 
+RING = REPO / "ray_tpu_torch" / "ops" / "csrc" / "paged_ring.cuh"
+
+
+def stages(n):
+    return [("constexpr int kStages = 2;", f"constexpr int kStages = {n};")]
+
+
+# a walk that waits for each stage and frees it, and computes nothing
+STREAM_ONLY = [("    // s = q . k^T: 4 n tiles of 8 slots\n",
+                "    if (true) {\n      __syncwarp();\n"
+                "      bar_arrive(empty(r.slot));\n      continue;\n    }\n"
+                "    // s = q . k^T: 4 n tiles of 8 slots\n")]
+
+ONE_CONSUMER = [("constexpr int kConsumers = 2;",
+                 "constexpr int kConsumers = 1;")]
+
+# the boxes stored as in the pool (rows of 128 bytes, no swizzle): the 8
+# rows an ldmatrix reads on the same 4 banks, the K loads 2-way
+UNSWIZZLED = [("CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE"),
+              ("(((c & 7) ^ (r & 7)) << 4)", "((c & 7) << 4)")]
+
+# name: (replacements in paged_ring.cuh, whether the output is checked);
+# the stages a multiple of the consumer warps (paged_ring.cuh says why)
+RING_VARIANTS = {
+    "design (2 stages of 32 slots, 2 consumer warps, swizzled)":
+        ([], True),
+    "unswizzled": (UNSWIZZLED, True),
+    "4 stages": (stages(4), True),
+    "6 stages": (stages(6), True),
+    "streaming only (no products)": (STREAM_ONLY, False),
+    "one consumer warp": (ONE_CONSUMER, True),
+    "one consumer warp, 3 stages": (ONE_CONSUMER + stages(3), True),
+}
+
+
+def build_ring_variants(out_dir: Path):
+    """One nvcc per variant (a copy of ops/csrc with the header's lines
+    replaced), all started together; returns {name: entry point}."""
+    import shutil
+    from ray_tpu_torch.ops import _kernels
+    procs = {}
+    for i, (name, (repl, _)) in enumerate(RING_VARIANTS.items()):
+        d = out_dir / f"ring_variant_{i}"
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(RING.parent, d)
+        src = RING.read_text()
+        for old, new in repl:
+            assert src.count(old) == 1, f"not exactly once: {old}"
+            src = src.replace(old, new)
+        (d / RING.name).write_text(src)
+        lib = d / "libpaged_attention.so"
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib),
+               str(d / "paged_attention.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    built = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        entry = ctypes.CDLL(str(lib)).paged_attention
+        entry.argtypes = _kernels.KERNELS["paged_attention"][1][
+            "paged_attention"]
+        entry.restype = ctypes.c_int
+        built[name] = entry
+    return built
+
+
+def compare_ring() -> None:
+    import chip_smoke as cs
+    from ray_tpu_torch.ops import paged_attention as tpa
+
+    t0 = time.monotonic()
+    built = build_ring_variants(REPO / "ray_tpu_torch" / "_build" /
+                                "variants")
+    print(f"variants built in {time.monotonic() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for batch, (lens, max_pages, P, _, geometry) in \
+            cs.DECODE_BATCHES.items():
+        q, kp, vp, pt, sl = cs.decode_batch(dev, lens, max_pages, P,
+                                            torch.bfloat16, **geometry)
+        B, Hq, D = q.shape
+        _, Hkv, ps, _ = kp.shape
+        plan = tpa.decode_plan(B, Hq, Hkv, max_pages, ps)
+        ref = tpa.paged_attention_reference(q, kp, vp, pt, sl)
+        out = torch.empty_like(q)
+        work = torch.empty(B * Hq * plan.splits * (D + 2), device=dev)
+
+        def call(entry, pps=plan.pages_per_split):
+            rc = entry(1, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                       pt.data_ptr(), sl.data_ptr(), out.data_ptr(),
+                       work.data_ptr(), B, kp.shape[0], Hq, Hkv, ps, D,
+                       max_pages, pps,
+                       D ** -0.5, stream)
+            assert rc == 0, f"launch failed: cudaError {rc}"
+
+        names = list(built)
+        for name in names:
+            call(built[name])
+            torch.cuda.synchronize()
+            if RING_VARIANTS[name][1]:
+                ratio = cs.decode_ratios(out, ref).max().item()
+                assert ratio <= 1, f"{batch} {name}: {ratio} x the limit"
+        times = {n: [] for n in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                times[name].append(cs.time_ms(lambda: call(built[name]),
+                                              iters=20, flush=flush))
+        vis = sl.clamp(0, max_pages * ps)
+        bound, _ = cs.attention_bound_ms(q, kp, torch.ones_like(sl), vis,
+                                         vis, False)
+        # the design, the unswizzled walk and the streaming variant again
+        # with the L2 left clean before each call (time_ms's clean flush)
+        for name in (names[0], "unswizzled",
+                     "streaming only (no products)"):
+            times[f"{name}, clean L2"] = [cs.time_ms(
+                lambda: call(built[name]), iters=20, flush=flush,
+                clean=True) for _ in range(2)]
+        for name, ts in times.items():
+            print(f"batch {batch} (plan {tuple(plan)}), {name}: "
+                  f"{' / '.join(f'{t:.4f}' for t in ts)} ms, "
+                  f"{bound / min(ts):.1%} of the bound ({bound:.4f} ms)",
+                  flush=True)
+        del q, kp, vp, pt, sl, ref, out, work
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: torch.cuda.is_available() is False; this "
@@ -213,6 +472,14 @@ def main() -> int:
         check=True, timeout=60).stdout.strip(), flush=True)
     if sys.argv[1:2] == ["train"] and len(sys.argv) == 3:
         compare_train(Path(sys.argv[2]).resolve())
+    elif sys.argv[1:2] == ["decode"] and len(sys.argv) == 3:
+        compare_decode(Path(sys.argv[2]).resolve())
+    elif sys.argv[1:2] == ["flash"] and len(sys.argv) == 3:
+        _in_turns(Path(sys.argv[2]).resolve(), FLASH, "flash")
+    elif sys.argv[1:2] == ["phase6"] and len(sys.argv) == 3:
+        _in_turns(Path(sys.argv[2]).resolve(), PHASE6, "phase 6")
+    elif sys.argv[1:] == ["ring"]:
+        compare_ring()
     elif sys.argv[1:] == ["dq"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         compare_dq()

@@ -9,16 +9,19 @@ result line is printed):
   2. build every CUDA kernel from the sources in this checkout (one nvcc
      per source, all started together), print the build time and what
      ``-Xptxas -v`` says of the bf16 kernels redesigned for Hopper (the
-     flash forward, dq and dk/dv, the ragged kernel: registers, barriers,
-     stack and spill bytes);
+     flash forward, dq and dk/dv, the ragged kernel, the decode op's ring
+     walk and its merge: registers, barriers, stack and spill bytes);
   3. hold each kernel against its plain PyTorch version at the main
      path's shapes (Llama-3-8B attention: Hq 32, Hkv 8, D 128, page 16),
      bf16 and int8 pools, and time kernel, plain version and the PyTorch
      library call that computes the same function (a yardstick only);
  3b. the decode op ``paged_attention`` at the same widths: a decode batch
-     of 8 up to 2048 tokens (bf16 and fp32 pools) and one of 8 x 8192
-     (bf16), the kernel against both plain versions, a planted fault that
-     must fail on every row, a length-0 row that must come back 0, times;
+     of 8 up to 2048 tokens (bf16 and fp32 pools), one of 8 x 8192 (bf16)
+     and batch C at bench_llm.py's widths, split as ``decode_plan`` says,
+     the kernel against both plain versions (the split one at the plan's
+     split size), a planted fault that must fail on every row, a length-0
+     row that must come back 0, two calls equal bit for bit, times beside
+     the bound and SDPA, and the kernel at other split sizes;
  3c. the decode op on the engine's own decode steps (Llama-3-8B widths,
      2 layers, the main path's engine): on every decode-loop step it runs
      beside the ragged kernel on the same live pools and must agree with
@@ -43,7 +46,9 @@ result line is printed):
      backward repeats bit for bit, and time kernels, plain versions and
      the PyTorch library call, each kernel with its achieved TFLOP/s and
      its share of the bound, and dq + dk/dv against the library's whole
-     backward;
+     backward; then the same checks at lengths no kernel tile divides (L
+     72, 200 and 1000, and Lq 72 against Lk 200), the planted causal fault
+     included;
   7. the training main path: ``make_train_step`` over ``loss_fn`` at the
      JAX package's bench widths (vocab 32000, dim 3072, 8 layers, 24/12
      heads, ffn 12288: 1,230,818,304 parameters; flash attention, selective
@@ -149,21 +154,25 @@ def decode_ratios(got, ref):
     return err / (rtol * ref.float().abs().amax(-1) + floor)
 
 
-def time_ms(fn, iters=10, flush=None):
+def time_ms(fn, iters=10, flush=None, clean=False):
     """Mean device time of fn() over iters calls, CUDA events around each
     call only; ``flush`` (a large tensor) is rewritten before each call
     so the 50 MB L2 holds none of the inputs, as in the engine, where
-    every layer reads another slice of the pool. A spin kernel of about
-    1 ms then keeps the device busy while the host records the start
-    event and enqueues the call, so a call whose host side (checks,
-    allocations, ctypes: tens of microseconds per wrapper call) outlasts
-    the flush is not charged for it: the time is the device's."""
+    every layer reads another slice of the pool. Rewriting it leaves the
+    L2 full of dirty lines, whose write-back a call that reads much pays
+    for; with ``clean`` the flush reads the tensor instead, leaving clean
+    lines (the kernel times chip_smoke.py prints are taken without it).
+    A spin kernel of about 1 ms then keeps the device busy while the host
+    records the start event and enqueues the call, so a call whose host
+    side (checks, allocations, ctypes: tens of microseconds per wrapper
+    call) outlasts the flush is not charged for it: the time is the
+    device's."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            flush.sum() if clean else flush.zero_()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -504,14 +513,15 @@ def decode_sdpa_inputs(q, kp, vp, pt, lens):
 
 
 def phase_decode(device):
-    """The decode op on batches A and B: the kernel against the split plain
-    version and the gather version, the planted fault, a length-0 row, and
-    the times of kernel, plain version and SDPA."""
+    """The decode op on batches A, B and C, split as ``decode_plan``
+    says: the kernel against the split plain version (at the plan's split
+    size) and the gather version, the planted fault, a length-0 row, two
+    calls equal bit for bit, and the times of kernel, plain version and
+    SDPA beside the bound, and of the kernel at other split sizes."""
     import torch.nn.functional as F
     from ray_tpu_torch.ops import paged_attention as tpa
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    pps = tpa.PAGES_PER_SPLIT
     out = {}
     for name, (lens, max_pages, P, dtypes, geometry) in \
             DECODE_BATCHES.items():
@@ -520,12 +530,18 @@ def phase_decode(device):
             q, kp, vp, pt, sl = decode_batch(device, lens, max_pages, P,
                                              dtype, **geometry)
             scale = q.shape[-1] ** -0.5
+            # the split size the wrapper takes: decode_plan's, from shapes
+            plan = tpa.decode_plan(q.shape[0], q.shape[1], kp.shape[1],
+                                   max_pages, kp.shape[2])
+            pps = plan.pages_per_split
             got = tpa.paged_attention(q, kp, vp, pt, sl)
+            again = tpa.paged_attention(q, kp, vp, pt, sl)
             split = tpa._paged_decode_reference(q, kp, vp, pt, sl, scale,
                                                 pps)
             gather = tpa.paged_attention_reference(q, kp, vp, pt, sl)
             torch.cuda.synchronize()
             assert torch.isfinite(got).all(), f"{key}: non-finite output"
+            assert torch.equal(got, again), f"{key}: calls differ"
             r_split = decode_ratios(got, split).max().item()
             r_gather = decode_ratios(got, gather).max().item()
             assert r_split <= 1 and r_gather <= 1, \
@@ -549,11 +565,12 @@ def phase_decode(device):
                          flush=flush)
             plain_ms = time_ms(lambda: tpa._paged_decode_reference(
                 q, kp, vp, pt, sl, scale, pps), iters=3, flush=flush)
-            # for the record: other splits (the path uses PAGES_PER_SPLIT),
+            # for the record: other splits (the path takes the plan's),
             # and the split and merge launches' device times
             sweep = {n: round(time_ms(lambda: tpa._paged_attention_cuda(
                 q, kp, vp, pt, sl, scale, n), flush=flush), 4)
-                for n in (4, 8, 32)}
+                for n in sorted({max(1, pps // 2), 2 * pps, 4, 8, 16, 32}
+                                - {pps}) if n <= max_pages}
             flush.zero_()
             _, busy = profile_device(lambda: tpa.paged_attention(
                 q, kp, vp, pt, sl), device, ms)
@@ -579,13 +596,14 @@ def phase_decode(device):
                 f"planted fault (each row drops its last slot) fails on "
                 f"every row longer than 1, the weakest at "
                 f"{caught.min().item():.1f} x the limit; length 0 gives 0; "
+                f"two calls give the same bits; plan {tuple(plan)}; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                 f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
                 f"ms with other pages_per_split: {sweep}; one call under "
                 f"the profiler: {busy}")
             out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=bound, bound_by=by)
-            del q, kp, vp, pt, sl, got, split, gather, fault, got0
+            del q, kp, vp, pt, sl, got, again, split, gather, fault, got0
     del flush
     return out
 
@@ -890,7 +908,9 @@ FLASH_TILE = 64
 SM90_KERNELS = (("flash_attention_fwd", "flash_fwd_sm90_kernel"),
                 ("flash_attention_bwd", "flash_dq_sm90_kernel"),
                 ("flash_attention_bwd", "flash_dkv_sm90_kernel"),
-                ("ragged_paged_attention", "ragged_sm90_kernel"))
+                ("ragged_paged_attention", "ragged_sm90_kernel"),
+                ("paged_attention", "paged_decode_sm90_kernel"),
+                ("paged_attention", "paged_decode_merge_sm90_kernel"))
 
 
 def causal_off_by_one(q, k, v, scale):
@@ -910,9 +930,10 @@ def causal_off_by_one(q, k, v, scale):
 
 def tiles_caught(fault, ref):
     """Worst ratio to the limit within each query tile (over every bh
-    and row of the tile): [L / FLASH_TILE]."""
-    r = flash_ratios(fault, ref)
-    return r.reshape(r.shape[0], -1, FLASH_TILE).amax((0, 2))
+    and row of the tile; the last tile may be shorter):
+    [ceil(L / FLASH_TILE)]."""
+    r = flash_ratios(fault, ref).amax(0)
+    return torch.stack([t.amax() for t in r.split(FLASH_TILE)])
 
 
 def phase_flash(device):
@@ -1036,6 +1057,66 @@ def phase_flash(device):
         f"{bwd_ms / lib_bwd:.2f} x SDPA's whole backward ({lib_bwd:.4f} ms)")
     del flush
     return out
+
+
+# lengths the Pallas kernels take that no kernel tile divides (Lq, Lk):
+# L <= 256 at their default blocks, L 1000 at blocks of 8, and Lq 72
+# against Lk 200
+FLASH_LENGTHS = ((72, 72), (200, 200), (1000, 1000), (72, 200))
+
+
+def phase_flash_lengths(device):
+    """The three flash kernels at FLASH_LENGTHS (B 2, H 24, D 128, bf16,
+    causal and not, with an lse cotangent) against their plain versions at
+    the default blocks, where the last q tile and key tile run past the
+    end of every sequence; the planted causal fault must fail on every
+    query tile (Lq = Lk)."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    B, H, D = 2, 24, 128
+    BH, scale = B * H, D ** -0.5
+    worst = 0.0
+    for Lq, Lk in FLASH_LENGTHS:
+        g = torch.Generator(device=device).manual_seed(Lq + Lk)
+        q, do = (torch.randn(BH, Lq, D, generator=g, device=device)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(BH, Lk, D, generator=g, device=device)
+                .bfloat16() for _ in range(2))
+        dlse = torch.randn(BH, Lq, generator=g, device=device)
+        line = []
+        for causal in (True, False):
+            o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
+            o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
+            delta = (do.float() * o_ref.float()).sum(-1) - dlse
+            grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
+            grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta,
+                                           causal, scale)
+            torch.cuda.synchronize()
+            lse_err = (lse - lse_ref).abs().max().item()
+            assert lse_err <= LSE_ATOL, f"L {Lq}/{Lk}: lse off by {lse_err}"
+            for name, got, want in zip(("o", "dq", "dk", "dv"),
+                                       (o, *grads), (o_ref, *grads_ref)):
+                assert got.shape == want.shape and \
+                    torch.isfinite(got).all(), f"L {Lq}/{Lk}: {name}"
+                ratio = flash_ratios(got, want).max().item()
+                assert ratio <= 1, \
+                    f"L {Lq}/{Lk} causal {causal}: {name} at {ratio} x"
+                worst = max(worst, ratio)
+                line.append(f"{'causal' if causal else 'full'} {name} "
+                            f"{ratio:.3f}")
+        fault = ""
+        if Lq == Lk:
+            o_ref, _ = tfa._fwd_reference(q, k, v, True, scale)
+            caught = tiles_caught(causal_off_by_one(q, k, v, scale)[0],
+                                  o_ref)
+            assert bool((caught > 1).all()), \
+                f"L {Lq}: off-by-one not caught: {caught}"
+            fault = (f"; planted fault (causal off by one) fails on all "
+                     f"{caught.numel()} query tiles, the weakest at "
+                     f"{caught.min().item():.1f} x the limit")
+        log(f"flash kernels at Lq {Lq} Lk {Lk} (BH {BH}, D {D}, bf16): "
+            f"worst ratio to the limit {', '.join(line)}{fault}")
+    return worst
 
 
 # ------------------------------------------- phase 7: training main path
@@ -1211,6 +1292,7 @@ def main():
         page_size=BENCH_ENGINE["page_size"])
 
     flash = phase_flash(device)
+    phase_flash_lengths(device)
     flash_launches, steps, n_layers = phase_train(device)
     expected_flash = {"flash_attention_fwd": 2 * n_layers * steps,
                       "flash_attention_dq": n_layers * steps,

@@ -42,8 +42,10 @@ KERNELS = {
         + [_F, _P]}),
     "paged_attention": ("paged_attention.cu", {
         # dtype, q, k_pages, v_pages, page_table, seq_lens, out, work, B,
-        # Hq, Hkv, ps, D, max_pages, pages_per_split, sm_scale, stream
-        "paged_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P]}),
+        # P, Hq, Hkv, ps, D, max_pages, pages_per_split, sm_scale, stream
+        "paged_attention": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
+        # ring::kSlots of paged_ring.cuh (no arguments)
+        "paged_decode_stage_slots": []}),
     "flash_attention_fwd": ("flash_attention_fwd.cu", {
         # dtype, q, k, v, o, lse, BH, Lq, Lk, D, causal, sm_scale, stream
         "flash_attention_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P]}),

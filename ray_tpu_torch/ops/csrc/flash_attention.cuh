@@ -2,7 +2,8 @@
 // flash_attention_fwd.cu (forward) and flash_attention_bwd.cu (dq, dk/dv).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, L, D] row-major (D = 128);
-// lse and delta are fp32 [BH, Lq]. Element type T is fp32 or bf16, the
+// lse is fp32 [BH, Lq] as the forward writes it, and the backward reads
+// lse and delta as fp32 [BH, padded_rows(Lq)]. Element type T is fp32 or bf16, the
 // same for every tensor of one call; every product accumulates in fp32.
 //
 // Every tile lives in shared memory. A tile of q/k/v/do rows holds kBlock
@@ -88,27 +89,32 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // kRows rows of a row-major [*, D] array into a tile of row pitch ld, one
-// 16-byte vector per thread and step
+// 16-byte vector per thread and step; rows at or past `rows` (the last
+// tile of a sequence whose length the tile does not divide) are zeros and
+// are not read
 template <typename T, int kRows, int D>
 __device__ __forceinline__ void load_tile(T* __restrict__ dst, int ld,
-                                          const T* __restrict__ src) {
+                                          const T* __restrict__ src,
+                                          int rows) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   constexpr int kPerRow = D / kVec;
   for (int e = threadIdx.x; e < kRows * kPerRow; e += kThreads) {
     const int r = e / kPerRow;
     const int c = (e - r * kPerRow) * kVec;
     *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * D + c));
+        r < rows
+            ? __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * D + c))
+            : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// kRows rows of an fp32 accumulator tile, divided by div(row), into a
-// row-major [*, D] array of T
+// the first `rows` rows (at most kRows) of an fp32 accumulator tile,
+// divided by div(row), into a row-major [*, D] array of T
 template <typename T, int kRows, int D, typename Div>
 __device__ __forceinline__ void store_tile(T* __restrict__ dst,
                                            const float* __restrict__ acc,
-                                           int ld, Div div) {
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
+                                           int ld, int rows, Div div) {
+  for (int e = threadIdx.x; e < min(rows, kRows) * D; e += kThreads) {
     const int r = e / D;
     const int d = e - r * D;
     dst[(size_t)r * D + d] = from_f<T>(acc[r * ld + d] / div(r));
@@ -194,16 +200,24 @@ __device__ __forceinline__ void tile_mm(float* __restrict__ c, int ldc,
   }
 }
 
-// what every entry point checks before it launches
-inline cudaError_t check_args(int BH, int Lq, int Lk, int block,
+// what every entry point checks before it launches. Any length L >= 1:
+// the kernels mask the last q tile and the last key tile. lse and delta,
+// read by the backward kernels, are [BH, padded_rows(Lq)] (the wrapper
+// pads them with zeros), so a tile's values come whole and aligned.
+inline cudaError_t check_args(int BH, int Lq, int Lk,
                               const void* const* ptrs, int n_ptrs) {
-  if (BH <= 0 || BH > 65535 || Lq <= 0 || Lk <= 0 || Lq % block ||
-      Lk % block)
+  if (BH <= 0 || BH > 65535 || Lq <= 0 || Lk <= 0)
     return cudaErrorInvalidValue;
   for (int i = 0; i < n_ptrs; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0)
       return cudaErrorMisalignedAddress;
   return cudaSuccess;
+}
+
+// the row pitch of the backward kernels' lse and delta: Lq rounded up to
+// a multiple of 64
+__host__ __device__ __forceinline__ int padded_rows(int Lq) {
+  return (Lq + 63) & ~63;
 }
 
 template <typename Kernel>

@@ -126,24 +126,27 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   float* delta_s = lse_s + B;
 
   const size_t row0 = (size_t)bh * Lq + q0;
-  load_tile<T, B, D>(q_s, G::kLdT, q + row0 * D);
-  load_tile<T, B, D>(do_s, G::kLdT, dout + row0 * D);
+  const size_t srow0 = (size_t)bh * padded_rows(Lq) + q0;  // lse, delta
+  const int rows = min(B, Lq - q0);  // the last q tile may be partial
+  load_tile<T, B, D>(q_s, G::kLdT, q + row0 * D, rows);
+  load_tile<T, B, D>(do_s, G::kLdT, dout + row0 * D, rows);
   for (int r = threadIdx.x; r < B; r += kThreads) {
-    lse_s[r] = lse[row0 + r];
-    delta_s[r] = delta[row0 + r];
+    lse_s[r] = lse[srow0 + r];
+    delta_s[r] = delta[srow0 + r];
   }
   for (int e = threadIdx.x; e < B * D; e += kThreads)
     dq_s[(e / D) * G::kLdO + e % D] = 0.f;
-  int nk = Lk / B;
-  if (causal) nk = min(nk, (q0 + B - 1) / B + 1);  // skip above the diagonal
+  int nk = (Lk + B - 1) / B;
+  if (causal) nk = min(nk, q0 / B + 1);  // skip above the diagonal
   const T* kg = k + (size_t)bh * Lk * D;
   const T* vg = v + (size_t)bh * Lk * D;
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * B;
+    const int keys = min(B, Lk - k0);  // keys past Lk: zeros, p masked
     __syncthreads();  // the last tile's readers of k_s and ds_s are done
-    load_tile<T, B, D>(k_s, G::kLdT, kg + (size_t)k0 * D);
-    load_tile<T, B, D>(v_s, G::kLdT, vg + (size_t)k0 * D);
+    load_tile<T, B, D>(k_s, G::kLdT, kg + (size_t)k0 * D, keys);
+    load_tile<T, B, D>(v_s, G::kLdT, vg + (size_t)k0 * D, keys);
     __syncthreads();
     tile_mm<B, B, D, false, true, false>(s_s, G::kLdS, q_s, G::kLdT, k_s,
                                          G::kLdT, sm_scale);
@@ -153,8 +156,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     for (int e = threadIdx.x; e < B * B; e += kThreads) {
       const int r = e / B;
       const int c = e - r * B;
-      const float s = (causal && q0 + r < k0 + c) ? -INFINITY
-                                                  : s_s[r * G::kLdS + c];
+      const float s = (c >= keys || (causal && q0 + r < k0 + c))
+                          ? -INFINITY
+                          : s_s[r * G::kLdS + c];
       const float p = expf(s - lse_s[r]);  // a masked score gives 0
       ds_s[r * G::kLdP + c] =
           from_f<T>(p * (dp_s[r * G::kLdS + c] - delta_s[r]));
@@ -164,7 +168,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
                                          G::kLdT, sm_scale);
   }
   __syncthreads();
-  store_tile<T, B, D>(dq + row0 * D, dq_s, G::kLdO, [](int) { return 1.f; });
+  store_tile<T, B, D>(dq + row0 * D, dq_s, G::kLdO, rows,
+                      [](int) { return 1.f; });
 }
 
 template <typename T, int D>
@@ -199,8 +204,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   float* delta_s = lse_s + B;
 
   const size_t krow0 = (size_t)bh * Lk + k0;
-  load_tile<T, B, D>(k_s, G::kLdT, k + krow0 * D);
-  load_tile<T, B, D>(v_s, G::kLdT, v + krow0 * D);
+  const int keys = min(B, Lk - k0);  // the last key tile may be partial
+  load_tile<T, B, D>(k_s, G::kLdT, k + krow0 * D, keys);
+  load_tile<T, B, D>(v_s, G::kLdT, v + krow0 * D, keys);
   for (int e = threadIdx.x; e < B * D; e += kThreads) {
     const int at = (e / D) * G::kLdO + e % D;
     dk_s[at] = 0.f;
@@ -208,17 +214,19 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   }
   // causal: query tile qt sees key k0 once qt * B + B - 1 >= k0
   const int qt0 = causal ? k0 / B : 0;
-  const int nq = Lq / B;
+  const int nq = (Lq + B - 1) / B;
 
   for (int qt = qt0; qt < nq; ++qt) {
     const int q0 = qt * B;
     const size_t row0 = (size_t)bh * Lq + q0;
+    const size_t srow0 = (size_t)bh * padded_rows(Lq) + q0;  // lse, delta
+    const int rows = min(B, Lq - q0);  // rows past Lq: zeros
     __syncthreads();  // the last tile's readers of q_s, do_s, p_s, ds_s
-    load_tile<T, B, D>(q_s, G::kLdT, q + row0 * D);
-    load_tile<T, B, D>(do_s, G::kLdT, dout + row0 * D);
+    load_tile<T, B, D>(q_s, G::kLdT, q + row0 * D, rows);
+    load_tile<T, B, D>(do_s, G::kLdT, dout + row0 * D, rows);
     for (int r = threadIdx.x; r < B; r += kThreads) {
-      lse_s[r] = lse[row0 + r];
-      delta_s[r] = delta[row0 + r];
+      lse_s[r] = lse[srow0 + r];
+      delta_s[r] = delta[srow0 + r];
     }
     __syncthreads();
     tile_mm<B, B, D, false, true, false>(s_s, G::kLdS, q_s, G::kLdT, k_s,
@@ -229,8 +237,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     for (int e = threadIdx.x; e < B * B; e += kThreads) {
       const int r = e / B;  // query row of the tile
       const int c = e - r * B;  // key column
-      const float s = (causal && q0 + r < k0 + c) ? -INFINITY
-                                                  : s_s[r * G::kLdS + c];
+      // rows past Lq need no mask: q, do, lse and delta are zeros there,
+      // so p = 1 and p . do = ds = 0
+      const float s = (c >= keys || (causal && q0 + r < k0 + c))
+                          ? -INFINITY
+                          : s_s[r * G::kLdS + c];
       const float p = expf(s - lse_s[r]);
       p_s[r * G::kLdP + c] = from_f<T>(p);
       ds_s[r * G::kLdP + c] =
@@ -244,8 +255,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
                                         G::kLdT, sm_scale);
   }
   __syncthreads();
-  store_tile<T, B, D>(dk + krow0 * D, dk_s, G::kLdO, [](int) { return 1.f; });
-  store_tile<T, B, D>(dv + krow0 * D, dv_s, G::kLdO, [](int) { return 1.f; });
+  store_tile<T, B, D>(dk + krow0 * D, dk_s, G::kLdO, keys,
+                      [](int) { return 1.f; });
+  store_tile<T, B, D>(dv + krow0 * D, dv_s, G::kLdO, keys,
+                      [](int) { return 1.f; });
 }
 
 template <typename T, int D>
@@ -255,14 +268,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       float sm_scale, cudaStream_t stream) {
   using G = Tiles<T, D>;
   const void* ptrs[] = {q, k, v, dout, lse, delta, dq};
-  cudaError_t err = check_args(BH, Lq, Lk, G::kBlock, ptrs, 7);
+  cudaError_t err = check_args(BH, Lq, Lk, ptrs, 7);
   if (err != cudaSuccess) return err;
   const size_t smem =
       4 * G::kTileT + 2 * G::kTileS + G::kTileP + G::kTileO + 2 * G::kRow;
   auto kernel = flash_dq_kernel<T, D>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Lq / G::kBlock, BH);
+  const dim3 grid((Lq + G::kBlock - 1) / G::kBlock, BH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -278,14 +291,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        float sm_scale, cudaStream_t stream) {
   using G = Tiles<T, D>;
   const void* ptrs[] = {q, k, v, dout, lse, delta, dk, dv};
-  cudaError_t err = check_args(BH, Lq, Lk, G::kBlock, ptrs, 8);
+  cudaError_t err = check_args(BH, Lq, Lk, ptrs, 8);
   if (err != cudaSuccess) return err;
   const size_t smem = 4 * G::kTileT + 2 * G::kTileS + 2 * G::kTileP +
                       2 * G::kTileO + 2 * G::kRow;
   auto kernel = flash_dkv_kernel<T, D>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Lk / G::kBlock, BH);
+  const dim3 grid((Lk + G::kBlock - 1) / G::kBlock, BH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -336,17 +349,24 @@ __device__ __forceinline__ void products(float (&s)[32], float (&dp)[32],
 
 // ds = p (dp - delta) into s, p = 2^(s sm_scale log2e - lse log2e) for
 // the thread's two rows (row0, row0 + 8); on an edge tile p is 0 where
-// the row precedes the key (causal), keys counted from k0
+// the row precedes the key (causal) and, with kPartial (Lk not a multiple
+// of the key tile), where the key is at or past Lk; keys counted from k0.
+// Without kPartial an edge tile is a causal one, and the test is the one
+// the full-tile lengths always ran.
+template <bool kPartial>
 __device__ __forceinline__ void form_ds(float (&s)[32], const float (&dp)[32],
                                         const float (&lse2)[2],
                                         const float (&dlt)[2], bool edge,
-                                        int row0, int k0, int t,
-                                        float scale_log2) {
+                                        int row0, int k0, int t, int Lk,
+                                        int causal, float scale_log2) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int h = acc_half(i);
     float p = ex2(s[i] * scale_log2 - lse2[h]);
-    if (edge && row0 + 8 * h < k0 + acc_col(i, t)) p = 0.f;
+    const int key = k0 + acc_col(i, t);
+    bool masked = row0 + 8 * h < key;
+    if constexpr (kPartial) masked = key >= Lk || (causal && masked);
+    if (edge && masked) p = 0.f;
     s[i] = p * (dp[i] - dlt[h]);
   }
 }
@@ -360,6 +380,7 @@ __device__ __forceinline__ void dq_product(float (&dq)[64],
     mma_rs_n128(dq, dsa + 4 * kk, desc_mn(k_tile, kBoxK, kk));
 }
 
+template <bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -372,9 +393,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
   const TileOrder order = tile_order(BH, n_tiles);
   const int bh = order.bh;
   const int q0 = (n_tiles - 1 - order.rank) * kRows;  // longest rows first
-  const int rows = min(kRows, Lq - q0);  // 64 or 128: Lq is a multiple of 64
+  // lse and delta of the block's rows, whole 64-row pieces of the padded
+  // [BH, padded_rows(Lq)] arrays (zeros past Lq)
+  const int Lp = padded_rows(Lq);
+  const int rows = min(kRows, Lp - q0);
   // the key tiles warpgroup w reads: causal, up to its own diagonal tile
-  const int nk_all = Lk / kKeys;
+  const int nk_all = (Lk + kKeys - 1) / kKeys;
   auto tiles_of = [&](int w) {
     return causal ? min(nk_all, q0 / kKeys + w + 1) : nk_all;
   };
@@ -415,8 +439,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
       tma_load(base + kQ + kBoxQ, &tm_q, qd_full, 64, q0, bh);
       tma_load(base + kDo, &tm_do, qd_full, 0, q0, bh);
       tma_load(base + kDo + kBoxQ, &tm_do, qd_full, 64, q0, bh);
-      bulk_load(base + kLse, lse + (size_t)bh * Lq + q0, 4 * rows, qd_full);
-      bulk_load(base + kDelta, delta + (size_t)bh * Lq + q0, 4 * rows,
+      bulk_load(base + kLse, lse + (size_t)bh * Lp + q0, 4 * rows, qd_full);
+      bulk_load(base + kDelta, delta + (size_t)bh * Lp + q0, 4 * rows,
                 qd_full);
       for (int kt = 0; kt < nk; ++kt) {
         const Ring<kStages> r(kt);
@@ -473,10 +497,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
       qf[4 * kk + i] = *reinterpret_cast<const uint32_t*>(
           smem + kQ + (col >> 6) * kBoxQ + swizzled(row, col & 63));
     }
-  // causal: a key tile needs the mask where its last key passes the
-  // warpgroup's first row (the warpgroup's diagonal tile)
+  // a key tile needs the mask where its last key passes the warpgroup's
+  // first row (causal: the warpgroup's diagonal tile) or Lk (the last
+  // tile, kPartial only)
   auto edge = [&](int kt) {
-    return causal && kt * kKeys + kKeys - 1 > q0 + 64 * w;
+    return (causal && kt * kKeys + kKeys - 1 > q0 + 64 * w) ||
+           (kPartial && kt * kKeys + kKeys > Lk);
   };
 
   uint32_t dsa[16];  // the last tile's ds in bf16: its dq product's A
@@ -491,7 +517,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
     fence_regs(s);
     fence_regs(dp);
     bar_arrive(v_empty(0));
-    form_ds(s, dp, lse2, dlt, edge(0), row0, 0, t, scale_log2);
+    form_ds<kPartial>(s, dp, lse2, dlt, edge(0), row0, 0, t, Lk, causal,
+                      scale_log2);
     a_frag(dsa, s);
   }
   // tile kt: its s and dp, then the last tile's dq product, issued back to
@@ -510,7 +537,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
     fence_regs(s);
     fence_regs(dp);
     bar_arrive(v_empty(r.slot));
-    form_ds(s, dp, lse2, dlt, edge(kt), row0, kt * kKeys, t, scale_log2);
+    form_ds<kPartial>(s, dp, lse2, dlt, edge(kt), row0, kt * kKeys, t, Lk,
+                      causal, scale_log2);
     wgmma_wait<0>();
     fence_regs(dq);
     bar_arrive(k_empty(last.slot));
@@ -554,7 +582,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, int BH, int Lq, int Lk, int causal,
                    float sm_scale, cudaStream_t stream) {
   const void* ptrs[] = {q, k, v, dout, lse, delta, dq};
-  cudaError_t err = check_args(BH, Lq, Lk, kKeys, ptrs, 7);
+  cudaError_t err = check_args(BH, Lq, Lk, ptrs, 7);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
   if ((err = make_tmap(&tm_q, q, BH, Lq, kRows)) != cudaSuccess ||
@@ -563,10 +591,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       (err = make_tmap(&tm_v, v, BH, Lk, kKeys)) != cudaSuccess ||
       (err = make_tmap(&tm_dq, dq, BH, Lq, 64)) != cudaSuccess)
     return err;
-  err = allow_smem(flash_dq_sm90_kernel, kSmem);
+  // a last key tile past Lk needs the key mask; full tiles run the
+  // instantiation without it. The boxes fill k and v past Lk with zeros,
+  // so such a key adds ds . 0 to dq, but p = 2^(-lse log2e) there, which
+  // overflows to inf (and inf . 0 = NaN) for a row whose scores all lie
+  // below about -88: the mask keeps that row finite.
+  auto kernel = Lk % kKeys ? flash_dq_sm90_kernel<true>
+                           : flash_dq_sm90_kernel<false>;
+  err = allow_smem(kernel, kSmem);
   if (err != cudaSuccess) return err;
   const int blocks = BH * ((Lq + kRows - 1) / kRows);
-  flash_dq_sm90_kernel<<<blocks, kThreads, kSmem, stream>>>(
+  kernel<<<blocks, kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
       static_cast<const float*>(delta), BH, Lq, Lk, causal, sm_scale);
   return cudaGetLastError();
@@ -613,7 +648,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
   const int k0 = order.rank * kKeys;  // causal: the first tiles see most rows
   // causal: query tile qt sees a key of the block once qt * 64 + 63 >= k0
   const int qt0 = causal ? k0 / kQRows : 0;
-  const int n_iter = max(Lq / kQRows - qt0, 0);
+  const int n_iter = max((Lq + kQRows - 1) / kQRows - qt0, 0);
+  const int Lp = padded_rows(Lq);  // the pitch of lse and delta
 
   unsigned char* raw = dynamic_smem();
   const uint32_t raw_addr = smem_addr(raw);
@@ -652,9 +688,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
         tma_load(d + kQ + kBoxQ, &tm_q, full(r.slot), 64, q0, bh);
         tma_load(d + kDo, &tm_do, full(r.slot), 0, q0, bh);
         tma_load(d + kDo + kBoxQ, &tm_do, full(r.slot), 64, q0, bh);
-        bulk_load(d + kLse, lse + (size_t)bh * Lq + q0, 4 * kQRows,
+        bulk_load(d + kLse, lse + (size_t)bh * Lp + q0, 4 * kQRows,
                   full(r.slot));
-        bulk_load(d + kDelta, delta + (size_t)bh * Lq + q0, 4 * kQRows,
+        bulk_load(d + kDelta, delta + (size_t)bh * Lp + q0, 4 * kQRows,
                   full(r.slot));
       }
     }
@@ -702,7 +738,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
     fence_regs(dpt);
 
     // p^T = exp(s^T * sm_scale - lse[query]); masked (causal diagonal
-    // tiles, keys past Lk) to 0
+    // tiles, keys past Lk) to 0. Query rows past Lq need no mask: the
+    // boxes fill q and do with zeros there and lse and delta are padded
+    // with zeros, so p = 1, dv += 1 . 0, dp = 0 and ds = 1 (0 - 0) = 0.
     const bool edge = (causal && q0 < k0 + kKeys) || k0 + kKeys > Lk;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -760,7 +798,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dk, void* dv, int BH, int Lq, int Lk, int causal,
                    float sm_scale, cudaStream_t stream) {
   const void* ptrs[] = {q, k, v, dout, lse, delta, dk, dv};
-  cudaError_t err = check_args(BH, Lq, Lk, kQRows, ptrs, 8);
+  cudaError_t err = check_args(BH, Lq, Lk, ptrs, 8);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
   if ((err = make_tmap(&tm_q, q, BH, Lq, kQRows)) != cudaSuccess ||
@@ -786,10 +824,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 fp32, 1 bf16 (q, k, v, do and the gradients alike). q/do/dq
-// [BH, Lq, D], k/v/dk/dv [BH, Lk, D], lse/delta fp32 [BH, Lq]; D 128 (bf16:
-// the sm90 designs) or 64 (the first designs); Lq and Lk multiples of the
-// tile (64 rows for bf16, 32 for fp32). Each
-// returns 0 on success, else the cudaError_t code.
+// [BH, Lq, D], k/v/dk/dv [BH, Lk, D], lse/delta fp32 [BH, Lp] with Lp = Lq
+// rounded up to 64 (the padding zeros); D 128 (bf16: the sm90 designs) or
+// 64 (the first designs); any Lq, Lk >= 1 (the last q tile and key tile
+// are masked). Each returns 0 on success, else the cudaError_t code.
 int flash_attention_dq(int dtype, const void* q, const void* k,
                        const void* v, const void* dout, const void* lse,
                        const void* delta, void* dq, int BH, int Lq, int Lk,

@@ -44,7 +44,10 @@
 //     (2 x 64 KB) take 160 KB, one block of 12 warps per SM.
 // o leaves through shared memory (the warpgroup's q rows, swizzled) by a
 // TMA store, which also drops rows at or past Lq; keys at or past Lk read
-// as zeros through the 3-D tensor maps and are masked to -inf.
+// as zeros through the 3-D tensor maps and are masked to -inf. So any
+// length works: a box that hangs over the end of a sequence still
+// delivers its whole bytes (zeros past the end), which the full barrier
+// expects, and only the last key tile (the edge tile) pays for the mask.
 //
 // fp32 (the training oracle only; wgmma's fp32 input is TF32):
 // flash_fwd_kernel, one block per (bh, 32-row q tile) with m, l and the
@@ -86,23 +89,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  load_tile<T, B, D>(q_s, G::kLdT, q + ((size_t)bh * Lq + q0) * D);
+  const int rows = min(B, Lq - q0);  // the last q tile may be partial
+  load_tile<T, B, D>(q_s, G::kLdT, q + ((size_t)bh * Lq + q0) * D, rows);
   for (int e = threadIdx.x; e < B * D; e += kThreads)
     o_s[(e / D) * G::kLdO + e % D] = 0.f;
   for (int r = threadIdx.x; r < B; r += kThreads) {
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
   }
-  int nk = Lk / B;
-  if (causal) nk = min(nk, (q0 + B - 1) / B + 1);  // skip above the diagonal
+  int nk = (Lk + B - 1) / B;
+  if (causal) nk = min(nk, q0 / B + 1);  // skip above the diagonal
   const T* kg = k + (size_t)bh * Lk * D;
   const T* vg = v + (size_t)bh * Lk * D;
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * B;
+    const int keys = min(B, Lk - k0);  // keys past Lk: zeros, masked below
     __syncthreads();  // the last tile's readers of k_s, v_s, p_s are done
-    load_tile<T, B, D>(k_s, G::kLdT, kg + (size_t)k0 * D);
-    load_tile<T, B, D>(v_s, G::kLdT, vg + (size_t)k0 * D);
+    load_tile<T, B, D>(k_s, G::kLdT, kg + (size_t)k0 * D, keys);
+    load_tile<T, B, D>(v_s, G::kLdT, vg + (size_t)k0 * D, keys);
     __syncthreads();
     tile_mm<B, B, D, false, true, false>(s_s, G::kLdS, q_s, G::kLdT, k_s,
                                          G::kLdT, sm_scale);
@@ -113,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const int qpos = q0 + r;
       float mx = -INFINITY;
       for (int c = lane; c < B; c += 32) {
-        if (causal && qpos < k0 + c) srow[c] = -INFINITY;
+        if (c >= keys || (causal && qpos < k0 + c)) srow[c] = -INFINITY;
         mx = fmaxf(mx, srow[c]);
       }
       mx = warp_max(mx);
@@ -144,9 +149,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
                                          G::kLdT, 1.f);
   }
   __syncthreads();
-  store_tile<T, B, D>(o + ((size_t)bh * Lq + q0) * D, o_s, G::kLdO,
+  store_tile<T, B, D>(o + ((size_t)bh * Lq + q0) * D, o_s, G::kLdO, rows,
                       [&](int r) { return fmaxf(l_s[r], 1e-30f); });
-  for (int r = threadIdx.x; r < B; r += kThreads)
+  for (int r = threadIdx.x; r < rows; r += kThreads)
     lse[(size_t)bh * Lq + q0 + r] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
@@ -156,14 +161,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float sm_scale, cudaStream_t stream) {
   using G = Tiles<T, D>;
   const void* ptrs[] = {q, k, v, o, lse};
-  cudaError_t err = check_args(BH, Lq, Lk, G::kBlock, ptrs, 5);
+  cudaError_t err = check_args(BH, Lq, Lk, ptrs, 5);
   if (err != cudaSuccess) return err;
   const size_t smem =
       3 * G::kTileT + G::kTileS + G::kTileP + G::kTileO + 3 * G::kRow;
   auto kernel = flash_fwd_kernel<T, D>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Lq / G::kBlock, BH);
+  const dim3 grid((Lq + G::kBlock - 1) / G::kBlock, BH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
@@ -413,7 +418,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int BH, int Lq, int Lk, int causal,
                    float sm_scale, cudaStream_t stream) {
   const void* ptrs[] = {q, k, v, o, lse};
-  cudaError_t err = check_args(BH, Lq, Lk, 64, ptrs, 5);
+  cudaError_t err = check_args(BH, Lq, Lk, ptrs, 5);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   if ((err = make_tmap(&tm_q, q, BH, Lq, kRows)) != cudaSuccess ||
@@ -438,9 +443,8 @@ extern "C" {
 
 // dtype: 0 fp32, 1 bf16 (q, k, v and o alike). q [BH, Lq, D], k/v
 // [BH, Lk, D], o [BH, Lq, D], lse fp32 [BH, Lq]; D 128 (bf16: the sm90
-// design) or 64 (the first design); Lq and Lk multiples of 64 (bf16) or 32
-// (fp32). Returns 0 on success, else the cudaError_t
-// code.
+// design) or 64 (the first design); any Lq, Lk >= 1 (the last q tile and
+// key tile are masked). Returns 0 on success, else the cudaError_t code.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* o, void* lse, int BH, int Lq,
                         int Lk, int D, int causal, float sm_scale,

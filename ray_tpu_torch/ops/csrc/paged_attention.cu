@@ -12,34 +12,49 @@
 // FLOP) take a small fraction of that time even on CUDA cores.
 //
 // Design. The TPU grid (B, max_pages) walks a sequence's pages in order on
-// one core. Here one block of four warps per (sequence, kv head, split)
-// walks a split of pages_per_split consecutive pages, so one long sequence
-// spreads over many SMs. The wrapper's choice, 16 pages (256 tokens) a
-// split, makes a decode batch of 8 at 2048 tokens 8 x 8 x 8 = 512 blocks on
-// 132 SMs, where one block per (sequence, kv head) would be 64; the
-// number of splits comes from the table's shape (max_pages), never from the
-// lengths, so the host reads nothing. A split that starts past its
-// sequence's end writes an empty partial (m = -inf, l = 0) and stops.
-// The block reads its q_per_kv query rows once, into registers, and each
-// K/V page once for all of them, the next page's 16-byte loads in flight
-// during this page's softmax and p.v. A second launch merges the splits'
-// (m, l, acc) in split order, without atomics, so the result is
-// deterministic; with a single split the first launch writes the output
-// itself. The walk and the merge live in paged_split.cuh, which the
-// ragged kernel's decode rows share; the arithmetic, per page exactly as
-// the TPU kernel's, is described there.
+// one core. Here one block per (sequence, kv head, split) walks a split of
+// pages_per_split consecutive pages, so one long sequence spreads over many
+// SMs; the wrapper takes the split size from decode_plan
+// (ops/paged_attention.py), from the shapes alone, so the host reads no
+// lengths: 8 pages (of 16 slots) at the serving batch of 8 x 2048
+// tokens, 32 at 8 x 8192, two pages of 32 at bench_llm.py's widths. A split that
+// starts past its sequence's end writes an empty partial (m = -inf, l = 0)
+// and stops. A second launch merges the splits' (m, l, acc) without
+// atomics, in a fixed order, so the result is repeatable; with a single
+// split the first launch writes the output itself.
+//
+// bf16 pools, paged_decode_sm90_kernel (paged_ring.cuh): a ring of 2
+// stages of 32 slots (K and V of whole pages, in bf16 as stored, landed by
+// TMA boxes with the 128-byte swizzle against bank conflicts) filled by a
+// producer warp, two consumer warps taking the stages in turn, products on
+// the tensor cores (mma.sync m16n8k16, the kv head's query rows padded to
+// 16), the online softmax on the accumulator fragments once per stage, and
+// a merge whose warps read the splits in parallel
+// (paged_decode_merge_sm90_kernel). What it does about the first port's
+// walk (one page in flight per block in registers, V widened to fp32 in
+// shared memory, three block barriers and two 5-step shuffle reductions
+// per page, CUDA-core products, a fixed split size, a serial merge): 32 KB
+// of pages in flight per block and six blocks an SM at head dim 128 (ring
+// depth measured: 2, 4 and 6 stages, PERF.md), no widening pass and no
+// block barrier in the walk, one 2-step reduction per stage.
+//
+// fp32 pools (the oracle) keep the first port's walk and merge
+// (paged_split.cuh, shared with the ragged kernel's decode rows): one
+// block of four warps per split, the next page's loads in registers during
+// this page's softmax and p.v, products on CUDA cores in fp32.
 //
 // It reads no page id at or past ceil(len / ps), so the table's unused
 // tail may hold anything, and takes the ids it reads as lying in [0, P).
-// Products run on CUDA cores in fp32: q_per_kv rows against a 16-slot page
-// is too little work per page for tensor cores to pay. Built for head dim
-// 64 or 128, pages of 8, 16 or 32 slots and 1, 2, 4 or 8 query heads per
-// kv head (Llama 3: 128, 16, 4; the JAX package's serving benchmark: 64,
-// 32, 2); launch() names where another goes.
+// Built for head dim 64 or 128, pages of 8, 16 or 32 slots and 1, 2, 4 or
+// 8 query heads per kv head (Llama 3: 128, 16, 4; the JAX package's
+// serving benchmark: 64, 32, 2); launch() names where another goes.
 //
 // Plain C interface (loaded with ctypes): paged_attention() launches on
 // the given stream and returns the cudaError_t of the launches.
 
+#include <type_traits>
+
+#include "paged_ring.cuh"
 #include "paged_split.cuh"
 
 namespace {
@@ -48,7 +63,7 @@ using paged::kThreads;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// grid (split, kv head, sequence): the block walks one split of the
+// fp32: grid (split, kv head, sequence), the block walks one split of the
 // sequence's pages for one kv head (paged_split.cuh)
 template <typename T, int kPS, int kQpk, int kD>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
@@ -84,10 +99,42 @@ __global__ void __launch_bounds__(kThreads) paged_decode_merge_kernel(
   paged::merge_splits<T, kD>(work, rows, r, n_splits, out + r * kD);
 }
 
+// bf16: grid (split, kv head, sequence), the ring walk of paged_ring.cuh;
+// the pools through tensor maps (ring::make_page_map)
+template <int kPS, int kQpk, int kD>
+__global__ void __launch_bounds__(ring::kThreads) paged_decode_sm90_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const int32_t* __restrict__ page_table,
+    const int32_t* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ work, int Hkv, int max_pages, int pages_per_split,
+    float sm_scale) {
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t Hq = (size_t)Hkv * kQpk;
+  const size_t row0 = (size_t)b * Hq + (size_t)h * kQpk;  // first q row
+  const int len = min(max(seq_lens[b], 0), max_pages * kPS);
+  ring::split_walk<kPS, kQpk, kD>(
+      q + row0 * kD, &tm_k, &tm_v, page_table + (size_t)b * max_pages,
+      len, Hkv, h, split, gridDim.x, pages_per_split, sm_scale,
+      out + row0 * kD, work, (size_t)gridDim.z * Hq, row0);
+}
+
+// bf16: one block per (sequence, query head) row, its warps reading the
+// splits in parallel
+template <int kD>
+__global__ void __launch_bounds__(ring::kMergeThreads)
+    paged_decode_merge_sm90_kernel(const float* __restrict__ work,
+                                   __nv_bfloat16* __restrict__ out, int rows,
+                                   int n_splits) {
+  const size_t r = blockIdx.x;
+  ring::merge_parallel<kD>(work, rows, r, n_splits, out + r * kD);
+}
+
 struct Args {
   const void *q, *k_pages, *v_pages, *page_table, *seq_lens;
   void *out, *work;
-  int B, Hq, Hkv, ps, D, max_pages, pages_per_split;
+  int B, P, Hq, Hkv, ps, D, max_pages, pages_per_split;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -98,19 +145,50 @@ cudaError_t launch_kernels(const Args& a) {
       a.max_pages / a.pages_per_split + (a.max_pages % a.pages_per_split != 0);
   if (n_splits > 1 && a.work == nullptr) return cudaErrorInvalidValue;
   const dim3 grid(n_splits < 1 ? 1 : n_splits, a.Hkv, a.B);
-  paged_decode_kernel<T, kPS, kQpk, kD><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
-      static_cast<const T*>(a.v_pages),
-      static_cast<const int32_t*>(a.page_table),
-      static_cast<const int32_t*>(a.seq_lens), static_cast<T*>(a.out),
-      static_cast<float*>(a.work), a.Hkv, a.max_pages, a.pages_per_split,
-      a.sm_scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits <= 1) return err;
-  paged_decode_merge_kernel<T, kD><<<a.B * a.Hq, kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.work), static_cast<T*>(a.out), a.B * a.Hq,
-      n_splits);
-  return cudaGetLastError();
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using B16 = __nv_bfloat16;
+    CUtensorMap tm_k, tm_v;
+    if ((err = ring::make_page_map(&tm_k, a.k_pages, a.P, a.Hkv, kPS,
+                                   kD)) != cudaSuccess ||
+        (err = ring::make_page_map(&tm_v, a.v_pages, a.P, a.Hkv, kPS,
+                                   kD)) != cudaSuccess)
+      return err;
+    auto kernel = paged_decode_sm90_kernel<kPS, kQpk, kD>;
+    constexpr size_t smem = ring::Layout<kD>::kSmem;
+    if constexpr (smem > 48 * 1024) {  // a deeper ring than the design's
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, ring::kThreads, smem, a.stream>>>(
+        static_cast<const B16*>(a.q), tm_k, tm_v,
+        static_cast<const int32_t*>(a.page_table),
+        static_cast<const int32_t*>(a.seq_lens), static_cast<B16*>(a.out),
+        static_cast<float*>(a.work), a.Hkv, a.max_pages, a.pages_per_split,
+        a.sm_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n_splits <= 1) return err;
+    paged_decode_merge_sm90_kernel<kD>
+        <<<a.B * a.Hq, ring::kMergeThreads, 0, a.stream>>>(
+            static_cast<const float*>(a.work), static_cast<B16*>(a.out),
+            a.B * a.Hq, n_splits);
+    return cudaGetLastError();
+  } else {
+    paged_decode_kernel<T, kPS, kQpk, kD><<<grid, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
+        static_cast<const T*>(a.v_pages),
+        static_cast<const int32_t*>(a.page_table),
+        static_cast<const int32_t*>(a.seq_lens), static_cast<T*>(a.out),
+        static_cast<float*>(a.work), a.Hkv, a.max_pages, a.pages_per_split,
+        a.sm_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n_splits <= 1) return err;
+    paged_decode_merge_kernel<T, kD><<<a.B * a.Hq, kThreads, 0, a.stream>>>(
+        static_cast<const float*>(a.work), static_cast<T*>(a.out),
+        a.B * a.Hq, n_splits);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int kPS, int kD>
@@ -150,22 +228,24 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16 (q, pools and out alike). page_table int32
-// [B, max_pages], seq_lens int32 [B]. work: fp32, B * Hq * n_splits *
-// (D + 2) floats when n_splits = ceil(max_pages / pages_per_split) > 1,
-// else unused. Returns 0 on success, else the cudaError_t code.
+// dtype: 0 fp32, 1 bf16 (q, pools and out alike); P pages in each pool.
+// page_table int32 [B, max_pages], seq_lens int32 [B]. work: fp32,
+// B * Hq * n_splits * (D + 2) floats when n_splits = ceil(max_pages /
+// pages_per_split) > 1, else unused. Returns 0 on success, else the
+// cudaError_t code.
 int paged_attention(int dtype, const void* q, const void* k_pages,
                     const void* v_pages, const void* page_table,
                     const void* seq_lens, void* out, void* work, int B,
-                    int Hq, int Hkv, int ps, int D, int max_pages,
+                    int P, int Hq, int Hkv, int ps, int D, int max_pages,
                     int pages_per_split, float sm_scale, void* stream) {
   if (B == 0) return 0;
-  if (B < 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      ps <= 0 || max_pages < 0 || pages_per_split < 1)
+  if (B < 0 || B > 65535 || P <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      D <= 0 || ps <= 0 || max_pages < 0 || pages_per_split < 1)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  k_pages, v_pages, page_table, seq_lens,
-               out, work,   B,       Hq,         Hkv,
-               ps, D,       max_pages, pages_per_split, sm_scale,
+  const Args a{q,         k_pages,         v_pages,  page_table,
+               seq_lens,  out,             work,     B,
+               P,         Hq,              Hkv,      ps,
+               D,         max_pages,       pages_per_split, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (dtype == kF32) return (int)launch<float>(a);
   if (dtype == kBF16) return (int)launch<__nv_bfloat16>(a);
@@ -175,5 +255,9 @@ int paged_attention(int dtype, const void* q, const void* k_pages,
 const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// slots of one stage of the bf16 walk's ring, which decode_plan
+// (ops/paged_attention.py) builds its split sizes from
+int paged_decode_stage_slots() { return ring::kSlots; }
 
 }  // extern "C"

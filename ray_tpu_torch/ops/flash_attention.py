@@ -16,8 +16,9 @@ each with two implementations:
     (replacing the TPU's ``_fwd_kernel``) and ``csrc/flash_attention_bwd.cu``
     (``_dq_kernel`` and ``_dkv_kernel``; bf16 at head dim 128 runs the
     Hopper designs ``flash_fwd_sm90_kernel``, ``flash_dq_sm90_kernel`` and
-    ``flash_dkv_sm90_kernel``). They pick their own tiles; the
-    wrappers raise on what they do not take. There is no fallback from the
+    ``flash_dkv_sm90_kernel``). They pick their own tiles and take any
+    length, masking the last q tile and key tile; the wrappers raise on
+    what they do not take. There is no fallback from the
     card to the plain versions.
 ``_fwd_call`` / ``_bwd_call`` dispatch by the tensors' device.
 
@@ -46,9 +47,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for (Llama: 128; bf16 at 64
 #: takes the first designs, the Hopper designs being built for 128 only)
 KERNEL_HEAD_DIMS = (64, 128)
-#: sequence lengths must be multiples of the kernels' tile rows (64 for
-#: bf16; the fp32 tiles, 32 rows, divide it)
-KERNEL_TILE = 64
+#: the backward kernels read lse and delta as [BH, Lq rounded up to this],
+#: the padding zeros, so that every 64-row piece comes whole and aligned
+LSE_PAD = 64
 
 
 def _finite_max(m):
@@ -113,6 +114,8 @@ def pick_block(L: int, preferred: int = 256, min_block: int = 8
 
 
 def _blocks(Lq: int, Lk: int, blk_q: int, blk_k: int):
+    """The blocks the dispatchers take, as the JAX package: each at most
+    L, and dividing it."""
     blk_q, blk_k = min(blk_q, Lq), min(blk_k, Lk)
     if Lq % blk_q or Lk % blk_k:
         raise ValueError(f"L ({Lq},{Lk}) must divide blocks ({blk_q},{blk_k})")
@@ -133,20 +136,23 @@ def _scores(qb, kb, q0, k0, causal, sm_scale):
 def _fwd_reference(q, k, v, causal: bool, sm_scale: float,
                    blk_q: int = 256, blk_k: int = 256):
     """Plain flash forward on [BH, L, D]: (o in q's dtype, lse fp32
-    [BH, Lq]), block by block as the TPU's ``_fwd_kernel``."""
+    [BH, Lq]), block by block as the TPU's ``_fwd_kernel``. A block that
+    does not divide L leaves a shorter last block, as the CUDA kernels'
+    masked last tiles do (the dispatchers take only dividing blocks)."""
     if q.is_cuda:
         launch_counts["flash_attention_fwd_reference_cuda"] += 1
     BH, Lq, D = q.shape
     Lk = k.shape[1]
-    blk_q, blk_k = _blocks(Lq, Lk, blk_q, blk_k)
+    blk_q, blk_k = min(blk_q, Lq), min(blk_k, Lk)
     kf, vf = k.float(), v.float()
     o = torch.empty_like(q)
     lse = torch.empty(BH, Lq, dtype=torch.float32, device=q.device)
     for q0 in range(0, Lq, blk_q):
         qb = q[:, q0:q0 + blk_q].float()
-        acc = torch.zeros(BH, blk_q, D, dtype=torch.float32, device=q.device)
-        m = torch.full((BH, blk_q), _NEG_INF, device=q.device)
-        l = torch.zeros(BH, blk_q, device=q.device)
+        rows = qb.shape[1]          # the last block may be shorter
+        acc = torch.zeros(BH, rows, D, dtype=torch.float32, device=q.device)
+        m = torch.full((BH, rows), _NEG_INF, device=q.device)
+        l = torch.zeros(BH, rows, device=q.device)
         for k0 in range(0, Lk, blk_k):
             if causal and k0 > q0 + blk_q - 1:
                 break   # above the diagonal: skipped, as the kernel does
@@ -171,12 +177,12 @@ def _bwd_reference(q, k, v, lse, do, delta, causal: bool, sm_scale: float,
     v's dtypes from the forward's lse and delta = rowsum(do * o) - dlse,
     block by block as the TPU's ``_dq_kernel`` and ``_dkv_kernel``: p in
     do's dtype before p^T . do, ds in k's / q's dtype before each product,
-    fp32 sums."""
+    fp32 sums. Blocks as in ``_fwd_reference``."""
     if q.is_cuda:
         launch_counts["flash_attention_bwd_reference_cuda"] += 1
     BH, Lq, D = q.shape
     Lk = k.shape[1]
-    blk_q, blk_k = _blocks(Lq, Lk, blk_q, blk_k)
+    blk_q, blk_k = min(blk_q, Lq), min(blk_k, Lk)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dq = torch.zeros(BH, Lq, D, dtype=torch.float32, device=q.device)
     dk = torch.zeros(BH, Lk, D, dtype=torch.float32, device=q.device)
@@ -235,9 +241,8 @@ def _check_kernel_inputs(q, k, v, rows=(), stats=()):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernels are built for "
                          f"{KERNEL_HEAD_DIMS}")
-    if Lq == 0 or Lk == 0 or Lq % KERNEL_TILE or Lk % KERNEL_TILE:
-        raise ValueError(f"L ({Lq},{Lk}) must be a positive multiple of the "
-                         f"kernel tile ({KERNEL_TILE})")
+    if Lq < 1 or Lk < 1:
+        raise ValueError(f"L ({Lq},{Lk}) must be at least 1")
     return BH, Lq, Lk, D
 
 
@@ -262,6 +267,10 @@ def _bwd_cuda(q, k, v, lse, do, delta, causal: bool, sm_scale: float):
     BH, Lq, Lk, D = _check_kernel_inputs(
         q, k, v, rows=[("do", do)], stats=[("lse", lse), ("delta", delta)])
     code = _DTYPE_CODES[q.dtype]
+    pad = -Lq % LSE_PAD
+    if pad:   # a copy of BH * Lq floats, only where 64 does not divide Lq
+        lse, delta = (torch.nn.functional.pad(t, (0, pad))
+                      for t in (lse, delta))
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd", "flash_attention_dq", q.device, code,

@@ -17,8 +17,10 @@ past the sequence's length. Three implementations of one function:
     to v's dtype before p·v), each split of ``pages_per_split`` pages
     with its own state, the splits merged as the CUDA kernel merges them;
   - ``_paged_attention_cuda``: the hand-written CUDA kernel
-    (``csrc/paged_attention.cu``, replacing ``_decode_kernel``), split over
-    pages, for CUDA tensors.
+    (``csrc/paged_attention.cu``, replacing ``_decode_kernel``; bf16 pools
+    walk a ring of pages filled by TMA copies, ``csrc/paged_ring.cuh``),
+    split over pages as ``decode_plan`` says from the shapes, for CUDA
+    tensors.
 ``paged_attention`` dispatches by the tensors' device, as the ragged op.
 
 Ragged batch layout (the engine's step): q [T, Hq, D] holds R sequences'
@@ -385,10 +387,47 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start,
 
 # ------------------------------------------------------------------ decode
 
-#: pages each block of the decode kernel walks: a batch of 8 at 2048
-#: tokens (128 pages of 16) is then 8 splits x 8 kv heads x 8 sequences =
-#: 512 blocks, about four per SM of an H100
-PAGES_PER_SPLIT = 16
+#: slots of one stage of the bf16 decode kernel's page ring: ring::kSlots
+#: of paged_ring.cuh, which the library reports as
+#: paged_decode_stage_slots() (a card test holds the two equal)
+DECODE_STAGE_SLOTS = 32
+#: the decode plan's floor: a split walks at least 2 stages, one for each
+#: consumer warp
+DECODE_MIN_SPLIT_SLOTS = 2 * DECODE_STAGE_SLOTS
+#: SMs of an NVIDIA H100 SXM, the card the plan's sweep of split sizes was
+#: measured on (PERF.md, chip_compare.py decode and chip_smoke.py phase 3b)
+H100_SMS = 132
+#: blocks the decode plan fills the grid with at most: 8 an SM (six
+#: blocks of the ring walk fit an SM at head dim 128; 4 an SM lost 12% at
+#: batch A in that sweep)
+DECODE_TARGET_BLOCKS = 8 * H100_SMS
+
+
+class DecodePlan(NamedTuple):
+    """The decode kernel's grid for one call."""
+    pages_per_split: int
+    splits: int          # ceil(max_pages / pages_per_split)
+    blocks: int          # B * Hkv * splits
+
+
+def decode_plan(B: int, Hq: int, Hkv: int, max_pages: int, ps: int
+                ) -> DecodePlan:
+    """The decode kernel's split size from the shapes alone, so the host
+    reads no lengths: the floor (DECODE_MIN_SPLIT_SLOTS slots), doubled
+    while the grid of B x Hkv x splits blocks would exceed
+    DECODE_TARGET_BLOCKS, at most the table. At the serving widths (Hkv 8,
+    pages of 16) a batch of 8 x 2048 tokens gets 8 pages a split, 8 x 8192
+    tokens 32; bench_llm.py's widths (pages of 32, 512 tokens) 2."""
+    if Hkv < 1 or Hq % Hkv or ps < 1 or B < 0 or max_pages < 0:
+        raise ValueError(f"decode plan of B {B}, Hq {Hq}, Hkv {Hkv}, "
+                         f"max_pages {max_pages}, page size {ps}")
+    pps = max(1, DECODE_MIN_SPLIT_SLOTS // ps)
+    while pps < max_pages and \
+            B * Hkv * _n_splits(max_pages, pps) > DECODE_TARGET_BLOCKS:
+        pps *= 2
+    pps = max(1, min(pps, max_pages))
+    S = _n_splits(max_pages, pps)
+    return DecodePlan(pps, S, B * Hkv * S)
 
 
 def _decode_pages(page_table, seq_lens, ps: int):
@@ -492,10 +531,11 @@ def _paged_decode_reference(q, k_pages, v_pages, page_table, seq_lens,
 
 def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
                           sm_scale: float,
-                          pages_per_split: int = PAGES_PER_SPLIT
+                          pages_per_split: Optional[int] = None
                           ) -> torch.Tensor:
     """Launch the decode kernel (and its merge, when there is more than
-    one split). Checks device, dtype, shape and contiguity and raises on
+    one split), split as ``decode_plan`` says unless ``pages_per_split``
+    is given. Checks device, dtype, shape and contiguity and raises on
     what the kernel does not take. Page ids a sequence covers must lie in
     [0, P): the kernel reads them unchecked, and no others."""
     B, Hq, D = q.shape
@@ -522,6 +562,9 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
             or v_pages.data_ptr() % 16:
         raise ValueError("q and the pools must start on 16 bytes (vector "
                          "loads)")
+    if pages_per_split is None:
+        pages_per_split = decode_plan(B, Hq, Hkv, max_pages,
+                                      ps).pages_per_split
     if pages_per_split < 1:
         raise ValueError(f"pages_per_split {pages_per_split} < 1")
 
@@ -534,7 +577,7 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
                        device=q.device) if S > 1 else None
     _kernels.launch("paged_attention", "paged_attention", q.device,
                     _DTYPE_CODES[q.dtype], q, k_pages, v_pages, page_table,
-                    seq_lens, out, work, B, Hq, Hkv, ps, D, max_pages,
+                    seq_lens, out, work, B, P, Hq, Hkv, ps, D, max_pages,
                     pages_per_split, float(sm_scale))
     launch_counts["paged_attention"] += 1
     return out

@@ -187,6 +187,124 @@ def test_plain_dq_at_the_dq_kernel_tiles_holds_the_card_limit(causal):
     assert ratio <= 1, f"dq vs Pallas at the dq tiles: {ratio}"
 
 
+# sequences the kernels' 128-row tiles do not divide: the last q tile and
+# the last key tile of the sm90 designs are partial (masked on the card)
+PARTIAL_CASES = [(200, 200), (72, 200), (200, 72)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Lq,Lk", PARTIAL_CASES)
+def test_plain_versions_at_partial_kernel_tiles_hold_the_card_limit(
+        causal, Lq, Lk):
+    """The emulations above at lengths no kernel tile divides: the plain
+    versions at the forward's, dk/dv's and dq's tiles, each with a shorter
+    last tile as the kernels mask theirs, against the default blocks (one
+    block here) within CARD_RTOL, and against the Pallas kernels in
+    interpret mode at their default blocks within this module's limits."""
+    BH, D = 2, 128
+    q, do = _arrays((BH, Lq, D), 14, 2)
+    k, v = _arrays((BH, Lk, D), 15, 2)
+    dlse = _arrays((BH, Lq), 16)[0]
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (_torch(a, "bfloat16") for a in (q, k, v, do))
+    o_t, lse_t = tfa._fwd_reference(tq, tk, tv, causal, scale, *FWD_TILES)
+    o_d, lse_d = tfa._fwd_reference(tq, tk, tv, causal, scale)
+    delta = (tdo.float() * o_d.float()).sum(-1) - torch.from_numpy(dlse)
+    _, dk_t, dv_t = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal,
+                                       scale, *BWD_TILES)
+    dq_t = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale,
+                              *DQ_TILES)[0]
+    g_d = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale)
+    ratios = {name: _worst_ratio(got, want, CARD_RTOL) for name, got, want
+              in zip(("o", "dq", "dk", "dv"), (o_t, dq_t, dk_t, dv_t),
+                     (o_d, *g_d))}
+    assert max(ratios.values()) <= 1, f"partial tiles vs blocks: {ratios}"
+    np.testing.assert_allclose(_np(lse_t), _np(lse_d), rtol=1e-5, atol=1e-5)
+
+    jq, jk, jv, jdo = (_jax(a, "bfloat16") for a in (q, k, v, do))
+    jo, jlse = jfa._fwd_call(jq, jk, jv, causal, scale, 256, 256, True)
+    jgrads = jfa._bwd_call(jq, jk, jv, jo, jlse, jdo, causal, scale, 256,
+                           256, True, dlse=jnp.asarray(dlse))
+    vs_pallas = {"o": _worst_ratio(o_t, jo, BF16_RTOL["out"])}
+    vs_pallas.update({name: _worst_ratio(got, want, BF16_RTOL["grad"])
+                      for name, got, want in zip(
+                          ("dq", "dk", "dv"), (dq_t, dk_t, dv_t), jgrads)})
+    assert max(vs_pallas.values()) <= 1, f"vs Pallas: {vs_pallas}"
+    np.testing.assert_allclose(_np(lse_t), _np(jlse)[:, 0], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Lq,Lk", [(72, 72), (200, 72), (1, 130)])
+def test_query_rows_past_lq_add_nothing_to_dk_dv(causal, Lq, Lk):
+    """The dk/dv kernels mask no query row past Lq in a partial last tile:
+    there q and do are zeros (the tensor maps' fill, or the first designs'
+    tile loads) and lse and delta are padded with zeros, so s = 0, p = 1,
+    p^T . do = 0 and ds = 1 (0 - 0) = 0. Rows padded so to a multiple of
+    64 give the same dk and dv in fp32, and dq's rows up to Lq."""
+    BH, D = 2, 32
+    q, do = _arrays((BH, Lq, D), 21, 2)
+    k, v = _arrays((BH, Lk, D), 22, 2)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    scale = D ** -0.5
+    o, lse = tfa._fwd_reference(tq, tk, tv, causal, scale)
+    delta = (tdo * o).sum(-1)
+    want = tfa._bwd_reference(tq, tk, tv, lse, tdo, delta, causal, scale)
+    pad = -Lq % tfa.LSE_PAD
+    rows = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))  # noqa: E731
+    cols = lambda t: torch.nn.functional.pad(t, (0, pad))  # noqa: E731
+    got = tfa._bwd_reference(rows(tq), tk, tv, cols(lse), rows(tdo),
+                             cols(delta), causal, scale)
+    np.testing.assert_allclose(_np(got[0][:, :Lq]), _np(want[0]), rtol=1e-6,
+                               atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-6, atol=1e-6)
+
+
+# lengths the Pallas kernels take that no 64-row kernel tile divides: any
+# L up to the default 256-row blocks (72, 200), L 1000 at pick_block's
+# block (8), and Lq 72 against Lk 200; (Lq, Lk, block or None for
+# pick_block's)
+LENGTH_CASES = [(72, 72, 256), (200, 200, 256), (1000, 1000, None),
+                (72, 200, 256)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Lq,Lk,blk", LENGTH_CASES)
+def test_flash_at_lengths_no_kernel_tile_divides_matches_jax(causal, Lq, Lk,
+                                                             blk):
+    """The forward, lse and every gradient (an lse cotangent included)
+    through ``flash_attention_block`` against the JAX package's, the Pallas
+    kernels in interpret mode, in fp32 (F32_TOL). Causal with Lq != Lk
+    counts positions from 0 in both, as the JAX package does. L 1000
+    (blocks of 8: 125 x 125 interpreted steps a head) takes one head."""
+    B, H, D = 1, 1 if Lq >= 1000 else 2, 16
+    blk_q, blk_k = (blk, blk) if blk else (tfa.pick_block(Lq),
+                                           tfa.pick_block(Lk))
+    q, go = _arrays((B, Lq, H, D), 17, 2)
+    k, v = _arrays((B, Lk, H, D), 18, 2)
+    glse = _arrays((B, H, Lq), 19)[0]
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_block(q, k, v, causal, None, blk_q,
+                                           blk_k, True)
+        return jnp.sum(o * go) + jnp.sum(lse * glse), (o, lse)
+
+    (_, (jo, jlse)), jgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    to, tlse = tfa.flash_attention_block(tq, tk, tv, causal, None, blk_q,
+                                         blk_k)
+    (to * torch.from_numpy(go)).sum().add(
+        (tlse * torch.from_numpy(glse)).sum()).backward()
+    assert to.shape == (B, Lq, H, D) and tlse.shape == (B, H, Lq)
+    assert_close(to, jo, "float32")
+    np.testing.assert_allclose(_np(tlse), _np(jlse), rtol=1e-5, atol=1e-5)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        assert_close(got, want, "float32", "grad")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,Lq,Lk", [(True, 64, 64), (False, 64, 32),
                                           (True, 32, 64)])

@@ -276,7 +276,8 @@ def test_decode_kernel_matches_plain_version(cuda, dtype, ps, Hq, Hkv, D):
                                       max_pages, tail=-1, seed=Hq + ps)
     q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
     scale = D ** -0.5
-    for pps in (1, 2, 4, tpa.PAGES_PER_SPLIT):
+    plan = tpa.decode_plan(len(lens), Hq, Hkv, max_pages, ps)
+    for pps in (1, 2, 4, plan.pages_per_split):
         before = tpa.launch_counts["paged_attention"]
         got = tpa._paged_attention_cuda(q, kp, vp, pt, sl, scale, pps)
         want = tpa._paged_decode_reference(q, kp, vp, pt, sl, scale, pps)
@@ -290,6 +291,55 @@ def test_decode_kernel_matches_plain_version(cuda, dtype, ps, Hq, Hkv, D):
     got = tpa.paged_attention(q, kp, vp, pt, sl)
     assert tolerance_ratio(got, tpa.paged_attention_reference(
         q, kp, vp, pt, sl)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (16, 8), (32, 8), (8, 1)])
+@pytest.mark.parametrize("D", [128, 64])
+def test_decode_ring_walk_at_stage_and_split_edges(cuda, ps, Hq, Hkv, D):
+    # the bf16 ring walk (paged_ring.cuh) at every instantiation: 1, 2, 4
+    # and 8 query heads per kv head, pages of 8, 16 and 32, head dim 64 and
+    # 128; lengths at the page, stage (32 slots) and split edges; the
+    # split plain version at the same split and the gather version hold
+    # it; the pool's slots past each length hold NaN, which must not reach
+    # the output; two calls give the same bits
+    max_pages = 4096 // ps
+    plan = tpa.decode_plan(9, Hq, Hkv, max_pages, ps)
+    split = plan.pages_per_split * ps
+    lens = [0, 1, 31, 32, 33, split - 1, split, split + 1, 4096]
+    q, kp, vp, pt, sl = _decode_batch(cuda, Hq, Hkv, D, ps, lens, max_pages,
+                                      seed=Hq + ps + D)
+    q, kp, vp = (t.bfloat16() for t in (q, kp, vp))
+    dirty_k, dirty_v = kp.clone(), vp.clone()
+    for b, n in enumerate(lens):
+        if n % ps:
+            last = pt[b, n // ps].long()
+            dirty_k[last, :, n % ps:] = float("nan")
+            dirty_v[last, :, n % ps:] = float("nan")
+    scale = D ** -0.5
+    for pps in (1, 3, plan.pages_per_split, max_pages):
+        runs = [tpa._paged_attention_cuda(q, dirty_k, dirty_v, pt, sl, scale,
+                                          pps) for _ in range(2)]
+        want = tpa._paged_decode_reference(q, kp, vp, pt, sl, scale, pps)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]), pps
+        assert torch.isfinite(runs[0]).all(), pps
+        assert bool((runs[0][0] == 0).all()), "length 0 not 0"
+        assert tolerance_ratio(runs[0], want) <= 1, (
+            pps, tolerance_ratio(runs[0], want))
+    got = tpa.paged_attention(q, dirty_k, dirty_v, pt, sl)
+    assert tolerance_ratio(got, tpa.paged_attention_reference(
+        q, kp, vp, pt, sl)) <= 1
+
+
+@pytest.mark.cuda
+def test_decode_plan_stage_is_the_kernels(cuda):
+    # decode_plan builds its split sizes from the ring's stage; the kernel
+    # library reports the stage it was built with
+    from ray_tpu_torch.ops import _kernels
+    lib = _kernels.load("paged_attention")
+    assert lib.paged_decode_stage_slots() == tpa.DECODE_STAGE_SLOTS
 
 
 @pytest.mark.cuda
@@ -391,6 +441,47 @@ def test_flash_kernels_are_repeatable(cuda, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Lq,Lk", [(72, 72), (200, 200), (1000, 1000),
+                                   (72, 200), (200, 72), (1, 1), (65, 130)])
+@pytest.mark.parametrize("D", [128, 64])
+def test_flash_kernels_at_lengths_no_tile_divides(cuda, dtype, causal, Lq,
+                                                  Lk, D):
+    # lengths the Pallas kernels take (L <= 256 at their default blocks, L
+    # 1000 at blocks of 8) that no kernel tile divides: the last q tile
+    # and key tile run past the end of each sequence and are masked. The
+    # plain versions at their default 256-row blocks (a shorter last
+    # block) hold the kernels; the lse and delta padding never shows, and
+    # two calls repeat bit for bit. dk/dv masks no query row past Lq: the
+    # boxes fill q and do with zeros there and lse and delta are padded
+    # with zeros, so those rows add exactly 0 (the CPU test
+    # test_query_rows_past_lq_add_nothing_to_dk_dv checks the arithmetic)
+    q, k, v, do, dlse = _flash_inputs(cuda, dtype, 3, Lq, Lk, Lq + 7 * Lk,
+                                      D)
+    scale = D ** -0.5
+    runs = []
+    for _ in range(2):
+        o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1) - dlse
+        runs.append((o, lse, *tfa._bwd_cuda(q, k, v, lse, do, delta, causal,
+                                             scale)))
+    o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1) - dlse
+    grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
+    grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
+                                   scale)
+    torch.cuda.synchronize()
+    assert tolerance_ratio(runs[0][0], o_ref, FLASH_TOL) <= 1
+    assert (runs[0][1] - lse_ref).abs().max().item() <= 2.0 ** -12
+    for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        assert tolerance_ratio(got, want, FLASH_TOL) <= 1, name
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_runs_the_kernels(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, go = (torch.randn(2, 128, 4, 128, generator=g, device=cuda)
@@ -425,9 +516,15 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     q32 = torch.randn(2, 128, 32, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="head dim"):
         tfa._fwd_cuda(q32, q32, q32, True, 0.1)
+    # a length no kernel tile divides is taken (the last tiles are masked)
     q96 = torch.randn(2, 96, 128, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="kernel tile"):
-        tfa._fwd_cuda(q96, q96, q96, True, 0.1)
+    o96, _ = tfa._fwd_cuda(q96, q96, q96, True, 0.1)
+    torch.cuda.synchronize()
+    assert tolerance_ratio(o96, tfa._fwd_reference(q96, q96, q96, True,
+                                                   0.1)[0], FLASH_TOL) <= 1
+    q0 = torch.randn(2, 0, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="at least 1"):
+        tfa._fwd_cuda(q0, q96, q96, True, 0.1)
     with pytest.raises(ValueError):
         tfa._fwd_cuda(q, q.cpu(), q, True, 0.1)
     lse = torch.zeros(2, 128, device=cuda)

@@ -236,3 +236,193 @@ def test_dispatcher_on_cpu_runs_the_plain_version_and_launches_nothing():
     # sm_scale defaults to D ** -0.5 in both
     assert torch.equal(tpa.paged_attention(*args, sm_scale=64 ** -0.5), got)
     assert tpa.launch_counts == before
+
+
+# ----------------------------------------- the decode plan and the ring walk
+
+# the chip's decode batches (chip_smoke.py phase 3b): (B, Hq, Hkv,
+# max_pages, page size) -> the plan's pages per split
+PLAN_CASES = [((8, 32, 8, 128, 16), 8), ((8, 32, 8, 512, 16), 32),
+              ((8, 16, 8, 16, 32), 2)]
+
+
+@pytest.mark.parametrize("shape,pps", PLAN_CASES)
+def test_decode_plan_at_the_chip_batches(shape, pps):
+    plan = tpa.decode_plan(*shape)
+    B, _, Hkv, max_pages, _ = shape
+    assert plan.pages_per_split == pps
+    assert plan.splits == -(-max_pages // pps)
+    assert plan.blocks == B * Hkv * plan.splits <= tpa.DECODE_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("B,Hkv,max_pages,ps", [
+    (1, 1, 1, 16), (8, 8, 128, 16), (8, 8, 512, 16), (8, 8, 16, 32),
+    (3, 2, 37, 8), (64, 8, 2048, 8), (2, 4, 5, 32), (0, 8, 128, 16)])
+def test_decode_plan_covers_every_page_once_from_shapes_alone(B, Hkv,
+                                                              max_pages, ps):
+    """Every page of every sequence falls in exactly one split, splits
+    past a sequence's end are empty, and the plan takes no lengths: the
+    same plan serves every length up to the table."""
+    plan = tpa.decode_plan(B, 4 * Hkv, Hkv, max_pages, ps)
+    pps, S = plan.pages_per_split, plan.splits
+    assert 1 <= pps <= max(max_pages, 1) and S == tpa._n_splits(max_pages,
+                                                                pps)
+    floor = tpa.DECODE_MIN_SPLIT_SLOTS // ps
+    # at the floor, or doubled only while the grid overflows the target
+    assert pps >= min(floor, max_pages)
+    if pps > floor and pps < max_pages:
+        assert B * Hkv * tpa._n_splits(max_pages, pps // 2) > \
+            tpa.DECODE_TARGET_BLOCKS
+    for n in {0, 1, ps - 1, ps, ps + 1, pps * ps, pps * ps + 1,
+              max_pages * ps}:
+        n_pages = -(-min(n, max_pages * ps) // ps)
+        seen = []
+        for s in range(S):   # as the kernel's split_walk cuts them
+            p_begin, p_end = s * pps, min(s * pps + pps, n_pages)
+            if p_begin >= p_end:
+                assert p_begin >= n_pages    # empty only past the end
+                continue
+            seen += range(p_begin, p_end)
+        assert seen == list(range(n_pages)), (n, seen)
+    assert tpa.decode_plan(B, 4 * Hkv, Hkv, max_pages, ps) == plan
+    with pytest.raises(ValueError):
+        tpa.decode_plan(B, 4 * Hkv, 0, max_pages, ps)
+    with pytest.raises(ValueError):
+        tpa.decode_plan(B, 4 * Hkv, Hkv, max_pages, 0)
+
+
+def _ring_emulation(q, kp, vp, pt, lens, sm_scale, pages_per_split):
+    """The bf16 ring walk's order of arithmetic (paged_ring.cuh), on the
+    CPU: per split, stages of DECODE_STAGE_SLOTS slots (whole pages), taken
+    in turn by two consumers with a state each; per stage s = (q . k: bf16
+    products, fp32 sums) * sm_scale, slots past the split's last visible
+    one -inf, one online-softmax update, p rounded to bf16 before an fp32
+    p . v; the two states combined in order; then the parallel merge: the
+    splits in four slices, each merged against its own maximum, the slices
+    combined in order."""
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = kp.shape
+    max_pages = pt.shape[1]
+    qpk = Hq // Hkv
+    spp = max(1, tpa.DECODE_STAGE_SLOTS // ps)     # pages per stage
+    S = tpa._n_splits(max_pages, pages_per_split)
+    lens = lens.long().clamp(0, max_pages * ps)
+    n_pages = (lens + ps - 1) // ps
+    qg = q.float().reshape(B, Hkv, qpk, D)
+    m = torch.full((S, 2, B, Hkv, qpk), float("-inf"))   # two consumers
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*m.shape, D)
+    for s in range(S):
+        p_begin = s * pages_per_split
+        p_end = (n_pages.clamp(max=p_begin + pages_per_split))   # [B]
+        end = torch.minimum(lens, p_end * ps)
+        for st, p0 in enumerate(range(p_begin, p_begin + pages_per_split,
+                                      spp)):
+            c = (s, st % 2)
+            pages = torch.arange(p0, p0 + spp)
+            loaded = pages[None, :] < p_end[:, None]               # [B, spp]
+            ids = torch.where(loaded, pt.long()[:, pages.clamp(
+                max=max_pages - 1)], 0)
+            k = kp[ids].float().permute(0, 2, 1, 3, 4).reshape(
+                B, Hkv, spp * ps, D)
+            v = vp[ids].float().permute(0, 2, 1, 3, 4).reshape(
+                B, Hkv, spp * ps, D)
+            slot = p0 * ps + torch.arange(spp * ps)
+            valid = slot[None, :] < end[:, None]                   # [B, n]
+            live = valid.any(-1)[:, None, None]                    # [B,1,1]
+            sc = torch.einsum("bgqd,bgtd->bgqt", qg, k) * sm_scale
+            sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+            m_new = torch.maximum(m[c], sc.amax(-1))
+            p = torch.where(torch.isneginf(sc), 0.0,
+                            torch.exp(sc - m_new[..., None]))
+            corr = torch.where(torch.isneginf(m[c]), 0.0,
+                               torch.exp(m[c] - m_new))
+            v = torch.where(valid[:, None, :, None], v, 0.0)
+            pv = torch.einsum("bgqt,bgtd->bgqd",
+                              p.to(torch.bfloat16).float(), v)
+            l[c] = torch.where(live, l[c] * corr + p.sum(-1), l[c])
+            acc[c] = torch.where(live[..., None],
+                                 acc[c] * corr[..., None] + pv, acc[c])
+            m[c] = torch.where(live, m_new, m[c])
+    # consumer 1's state into consumer 0's, per split
+    M2 = m.amax(1)
+    w2 = torch.where(torch.isneginf(m), 0.0, torch.exp(
+        m - torch.where(torch.isneginf(M2), 0.0, M2)[:, None]))
+    m, l = M2, (w2 * l).sum(1)
+    acc = (w2[..., None] * acc).sum(1)
+    chunk = -(-S // 4)
+    parts = []
+    for w in range(4):
+        sl = slice(min(w * chunk, S), min(w * chunk + chunk, S))
+        mw, lw, aw = m[sl], l[sl], acc[sl]
+        Mw = mw.amax(0) if mw.shape[0] else torch.full(m.shape[1:],
+                                                       float("-inf"))
+        wt = torch.where(torch.isneginf(mw), 0.0, torch.exp(
+            mw - torch.where(torch.isneginf(Mw), 0.0, Mw)))
+        parts.append((Mw, (wt * lw).sum(0), (wt[..., None] * aw).sum(0)))
+    M = torch.stack([p[0] for p in parts]).amax(0)
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for Mw, dw, nw in parts:
+        x = torch.where(torch.isneginf(Mw), 0.0, torch.exp(
+            Mw - torch.where(torch.isneginf(M), 0.0, M)))
+        num = num + x[..., None] * nw
+        den = den + x * dw
+    o = num / den.clamp_min(1e-30)[..., None]
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+# geometries like the chip's batches A (Hq 32, Hkv 8, D 128, pages of 16)
+# and C (bench_llm.py's widths: Hq 16, Hkv 8, D 64, pages of 32), cut to a
+# table the interpret-mode kernel walks in seconds; lengths 0, 1 and at
+# the page, stage and split edges
+PLAN_GEOMETRIES = {
+    "A": (11, 32, 8, 128, 16, [1, 15, 16, 17, 127, 128, 129, 300, 512], 32),
+    "C": (12, 16, 8, 64, 32, [1, 31, 32, 33, 128, 129, 300, 500, 512], 16),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_interpret(name):
+    args = _batch(*PLAN_GEOMETRIES[name])
+    D = args[0].shape[-1]
+    return np.asarray(jnp.asarray(jpa._paged_attention_pallas(
+        *_j(args, "bfloat16"), D ** -0.5, interpret=True), jnp.float32))
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_GEOMETRIES))
+def test_split_reference_at_the_plans_split_matches_interpret_kernel(name):
+    args = _batch(*PLAN_GEOMETRIES[name])
+    q, kp, vp, pt, sl = _t(args, "bfloat16")
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = kp.shape
+    plan = tpa.decode_plan(B, Hq, Hkv, pt.shape[1], ps)
+    assert plan.splits > 1, plan      # the merge runs
+    got = tpa._paged_decode_reference(q, kp, vp, pt, sl, D ** -0.5,
+                                      plan.pages_per_split)
+    assert_rows_close(got, _plan_interpret(name), "bfloat16")
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_GEOMETRIES))
+@pytest.mark.parametrize("pps", ["plan", 1, 3])
+def test_ring_walk_emulation_matches_split_reference_and_interpret(name,
+                                                                   pps):
+    args = _batch(*PLAN_GEOMETRIES[name])
+    q, kp, vp, pt, sl = _t(args, "bfloat16")
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = kp.shape
+    if pps == "plan":
+        pps = tpa.decode_plan(B, Hq, Hkv, pt.shape[1], ps).pages_per_split
+    scale = D ** -0.5
+    got = _ring_emulation(q, kp, vp, pt, sl, scale, pps)
+    assert got.dtype == torch.bfloat16
+    assert_rows_close(got, tpa._paged_decode_reference(
+        q, kp, vp, pt, sl, scale, pps), "bfloat16")
+    assert_rows_close(got, _plan_interpret(name), "bfloat16")
+    assert_rows_close(got, tpa.paged_attention_reference(q, kp, vp, pt, sl),
+                      "bfloat16")
+    # a length-0 row gives exactly 0, the others as before
+    sl0 = sl.clone()
+    sl0[0] = 0
+    got0 = _ring_emulation(q, kp, vp, pt, sl0, scale, pps)
+    assert bool((got0[0] == 0).all()) and torch.equal(got0[1:], got[1:])
