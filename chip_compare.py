@@ -1,13 +1,31 @@
 #!/usr/bin/env python3
 """Comparisons on one NVIDIA GPU that ``chip_smoke.py`` does not make.
 
-    python3 chip_compare.py train PARENT_DIR
+    python3 chip_compare.py train PARENT_DIR [OPTIMIZER]
         phase 7 of chip_smoke.py (the 1.23B training step, 2 warm-up and
         5 timed steps, then the step profiler and one step under
         torch.profiler) for the checkout in PARENT_DIR and for this one,
         in turns: parent, this, this, parent, each in its own process
-        after both have built their kernels. Make the parent's checkout
-        with ``git archive <commit> | tar -x -C PARENT_DIR``.
+        after both have built their kernels; this checkout's runs train
+        with OPTIMIZER ("adafactor", the default, or "adamw"), the
+        parent's with its own phase 7's optimizer. Make the parent's
+        checkout with ``git archive <commit> | tar -x -C PARENT_DIR``.
+    python3 chip_compare.py serve PARENT_DIR
+        phase 4 of chip_smoke.py (LLMServer at Llama-3-8B widths: the
+        first wave of four requests, then the prefix-hit request alone and
+        under the profiler) for the checkout in PARENT_DIR and for this
+        one, in turns (parent, this, this, parent), each in its own
+        process after both have built their kernels; prints each run's
+        wall times and device busy time.
+    python3 chip_compare.py telemetry
+        the serving telemetry's host cost at Llama-3-8B widths (phase 4's
+        engine: all 32 layers, bf16), in one process on one engine:
+        rounds of 8 requests (64 prompt tokens, 32 new tokens each) with
+        the telemetry on (as shipped) and off (no flight recorder, no
+        step-program signature, no gauge update), in turns (on, off, off,
+        on) six times; then rounds with each telemetry function wrapped
+        in a timer (calls and host time per dispatch), and one log record
+        of the server.
     python3 chip_compare.py decode PARENT_DIR
         the decode op (``paged_attention``, bf16 pools) on chip_smoke.py's
         batches A, B and C for the checkout in PARENT_DIR and for this
@@ -70,7 +88,7 @@ sys.path.insert(0, '.')
 import chip_smoke
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-chip_smoke.phase_train(torch.device('cuda'))
+chip_smoke.phase_train(torch.device('cuda'){args})
 """
 
 
@@ -83,16 +101,146 @@ def _build_both(parent: Path) -> None:
     assert all(p.wait() == 0 for p in procs), "a build failed"
 
 
-def compare_train(parent: Path) -> None:
+def compare_train(parent: Path, optimizer: str) -> None:
     _build_both(parent)
     for tag, d in (("parent", parent), ("this", REPO), ("this", REPO),
                    ("parent", parent)):
-        out = subprocess.run([sys.executable, "-c", TRAIN], cwd=d,
+        args = "" if d == parent else f", optimizer={optimizer!r}"
+        out = subprocess.run([sys.executable, "-c",
+                              TRAIN.format(args=args)], cwd=d,
                              capture_output=True, text=True, check=True)
         for line in out.stdout.splitlines():
             if line.startswith("training: step") or "profile_train" in line \
                     or "under the profiler" in line:
                 print(f"{tag}: {line[:400]}", flush=True)
+
+
+SERVE = """
+import sys, torch
+sys.path.insert(0, '.')
+import chip_smoke
+chip_smoke.phase_main_path()
+"""
+
+
+def compare_serve(parent: Path) -> None:
+    _build_both(parent)
+    for tag, d in (("parent", parent), ("this", REPO), ("this", REPO),
+                   ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", SERVE], cwd=d,
+                             capture_output=True, text=True, check=True)
+        for line in out.stdout.splitlines():
+            if "first wave" in line or "stream request" in line \
+                    or "prefix-hit request alone" in line:
+                print(f"{tag}: {line[:300]}", flush=True)
+
+
+# ------------------------------------------------------------ telemetry
+
+
+def compare_telemetry(cycles: int = 6) -> None:
+    import collections
+
+    import chip_smoke as cs
+    from ray_tpu_torch.llm import engine as E
+    from ray_tpu_torch.llm.request_log import FlightRecorder, RequestRecord
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util import log_plane
+
+    _kernels.build()
+    cfg = model_config_from_dict(cs.MAIN_MODEL)
+    eng = E.InferenceEngine(cfg, **cs.MAIN_ENGINE)
+    recorder = eng.request_log
+    note_program = E._SingleChipFns.__dict__["_note_program"]
+    uniq = iter(range(1, 1 << 20))
+
+    def set_on(on):
+        eng.request_log = recorder if on else None
+        E._SingleChipFns._note_program = note_program if on else \
+            staticmethod(lambda fn, static, args: None)
+        if on:
+            eng.__dict__.pop("_update_metrics", None)
+        else:
+            eng._update_metrics = lambda force=False: None
+
+    def one_round():
+        for _ in range(8):
+            eng.add_request(cs.bench_prompt(next(uniq), cfg.vocab_size, 64),
+                            32)
+        d0 = eng.stats["ragged_dispatches"] + eng.stats["decode_dispatches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.has_work():
+            eng.step()
+        wall = time.perf_counter() - t0
+        return wall, (eng.stats["ragged_dispatches"]
+                      + eng.stats["decode_dispatches"] - d0)
+
+    for on in (True, False):                    # warm-up, one of each
+        set_on(on)
+        one_round()
+    walls = {True: [], False: []}
+    for c in range(cycles):
+        for on in (True, False, False, True):
+            set_on(on)
+            wall, n = one_round()
+            walls[on].append(wall)
+            print(f"telemetry {'on ' if on else 'off'}: round {c}: "
+                  f"{wall * 1e3:.3f} ms, {n} dispatches, "
+                  f"{wall / n * 1e3:.3f} ms per dispatch", flush=True)
+    pairs = [a - b for a, b in zip(walls[True], walls[False])]
+    mean = sum(pairs) / len(pairs)
+    sd = (sum((x - mean) ** 2 for x in pairs) / (len(pairs) - 1)) ** 0.5
+    base = sum(walls[False]) / len(walls[False])
+    print(f"telemetry: on - off per round {mean * 1e3:+.3f} ms "
+          f"({mean / base:+.3%} of {base * 1e3:.3f} ms), sd of the "
+          f"{len(pairs)} paired differences {sd * 1e3:.3f} ms", flush=True)
+
+    # each telemetry function timed on its own, telemetry on
+    set_on(True)
+    acc = collections.defaultdict(lambda: [0, 0.0])
+
+    def timed(owner, name):
+        orig = owner.__dict__[name]
+        fn = orig.__func__ if isinstance(orig, staticmethod) else orig
+
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                a = acc[name]
+                a[0] += 1
+                a[1] += time.perf_counter() - t
+        setattr(owner, name, staticmethod(wrapper)
+                if isinstance(orig, staticmethod) else wrapper)
+
+    timed(E._SingleChipFns, "_note_program")
+    timed(E.InferenceEngine, "_update_metrics")
+    for name in ("start", "finish"):
+        timed(FlightRecorder, name)
+    for name in ("note_admit", "note_chunk", "note_stall", "note_preempt",
+                 "note_first", "note_decode"):
+        timed(RequestRecord, name)
+    n_disp = 0
+    for _ in range(4):
+        n_disp += one_round()[1]
+    total = sum(t for _, t in acc.values())
+    for name, (n, t) in sorted(acc.items()):
+        print(f"telemetry timed: {name}: {n} calls, "
+              f"{t / n * 1e6:.3f} us each, {t / n_disp * 1e6:.3f} us per "
+              f"dispatch", flush=True)
+    print(f"telemetry timed: all hooks {total / n_disp * 1e6:.3f} us per "
+          f"dispatch over {n_disp} dispatches", flush=True)
+    logger = log_plane.ensure_started(role="llm")
+    with log_plane.request_context("probe"):
+        t = time.perf_counter()
+        for i in range(10_000):
+            logger.info("llm request finished", tokens=i)
+        rec_us = (time.perf_counter() - t) / 10_000 * 1e6
+    print(f"telemetry timed: one server log record {rec_us:.3f} us",
+          flush=True)
 
 
 # ------------------------------------------------------------- decode op
@@ -470,8 +618,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip(), flush=True)
-    if sys.argv[1:2] == ["train"] and len(sys.argv) == 3:
-        compare_train(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["train"] and len(sys.argv) in (3, 4) \
+            and sys.argv[3:] in ([], ["adafactor"], ["adamw"]):
+        compare_train(Path(sys.argv[2]).resolve(),
+                      (sys.argv[3:] or ["adafactor"])[0])
+    elif sys.argv[1:2] == ["serve"] and len(sys.argv) == 3:
+        compare_serve(Path(sys.argv[2]).resolve())
+    elif sys.argv[1:] == ["telemetry"]:
+        compare_telemetry()
     elif sys.argv[1:2] == ["decode"] and len(sys.argv) == 3:
         compare_decode(Path(sys.argv[2]).resolve())
     elif sys.argv[1:2] == ["flash"] and len(sys.argv) == 3:

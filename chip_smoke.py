@@ -22,23 +22,38 @@ result line is printed):
      split size), a planted fault that must fail on every row, a length-0
      row that must come back 0, two calls equal bit for bit, times beside
      the bound and SDPA, and the kernel at other split sizes;
- 3c. the decode op on the engine's own decode steps (Llama-3-8B widths,
-     2 layers, the main path's engine): on every decode-loop step it runs
-     beside the ragged kernel on the same live pools and must agree with
-     it; its launches, counted from 0, must be layers x decode steps;
   4. the main path: ``LLMServer`` at Llama-3-8B widths, all 32 layers,
      bf16, random weights from a seed, answering concurrent requests
      through ``__call__`` and ``stream`` (one prompt prefilled in chunks,
      one prefix-cache hit); every launch counter is set to 0 just before
-     and read just after, and must match the engine's step counts;
+     and read just after, and must match the engine's step counts. The
+     flight recorder is on (the default): each request's TTFT, TPOT and
+     end-to-end time from its record beside the external timer, held to
+     bench_llm.py's rule (|record - timer| <= max(5 ms, 15%)), and the
+     TTFT and end-to-end times also trailing the timer by 0 to 10 ms,
+     where the same times stamped at each dispatch's launch must trail it
+     by more (what a launch-time stamp would read); the engine
+     gauges after a forced update; the step programs dispatched (the
+     first engine of the process: at most 3); one request sent under an
+     ambient trace, whose log records must carry its request id and that
+     trace id, as its record does;
+ 3c. (run after phase 4, whose program count it would join) the decode op
+     on the engine's own decode steps (Llama-3-8B widths, 2 layers, the
+     main path's engine): on every decode-loop step it runs beside the
+     ragged kernel on the same live pools and must agree with it; its
+     launches, counted from 0, must be layers x decode steps;
   5. the engine against the model's full forward pass on the card: 8B
      widths, 2 layers, fp32, greedy tokens compared where the oracle's
      top-2 margin exceeds fp32 summation noise;
  5b. the JAX package's serving widths (bench_llm.py: dim 1024, 16 / 8
      heads, head dim 64, pages of 32): phase 3 on its batches, a server
      (2 layers, bf16) answering phase 4's requests with its launches
-     counted, and phase 5's oracle (fp32); phase 3b's batch C is the
-     decode op at these widths;
+     counted and phase 4's recorder checks, and phase 5's oracle (fp32);
+     phase 3b's batch C is the decode op at these widths; then
+     bench_llm.py's recorder A/B (8 requests x 64 tokens of decode wall
+     time, recorder off and on, printed), and ``LLMBatchPredictor`` over
+     8 rows (fp32), whose tokens and finish reasons must equal the
+     engine's ``generate`` on the same prompts;
   6. hold the three flash-attention kernels (forward, dq, dk/dv) against
      their plain versions at the training path's shape (B 8, H 24, L 2048,
      D 128, bf16; causal, non-causal, and causal with an lse cotangent),
@@ -52,13 +67,19 @@ result line is printed):
   7. the training main path: ``make_train_step`` over ``loss_fn`` at the
      JAX package's bench widths (vocab 32000, dim 3072, 8 layers, 24/12
      heads, ffn 12288: 1,230,818,304 parameters; flash attention, selective
-     remat), fp32 master weights from seed 0, bf16 compute, AdamW, B 8 x L
-     2048 tokens from seed 1: 2 warm-up and 5 timed steps on one batch, the
-     flash launch counters set to 0 just before and read just after; then
-     the step profiler's phases and the device's busy share of one step;
+     remat), fp32 master weights from seed 0, bf16 compute, ``Adafactor``
+     (bench.py's optax.adafactor(1e-3)), B 8 x L 2048 tokens from seed 1:
+     2 warm-up and 5 timed steps on one batch, the flash launch counters
+     set to 0 just before and read just after; then the step profiler's
+     phases and the gauges it sets, and the device's busy share of one
+     step; then AdamW (optax.adamw's defaults, the earlier optimizer), 2
+     warm-up and 3 timed steps on the same configuration, for comparison;
   8. training oracle on the card: bench widths, 2 layers, fp32, B 1 x L
      256: loss and every gradient with the flash kernels against plain
-     full attention.
+     full attention;
+  9. the optimizer on the card: three Adafactor steps on a small fp32
+     tree (factored and full second moments) against the same steps on
+     the CPU.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -726,15 +747,52 @@ def _prompt(seed, n, vocab):
     return torch.randint(0, vocab, (n,), generator=g).tolist()
 
 
-def phase_main_path(model_config=None, engine_config=None):
-    """LLMServer end to end; returns the engine's stats and launches."""
+def agrees(record_s, timer_s):
+    """bench_llm.py's rule for a flight-recorder time against an external
+    timer: |record - timer| <= max(5 ms, 15% of the timer)."""
+    return abs(record_s - timer_s) <= max(0.005, 0.15 * timer_s)
+
+
+#: how far a caller's timer may run past the record's first-token and
+#: finish times: the record starts after the timer and stops where the
+#: tokens reach the host, before the caller's thread takes them (the
+#: largest lag seen was 2.2 ms; the interpreter's switch interval, 5 ms,
+#: bounds a woken thread's wait for the GIL). A stamp taken at the
+#: dispatch's launch would read short by the whole dispatch.
+READBACK_LAG_S = 0.010
+
+
+def _stamp_launches(fns, stamps):
+    """Append the host clock to ``stamps`` as each step dispatch of the
+    engine's step functions ``fns`` is launched."""
+    for name in ("ragged_step", "decode_loop"):
+        def stamped(*args, _inner=getattr(fns, name), **kwargs):
+            stamps.append(time.monotonic())
+            return _inner(*args, **kwargs)
+        setattr(fns, name, stamped)
+
+
+def phase_main_path(model_config=None, engine_config=None,
+                    launch_stamp_fails=True):
+    """LLMServer end to end; returns the engine's stats, the launches,
+    the launches expected, and the step programs dispatched in this
+    process before and after the phase. The recorder's first-token and
+    finish times must trail the caller's timers by 0 to READBACK_LAG_S;
+    with ``launch_stamp_fails`` the same times read at each dispatch's
+    launch must trail them by more (where a dispatch outlasts the lag,
+    so the check tells the two stamps apart)."""
     from ray_tpu_torch.llm.serve_llm import LLMServer
     from ray_tpu_torch.ops import paged_attention as tpa
+    from ray_tpu_torch.util import log_plane, metrics, trace_context
 
     t0 = time.monotonic()
     srv = LLMServer(model_config or MAIN_MODEL, engine_config or MAIN_ENGINE)
     eng = srv.engine
     cfg = eng.cfg
+    programs_before = eng.compiled_step_programs()
+    assert eng.request_log is not None, "the recorder is on by default"
+    launch_ts = []
+    _stamp_launches(eng._fns, launch_ts)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     kv_bytes = sum(t.numel() * t.element_size() for t in eng.kv.values())
@@ -752,24 +810,38 @@ def phase_main_path(model_config=None, engine_config=None):
             ("call", _prompt(4, 20, V), 32),
             ("stream", _prompt(5, 9, V), 32)]
     results = [None] * len(reqs)
-    ttft = {}
+    # request -> (rid, external TTFT, TPOT and end-to-end seconds; the
+    # first two only where a stream shows when its tokens arrive)
+    timers = {}
+    trace_id = trace_context.new_trace_id()
+    traced = 1                  # the request sent under an ambient trace
 
     def run(i, kind, prompt, max_tokens):
-        t_sub = time.monotonic()
-        if kind == "call":
-            results[i] = srv({"prompt_ids": prompt,
-                              "max_tokens": max_tokens})["token_ids"]
-            return
-        toks, stamps = [], []
-        for item in srv.stream({"prompt_ids": prompt,
-                                "max_tokens": max_tokens}):
-            if item.get("done"):
-                assert item["token_ids"] == toks
-                break
-            toks += item["token_ids"]
-            stamps.append(time.monotonic())
-        ttft[i] = (stamps[0] - t_sub, len(toks), stamps[-1] - stamps[0])
-        results[i] = toks
+        ctx = trace_context.activate(trace_id, trace_context.new_span_id()) \
+            if i == traced else None
+        try:
+            t_sub = time.monotonic()
+            if kind == "call":
+                out = srv({"prompt_ids": prompt, "max_tokens": max_tokens})
+                results[i] = out["token_ids"]
+                timers[i] = (out["request_id"], None, None,
+                             time.monotonic() - t_sub)
+                return
+            toks, stamps = [], []
+            for item in srv.stream({"prompt_ids": prompt,
+                                    "max_tokens": max_tokens}):
+                if item.get("done"):
+                    assert item["token_ids"] == toks
+                    break
+                toks += item["token_ids"]
+                stamps.append(time.monotonic())
+            timers[i] = (item["request_id"], stamps[0] - t_sub,
+                         (stamps[-1] - stamps[0]) / (len(toks) - 1),
+                         time.monotonic() - t_sub)
+            results[i] = toks
+        finally:
+            if ctx is not None:
+                trace_context.deactivate(ctx)
 
     for name in tpa.launch_counts:
         tpa.launch_counts[name] = 0
@@ -789,8 +861,11 @@ def phase_main_path(model_config=None, engine_config=None):
         hit_req = {"prompt_ids": prefix + _prompt(6, 30, V),
                    "max_tokens": 16}
         t_hit = time.monotonic()
-        hit = srv(hit_req)["token_ids"]
+        hit_out = srv(hit_req)
+        hit = hit_out["token_ids"]
         hit_ms = (time.monotonic() - t_hit) * 1e3
+        timers[len(reqs)] = (hit_out["request_id"], None, None,
+                             hit_ms / 1e3)
         _, busy = profile_device(lambda: srv(hit_req), eng.device, hit_ms,
                                  focus=("ragged",))
         srv.check_health()
@@ -798,6 +873,12 @@ def phase_main_path(model_config=None, engine_config=None):
         srv.shutdown()
     launches = dict(tpa.launch_counts)
     stats = srv.stats()
+    programs = eng.compiled_step_programs()
+    eng._update_metrics(force=True)
+    gauges = {name: m["values"][()] for name, m in metrics.snapshot().items()
+              if m["type"] == "gauge" and name.startswith("llm_")}
+    records = {d["rid"]: d for d in srv.request_records()}
+    logs = log_plane.get_global().export()["records"]
     for (kind, prompt, max_tokens), toks in zip(reqs, results):
         assert toks is not None and len(toks) == max_tokens, (kind, toks)
         assert all(0 <= t < V for t in toks)
@@ -811,16 +892,71 @@ def phase_main_path(model_config=None, engine_config=None):
     log(f"main path: {len(reqs) + 2} requests, {n_tok} tokens in the "
         f"first wave in {wave_s:.2f} s ({n_tok / wave_s:.1f} tokens/s), "
         f"stats {json.dumps(stats)}")
-    for i, (t_first, n, span) in sorted(ttft.items()):
-        rate = (n - 1) / span if span > 0 else float("nan")
-        log(f"main path: stream request {i} ({len(reqs[i][1])} prompt "
-            f"tokens): TTFT {t_first * 1e3:.1f} ms, decode "
-            f"{rate:.1f} tokens/s over {n} tokens")
+    for i, (_, t_first, tpot, _) in sorted(timers.items()):
+        if t_first is not None:
+            log(f"main path: stream request {i} ({len(reqs[i][1])} prompt "
+                f"tokens): TTFT {t_first * 1e3:.1f} ms, decode "
+                f"{1 / tpot:.1f} tokens/s over {len(results[i])} tokens")
     log(f"main path: prefix-hit request alone: {hit_ms:.1f} ms; the same "
         f"request under the profiler: {busy}")
     log(f"main path: launches {launches}, expected ragged_paged_attention "
         f"{expected}")
-    return stats, launches, expected
+    # the flight recorder against the external timers (bench_llm.py's
+    # agreement rule): TTFT and TPOT where a stream shows when its tokens
+    # arrive, end to end for every request; TTFT and e2e also against the
+    # readback lag, beside what a stamp at the dispatch's launch would read
+    for i, (rid, t_first, tpot, e2e) in sorted(timers.items()):
+        rec = records[rid]
+        t0 = eng.request_log.get(rid).t0
+
+        def at_launch(off):
+            return max(s for s in launch_ts if s <= t0 + off) - t0
+
+        pairs = [("TTFT", rec["ttft"], t_first), ("TPOT", rec["tpot"], tpot),
+                 ("e2e", rec["e2e"], e2e)]
+        n_prompt = len(reqs[i][1]) if i < len(reqs) else len(
+            hit_req["prompt_ids"])
+        log(f"main path: request {i} ({n_prompt} prompt tokens, "
+            f"{rec['n_generated']} generated, cached {rec['cached_tokens']}, "
+            f"{len(rec['chunks'])} chunks): " + ", ".join(
+                f"{name} record {r * 1e3:.2f} ms"
+                + ("" if t is None else f" vs timer {t * 1e3:.2f} ms")
+                + ("" if t is None or name == "TPOT" else
+                   f" (stamped at launch {at_launch(r) * 1e3:.2f} ms)")
+                for name, r, t in pairs if r is not None))
+        for name, r, t in pairs:
+            if t is None:
+                continue
+            assert agrees(r, t), \
+                f"request {i}: {name} record {r} s vs timer {t} s"
+            if name == "TPOT":
+                continue
+            assert 0 <= t - r <= READBACK_LAG_S, \
+                f"request {i}: {name} timer {t} s - record {r} s"
+            if launch_stamp_fails:
+                assert t - at_launch(r) > READBACK_LAG_S, \
+                    f"request {i}: {name} stamped at launch " \
+                    f"{at_launch(r)} s vs timer {t} s: the lag check " \
+                    f"cannot tell it from the readback"
+    log(f"main path: gauges after _update_metrics(force=True): "
+        f"{json.dumps(gauges)}")
+    log(f"main path: step programs dispatched in this process: "
+        f"{programs_before} before the phase, {programs} after it")
+    assert programs - programs_before <= 3, (programs_before, programs)
+    assert gauges["llm_compiled_step_programs"] == programs, gauges
+    # the traced request's log records carry its request id and the
+    # ambient trace id, as its flight-recorder record does
+    rid = timers[traced][0]
+    mine = [r for r in logs if r["request_id"] == rid]
+    log(f"main path: log records of request {traced} ({rid}): "
+        f"{[(r['level'], r['msg'], r['trace_id']) for r in mine]}")
+    assert len(mine) == 2 and all(r["trace_id"] == trace_id for r in mine)
+    assert records[rid]["trace_id"] == trace_id
+    for j, (other, _, _, _) in timers.items():
+        if j != traced:
+            assert [r["trace_id"] for r in logs
+                    if r["request_id"] == other] == ["", ""], j
+    return stats, launches, expected, (programs_before, programs)
 
 
 def profile_device(fn, device, unprofiled_ms, focus=()):
@@ -1119,6 +1255,85 @@ def phase_flash_lengths(device):
     return worst
 
 
+# ------------------------------- phase 5b: recorder A/B, batch predictor
+
+
+def bench_prompt(j, vocab, n=128):
+    """bench_llm.py's mk_prompt: a distinct prompt per j."""
+    return [(7 * i + 3 + 131 * j) % vocab for i in range(n)]
+
+
+def phase_recorder_ab(model_config=None, engine_config=None):
+    """bench_llm.py's recorder A/B: 8 requests x 64 new tokens of decode
+    wall time on two fresh engines sharing one set of weights, recorder
+    off then on, and the raw cost of one ``note_decode``. One noisy run
+    of each, so printed, not asserted."""
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    from ray_tpu_torch.llm.request_log import RequestRecord
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+
+    cfg = model_config_from_dict(model_config or BENCH_MODEL)
+    kw = dict(engine_config or BENCH_ENGINE)
+    params = InferenceEngine(cfg, **kw).params
+    uniq = iter(range(1, 10_000))
+
+    def timed_run(recorder_on):
+        e = InferenceEngine(cfg, params, request_log=recorder_on, **kw)
+        for _ in range(8):
+            e.add_request(bench_prompt(next(uniq), cfg.vocab_size), 64)
+        e.step()                       # admit + first prefill rows
+        t0 = time.perf_counter()
+        while e.has_work():
+            e.step()
+        return time.perf_counter() - t0
+
+    t_off = timed_run(False)
+    t_on = timed_run(True)
+    probe = RequestRecord("probe", 1, 1 << 20)
+    t0 = time.perf_counter()
+    for i in range(100_000):
+        probe.note_decode(t0 + i * 1e-6, 1)
+    event_ns = (time.perf_counter() - t0) / 100_000 * 1e9
+    log(f"recorder A/B (bench widths, {cfg.n_layers} layers, 8 requests x "
+        f"64 tokens): decode wall time off {t_off * 1e3:.1f} ms, on "
+        f"{t_on * 1e3:.1f} ms, overhead {t_on / t_off - 1.0:+.2%} (one run "
+        f"each); one note_decode {event_ns:.0f} ns on the host")
+
+
+def phase_batch_predictor(model_config=None, engine_config=None):
+    """``LLMBatchPredictor`` over 8 rows at the bench widths against the
+    engine's ``generate`` on the same prompts, one at a time, on the same
+    weights: tokens and finish reasons equal. fp32: a row's logits then
+    differ between a batch of 8 and a request alone by summation order
+    only (the ragged kernel splits a decode row by the batch's hints),
+    far below the top-2 margins of greedy decoding."""
+    from ray_tpu_torch.llm.batch import LLMBatchPredictor
+    from ray_tpu_torch.llm.engine import InferenceEngine
+
+    model_config = model_config or {**BENCH_MODEL, "dtype": "float32"}
+    engine_config = engine_config or BENCH_ENGINE
+    pred = LLMBatchPredictor(model_config, engine_config, max_new_tokens=32)
+    cfg = pred.engine.cfg
+    rows = [{"prompt": _prompt(20 + j, n, cfg.vocab_size), "id": j}
+            for j, n in enumerate((5, 17, 40, 64, 100, 129, 200, 300))]
+    t0 = time.monotonic()
+    out = pred(rows)
+    batch_s = time.monotonic() - t0
+    alone = InferenceEngine(cfg, pred.engine.params, **engine_config)
+    for row, got in zip(rows, out):
+        want = alone.generate(row["prompt"], 32)
+        reason = alone.request_log.snapshot()[-1]["finish_reason"]
+        assert got["id"] == row["id"] and got["generated"] == want, \
+            (row["id"], got["generated"], want)
+        assert got["finish_reason"] == reason, (got["finish_reason"], reason)
+        assert got["generated_text"] == pred.tokenizer.decode(want)
+    log(f"LLMBatchPredictor (bench widths, {cfg.n_layers} layers, "
+        f"{cfg.dtype}): 8 rows of 5-300 prompt tokens x 32 new in "
+        f"{batch_s:.2f} s, {pred.engine.stats['ragged_dispatches']} ragged "
+        f"steps; every row's tokens and finish reason "
+        f"({sorted({r['finish_reason'] for r in out})}) equal generate's")
+
+
 # ------------------------------------------- phase 7: training main path
 
 TRAIN_CONFIG = dict(vocab_size=32000, dim=3072, n_layers=8, n_heads=24,
@@ -1128,14 +1343,28 @@ TRAIN_BATCH = (8, 2048)             # B, L
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 
 
-def phase_train(device, config=None, batch=TRAIN_BATCH):
+def make_optimizer(name):
+    """bench.py trains with optax.adafactor(1e-3); "adamw" is
+    optax.adamw(1e-3)'s defaults, which this phase trained with before
+    Adafactor was ported."""
+    from ray_tpu_torch.train import Adafactor
+    return {"adafactor": functools.partial(Adafactor, lr=1e-3),
+            "adamw": functools.partial(torch.optim.AdamW, lr=1e-3,
+                                       weight_decay=1e-4)}[name]
+
+
+def phase_train(device, config=None, batch=TRAIN_BATCH,
+                optimizer="adafactor", steps=TRAIN_STEPS, profile=True):
     """make_train_step at the bench widths; returns the flash launches
-    counted over the warm-up and timed steps, and the steps run."""
+    counted over the warm-up and timed steps, the steps run, and the
+    layers. With ``profile``, then the step profiler (its gauges printed)
+    and one step under torch.profiler."""
     from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                             init_params, loss_fn,
                                             num_params)
     from ray_tpu_torch.ops import flash_attention as tfa
     from ray_tpu_torch.train import make_train_step, profile_train_step
+    from ray_tpu_torch.util import metrics as metrics_mod
 
     cfg = LlamaConfig(**(config or TRAIN_CONFIG))
     B, L = batch
@@ -1145,53 +1374,76 @@ def phase_train(device, config=None, batch=TRAIN_BATCH):
     tokens = torch.randint(0, cfg.vocab_size, (B, L), generator=g,
                            device=device)
     loss = functools.partial(loss_fn, cfg=cfg)
-    optimizer = functools.partial(torch.optim.AdamW, lr=1e-3,
-                                  weight_decay=1e-4)
+    opt_name, optimizer = optimizer, make_optimizer(optimizer)
     init_fn, step_fn = make_train_step(loss, optimizer)
     opt = init_fn(params)
     cuda = device.type == "cuda"
     log(f"training: {num_params(cfg)} parameters, {cfg.n_layers} layers "
         f"dim {cfg.dim}, attention {cfg.attention}, remat "
-        f"{cfg.remat_policy}, B {B} L {L}, set-up "
-        f"{time.monotonic() - t0:.1f} s")
+        f"{cfg.remat_policy}, B {B} L {L}, {opt_name} "
+        f"{optimizer.keywords}, set-up {time.monotonic() - t0:.1f} s")
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     for name in tfa.launch_counts:
         tfa.launch_counts[name] = 0
     metrics, times = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+    for i in range(TRAIN_WARMUP + steps):
         t_step = time.monotonic()
         params, opt, m = step_fn(params, opt, tokens)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))  # syncs
         times.append(time.monotonic() - t_step)
     launches = dict(tfa.launch_counts)
-    steps = TRAIN_WARMUP + TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     losses = [x for x, _ in metrics]
     assert all(math.isfinite(x) and math.isfinite(n)
                for x, n in metrics), metrics
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    step_s = sum(times[TRAIN_WARMUP:]) / TRAIN_STEPS
+    step_s = sum(times[TRAIN_WARMUP:]) / steps
     tok_s = B * L / step_s
     mfu = tok_s * flops_per_token(cfg, L) / BF16_FLOPS
-    log(f"training: losses {[round(x, 4) for x in losses]}, grad norms "
-        f"{[round(n, 4) for _, n in metrics]}")
-    log(f"training: step {step_s * 1e3:.1f} ms (mean of {TRAIN_STEPS} "
-        f"after {TRAIN_WARMUP} warm-up), {tok_s:.0f} tokens/s, MFU "
+    state_bytes = sum(t.numel() * t.element_size()
+                      for s in opt.state.values() for t in s.values()
+                      if isinstance(t, torch.Tensor)
+                      and t.device.type == device.type)
+    log(f"training ({opt_name}): losses {[round(x, 4) for x in losses]}, "
+        f"grad norms {[round(n, 4) for _, n in metrics]}")
+    log(f"training: step {step_s * 1e3:.1f} ms (mean of {steps} after "
+        f"{TRAIN_WARMUP} warm-up, {opt_name}), {tok_s:.0f} tokens/s, MFU "
         f"{mfu:.1%} of 989 TFLOP/s (H100 SXM dense bf16 peak), peak memory "
-        f"{peak} bytes (torch.cuda.max_memory_allocated)")
-    log(f"training: launches {launches} over {steps} steps")
-    bd = profile_train_step(loss, optimizer, params, opt, tokens, steps=3,
-                            warmup=1)
-    log(f"training: profile_train_step step {bd.step_time_s * 1e3:.1f} ms, "
-        f"first-step excess {bd.compile_time_s * 1e3:.1f} ms, phases ms "
-        f"{json.dumps({k: round(x, 2) for k, x in bd.phase_ms().items()})}")
-    _, busy = profile_device(lambda: step_fn(params, opt, tokens), device,
-                             step_s * 1e3, focus=("flash_fwd", "flash_dq",
-                                                  "flash_dkv"))
-    log(f"training: one step under the profiler: {busy}")
-    return launches, steps, cfg.n_layers
+        f"{peak} bytes (torch.cuda.max_memory_allocated), optimizer state "
+        f"{state_bytes} bytes on the card")
+    log(f"training: launches {launches} over {TRAIN_WARMUP + steps} steps")
+    if profile:
+        bd = profile_train_step(loss, optimizer, params, opt, tokens,
+                                steps=3, warmup=1, emit=True)
+        log(f"training: profile_train_step step "
+            f"{bd.step_time_s * 1e3:.1f} ms, first-step excess "
+            f"{bd.compile_time_s * 1e3:.1f} ms, phases ms "
+            f"{json.dumps({k: round(x, 2) for k, x in bd.phase_ms().items()})}")
+        snap = metrics_mod.snapshot()
+        gauges = {f"{name}{dict(zip(snap[name]['tag_keys'], key))}": v
+                  for name in ("train_step_time_s", "train_phase_time_s")
+                  for key, v in snap[name]["values"].items()}
+        log(f"training: gauges set by profile_train_step(emit=True): "
+            f"{json.dumps(gauges)}")
+        assert gauges["train_step_time_s{}"] == bd.step_time_s, gauges
+        _, busy = profile_device(lambda: step_fn(params, opt, tokens),
+                                 device, step_s * 1e3,
+                                 focus=("flash_fwd", "flash_dq",
+                                        "flash_dkv"))
+        log(f"training: one step under the profiler: {busy}")
+    return launches, TRAIN_WARMUP + steps, cfg.n_layers
+
+
+def expected_flash_launches(n_layers, steps):
+    """Per layer per step: the forward twice (with the remat recompute),
+    dq and dk/dv once; the plain versions never on CUDA tensors."""
+    return {"flash_attention_fwd": 2 * n_layers * steps,
+            "flash_attention_dq": n_layers * steps,
+            "flash_attention_dkv": n_layers * steps,
+            "flash_attention_fwd_reference_cuda": 0,
+            "flash_attention_bwd_reference_cuda": 0}
 
 
 # --------------------------------------------- phase 8: training oracle
@@ -1235,6 +1487,71 @@ def phase_train_oracle(device, config=None, batch=(1, 256)):
         f"{worst:.2e} of the leaf's largest value")
 
 
+# ------------------------------------------- phase 9: optimizer on the card
+
+# leaves whose second-largest dim is at least 128 factor their second
+# moments (stacked, transposed, square), the others keep a full one; one
+# parameter's RMS sits under the 1e-3 floor of its scale
+ADAFACTOR_TREE = {"stacked": ((4, 256, 512), 0.05),
+                  "transposed": ((512, 128), 0.05),
+                  "square": ((2, 256, 256), 0.05),
+                  "below_128": ((127, 300), 0.05),
+                  "norms": ((4, 256), 1.0),
+                  "tiny_scale": ((128, 160), 1e-5)}
+# fp32 on both devices, the same gradients: the means of g^2 and the RMS
+# of the update and of the parameter differ in summation order only
+# (tests/test_torch_adafactor.py holds the CPU against optax to the same)
+ADAFACTOR_PARAM_RTOL = 1e-6
+ADAFACTOR_STATE_RTOL = 1e-5
+
+
+def phase_optimizer(device, steps=3):
+    """Adafactor steps on the card against the same steps on the CPU, on
+    a small fp32 tree from a seed, compared after each step: parameters
+    within ADAFACTOR_PARAM_RTOL of each leaf's largest value, second
+    moments within ADAFACTOR_STATE_RTOL of theirs."""
+    from ray_tpu_torch.train import Adafactor
+    from ray_tpu_torch.train.optim import factored_dims
+
+    g = torch.Generator().manual_seed(5)
+    names = sorted(ADAFACTOR_TREE)
+    init = {k: scale * torch.randn(shape, generator=g)
+            for k, (shape, scale) in ADAFACTOR_TREE.items()}
+    grads = [{k: torch.randn(ADAFACTOR_TREE[k][0], generator=g)
+              for k in names} for _ in range(steps)]
+    runs = []                   # (parameters, optimizer): CPU, card
+    for dev in (torch.device("cpu"), device):
+        params = [init[k].to(dev, copy=True) for k in names]
+        runs.append((params, Adafactor(params, lr=1e-3)))
+    (cpu_p, cpu_opt), (dev_p, dev_opt) = runs
+    worst = {"param": 0.0, "state": 0.0}
+    for step in range(steps):
+        for params, opt in runs:
+            for p, k in zip(params, names):
+                p.grad = grads[step][k].to(p.device)
+            opt.step()
+        for a, b in zip(dev_p, cpu_p):
+            r = float((a.cpu() - b).abs().max() / b.abs().max())
+            worst["param"] = max(worst["param"], r / ADAFACTOR_PARAM_RTOL)
+            for key, sb in cpu_opt.state[b].items():
+                if key == "step":
+                    assert float(dev_opt.state[a][key]) == float(sb) \
+                        == step + 1
+                    continue
+                sa = dev_opt.state[a][key].cpu()
+                r = float((sa - sb).abs().max() / sb.abs().max())
+                worst["state"] = max(worst["state"],
+                                     r / ADAFACTOR_STATE_RTOL)
+    kinds = {k: "factored" if factored_dims(ADAFACTOR_TREE[k][0])
+             else "full" for k in names}
+    log(f"Adafactor on the card vs the CPU ({steps} steps, fp32, leaves "
+        f"{json.dumps(kinds)}): worst parameter {worst['param']:.3f} x its "
+        f"limit ({ADAFACTOR_PARAM_RTOL:g} of the leaf's largest), worst "
+        f"second moment {worst['state']:.3f} x its limit "
+        f"({ADAFACTOR_STATE_RTOL:g})")
+    assert worst["param"] <= 1 and worst["state"] <= 1, worst
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1268,20 +1585,24 @@ def main():
 
     kern = phase_kernel(device)
     decode = phase_decode(device)
-    decode_launches = phase_decode_engine()
     torch.cuda.empty_cache()
-    stats, launches, expected = phase_main_path()
+    # the main path is the first engine of the process, so the step
+    # programs it dispatched are all the process holds
+    stats, launches, expected, programs = phase_main_path()
     assert launches["ragged_paged_attention"] == expected, \
         (launches, expected)
     assert launches["ragged_paged_attention_reference_cuda"] == 0, \
         "the plain attention ran on CUDA tensors in the main path"
+    assert programs[0] == 0 and programs[1] <= 3, programs
+    torch.cuda.empty_cache()
+    decode_launches = phase_decode_engine()
     phase_oracle(device)
     # bench_llm.py's widths: the kernels at head dim 64 and pages of 32,
     # then a server at those widths, its launches counted, and the fp32
     # engine against the full forward there
     kern_bench = phase_kernel(device, BENCH_GEOMETRY)
-    _, bench_launches, bench_expected = phase_main_path(
-        BENCH_MODEL, BENCH_ENGINE)
+    _, bench_launches, bench_expected, _ = phase_main_path(
+        BENCH_MODEL, BENCH_ENGINE, launch_stamp_fails=False)
     assert bench_launches["ragged_paged_attention"] == bench_expected, \
         (bench_launches, bench_expected)
     assert bench_launches["ragged_paged_attention_reference_cuda"] == 0, \
@@ -1290,18 +1611,23 @@ def main():
     phase_oracle(device, dataclasses.replace(
         model_config_from_dict(BENCH_MODEL), dtype=torch.float32),
         page_size=BENCH_ENGINE["page_size"])
+    phase_recorder_ab()
+    phase_batch_predictor()
 
     flash = phase_flash(device)
     phase_flash_lengths(device)
     flash_launches, steps, n_layers = phase_train(device)
-    expected_flash = {"flash_attention_fwd": 2 * n_layers * steps,
-                      "flash_attention_dq": n_layers * steps,
-                      "flash_attention_dkv": n_layers * steps,
-                      "flash_attention_fwd_reference_cuda": 0,
-                      "flash_attention_bwd_reference_cuda": 0}
-    assert flash_launches == expected_flash, (flash_launches,
-                                              expected_flash)
+    assert flash_launches == expected_flash_launches(n_layers, steps), \
+        flash_launches
+    torch.cuda.empty_cache()
+    # the earlier optimizer on the same configuration, for comparison
+    adamw_launches, adamw_steps, _ = phase_train(
+        device, optimizer="adamw", steps=3, profile=False)
+    assert adamw_launches == expected_flash_launches(n_layers, adamw_steps), \
+        adamw_launches
+    torch.cuda.empty_cache()
     phase_train_oracle(device)
+    phase_optimizer(device)
 
     bf16 = kern["bf16"]
     record = {"kernels": [{

@@ -4,8 +4,10 @@ single-card training paths.
 The Llama model and its loss; the ragged paged-KV attention and flash
 attention forward and backward (hand-written CUDA C++ kernels for Hopper
 under ``ops/csrc/``, each with a plain PyTorch version beside it); the
-continuous-batching ``InferenceEngine`` and the ``LLMServer`` front end;
-the train step and the step profiler. Module names match the JAX package
+continuous-batching ``InferenceEngine`` with its flight recorder and
+gauges, the ``LLMServer`` front end and ``LLMBatchPredictor``; the train
+step, the ``Adafactor`` optimizer and the step profiler; the jax-free
+metrics, trace-context and log planes under ``util/``. Module names match the JAX package
 (``ray_tpu``) so each counterpart is easy to find; this package imports
 neither ``jax`` nor anything of ``ray_tpu``.
 
@@ -28,6 +30,8 @@ _LAZY = {
     "make_kv_cache": ("ray_tpu_torch.llm.cache", "make_kv_cache"),
     "InferenceEngine": ("ray_tpu_torch.llm.engine", "InferenceEngine"),
     "LLMServer": ("ray_tpu_torch.llm.serve_llm", "LLMServer"),
+    "LLMBatchPredictor": ("ray_tpu_torch.llm.batch", "LLMBatchPredictor"),
+    "Adafactor": ("ray_tpu_torch.train.optim", "Adafactor"),
 }
 
 __all__ = list(_LAZY)

@@ -1,2 +1,3 @@
 """LLM inference of the PyTorch port: paged KV cache, continuous batching
-and the server front end (``ray_tpu.llm`` counterparts)."""
+with its flight recorder, the server front end and the batch predictor
+(``ray_tpu.llm`` counterparts)."""

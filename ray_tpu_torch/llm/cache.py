@@ -262,6 +262,7 @@ class SequenceState:
         self.n_prompt = len(self.prompt)
         self.preempt_count = 0
         self.restore_generated: List[int] = []
+        self.record = None                  # flight-recorder RequestRecord
 
     @property
     def num_tokens(self) -> int:

@@ -18,8 +18,16 @@ The scheduler is the JAX engine's, unchanged:
     scales, quantize on write, dequantize inside the attention kernel;
   - preemption by recompute when the pool runs out.
 
-Not ported yet: tensor parallelism, the compile tracker, the metrics
-gauges and the request-log hooks (each rides ``ray_tpu.util``).
+Telemetry, as in the JAX engine: a per-request flight recorder
+(``llm/request_log.py``, its hooks at the JAX engine's sites, every
+timestamp ``time.monotonic()`` taken after the dispatch's tokens reached
+the host), the engine gauges on the port's metrics plane (``_update_metrics``,
+throttled to ~1/s), and ``compiled_step_programs()``: the distinct step
+programs dispatched in this process, each step function per signature of
+its arguments (the counterpart of the JAX engine's jit cache entries).
+
+Not ported yet: tensor parallelism and the compile tracker (its journal
+events need the runtime).
 """
 
 from __future__ import annotations
@@ -39,9 +47,28 @@ from ray_tpu_torch.llm import model as M
 from ray_tpu_torch.llm.cache import (SCRATCH_PAGE, PageAllocator,
                                      PrefixCache, SequenceState,
                                      kv_cache_tag, make_kv_cache)
+from ray_tpu_torch.llm.request_log import FlightRecorder
 from ray_tpu_torch.models.llama import (LlamaConfig, init_params,
                                         resolve_device)
 from ray_tpu_torch.ops.paged_attention import check_kernel_geometry
+from ray_tpu_torch.util import metrics as metrics_mod
+
+#: step programs dispatched in this process: (step function, its static
+#: arguments, the signature of its tensor arguments). The JAX engine
+#: counts the jit cache entries of its three module-level step functions,
+#: which every engine of a process shares; this set is their counterpart.
+_step_programs: set = set()
+_step_programs_lock = threading.Lock()
+
+
+def _signature(x):
+    """Shapes, dtypes and device of a (nested dict of) tensor(s); the
+    type of anything else (page indices are plain ints)."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device.type)
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    return type(x).__name__
 
 
 class _SingleChipFns:
@@ -56,21 +83,40 @@ class _SingleChipFns:
         self._max_q = max_q_len
         self._rows = decode_rows
 
+    @staticmethod
+    def _note_program(fn, static, args) -> None:
+        key = (fn.__name__, static, tuple(_signature(a) for a in args))
+        with _step_programs_lock:
+            _step_programs.add(key)
+
     def ragged_step(self, params, tokens, token_pos, token_page,
                     token_slot, page_table, q_start, q_len, kv_len, kv):
-        return M.ragged_step(params, tokens, token_pos, token_page,
-                             token_slot, page_table, q_start, q_len,
-                             kv_len, kv, self.cfg, max_q_len=self._max_q,
+        args = (params, tokens, token_pos, token_page, token_slot,
+                page_table, q_start, q_len, kv_len, kv)
+        self._note_program(M.ragged_step,
+                           (self.cfg, self._max_q, self._rows), args)
+        return M.ragged_step(*args, self.cfg, max_q_len=self._max_q,
                              decode_rows=self._rows)
 
     def decode_loop(self, params, tokens, positions, kv, page_table,
                     seq_lens):
-        return M.ragged_decode_loop(params, tokens, positions, kv,
-                                    page_table, seq_lens,
-                                    num_steps=self._chunk, cfg=self.cfg)
+        args = (params, tokens, positions, kv, page_table, seq_lens)
+        self._note_program(M.ragged_decode_loop, (self.cfg, self._chunk),
+                           args)
+        return M.ragged_decode_loop(*args, num_steps=self._chunk,
+                                    cfg=self.cfg)
 
     def copy_page(self, kv, src, dst):
+        self._note_program(M.copy_page, (), (kv, src, dst))
         return M.copy_page(kv, src, dst)
+
+    def compiled_step_programs(self) -> int:
+        """Distinct step programs dispatched, process-wide (engines with
+        equal shapes share them, as they share the JAX engine's jit
+        caches). In a fresh process running one engine this is exactly
+        that engine's program count."""
+        with _step_programs_lock:
+            return len(_step_programs)
 
 
 def _cast_params(tree, dtype, device):
@@ -95,6 +141,7 @@ class InferenceEngine:
                  admit_age_cap_s: Optional[float] = None,
                  kv_dtype: Optional[str] = None,
                  prefill_rows: Optional[int] = None,
+                 request_log: Optional[bool] = None,
                  device="cuda"):
         defaults = llm_defaults()
         self.cfg = cfg
@@ -169,6 +216,14 @@ class InferenceEngine:
                       "ragged_dispatches": 0, "ragged_real_tokens": 0,
                       "ragged_slot_tokens": 0, "cow_copies": 0,
                       "preemptions": 0}
+        # per-request flight recorder (llm/request_log.py): lifecycle
+        # event stream per request + TTFT/TPOT/e2e/queue-wait histograms
+        # + SLO attainment; None disables every hook (seq.record stays
+        # None, so the step loop pays one is-None check per event)
+        use_reclog = defaults["llm_request_log"] \
+            if request_log is None else request_log
+        self.request_log: Optional[FlightRecorder] = \
+            FlightRecorder() if use_reclog else None
         self._finished_at_prefill: Dict[str, List[int]] = {}
         # tokens generated since the last drain_progress(), per live
         # request (opt-in: users that never drain must not accumulate)
@@ -180,6 +235,20 @@ class InferenceEngine:
         # rid -> prompt tokens served from the prefix cache; bounded
         self._cached_counts: "collections.OrderedDict[str, int]" = \
             collections.OrderedDict()
+        # engine gauges on the port's metrics plane (util/metrics.py)
+        self._g_kv_util = metrics_mod.llm_kv_page_utilization_gauge()
+        self._g_hit_rate = metrics_mod.llm_prefix_hit_rate_gauge()
+        self._g_prefill_tps = metrics_mod.llm_prefill_tokens_per_s_gauge()
+        self._g_decode_tps = metrics_mod.llm_decode_tokens_per_s_gauge()
+        self._g_queue = metrics_mod.llm_queue_depth_gauge()
+        self._g_programs = metrics_mod.llm_compiled_programs_gauge()
+        self._g_dispatches = metrics_mod.llm_dispatches_per_step_gauge()
+        self._g_pad_waste = metrics_mod.llm_padding_waste_gauge()
+        self._g_slo_ttft = metrics_mod.llm_slo_ttft_attainment_gauge()
+        self._g_slo_tpot = metrics_mod.llm_slo_tpot_attainment_gauge()
+        self._g_preempts = metrics_mod.llm_preemptions_gauge()
+        self._metrics_ts = time.monotonic()
+        self._metrics_last = dict(self.stats)
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """Host int32 arrays -> device tensors through ONE copy."""
@@ -193,8 +262,8 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ requests
 
-    def add_request(self, prompt: List[int],
-                    max_new_tokens: int = 32) -> str:
+    def add_request(self, prompt: List[int], max_new_tokens: int = 32,
+                    trace_id: str = "") -> str:
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         if len(prompt) + max_new_tokens > \
@@ -209,6 +278,11 @@ class InferenceEngine:
         rid = f"req-{self._rid_nonce}-{next(self._req_ids)}"
         seq = SequenceState(rid, prompt, max_new_tokens,
                             enqueue_ts=time.monotonic())
+        if self.request_log is not None:
+            # flight-recorder lifecycle starts at enqueue; the caller's
+            # trace_id (the server's ambient trace) links record <-> trace
+            seq.record = self.request_log.start(
+                rid, len(prompt), max_new_tokens, trace_id=trace_id)
         with self._lock:
             self.waiting.append(seq)
         return rid
@@ -216,6 +290,12 @@ class InferenceEngine:
     def has_work(self) -> bool:
         with self._lock:
             return bool(self.waiting or self.running or self._chunking)
+
+    def compiled_step_programs(self) -> int:
+        """Step programs dispatched for this engine's step functions,
+        process-wide (O(1) by design: mixed ragged step, decode loop,
+        COW copy)."""
+        return self._fns.compiled_step_programs()
 
     # ---------------------------------------------------------------- step
 
@@ -233,6 +313,7 @@ class InferenceEngine:
             finished.update(self._finished_at_prefill)
             self._finished_at_prefill = {}
         self.stats["steps"] += 1
+        self._update_metrics()
         return finished
 
     # ---------------------------------------------------------- scheduling
@@ -281,6 +362,8 @@ class InferenceEngine:
                 if tail_pages is None:
                     if matched_pages:
                         self._release_pages(matched_pages)
+                    if seq.record is not None:
+                        seq.record.note_stall(now)
                     if seq is head and head_aged:
                         break  # aged head waits for memory first
                     continue
@@ -290,6 +373,8 @@ class InferenceEngine:
                 seq.prefilling = True
                 seq.num_computed = matched
                 seq.cached_tokens = matched
+                if seq.record is not None:
+                    seq.record.note_admit(now, matched)
                 self._slots[slot] = seq
                 admitted.append((seq, matched_pages, tail_pages, cow))
         for seq, matched_pages, tail_pages, cow in admitted:
@@ -377,8 +462,10 @@ class InferenceEngine:
                 tokens, token_pos, token_page, token_slot, ptab, q_start,
                 q_len, kv_len), self.kv)
         nxt = nxt.cpu().numpy()                    # [R], ONE readback
+        now = time.monotonic()                     # the tokens are here
         chunk_tokens = sum(C for _, C in rows)
         self.stats["ragged_dispatches"] += 1
+        disp_idx = self.stats["ragged_dispatches"]
         self.stats["ragged_real_tokens"] += len(active) + chunk_tokens
         self.stats["ragged_slot_tokens"] += Tcap
         self.stats["prefill_tokens"] += chunk_tokens
@@ -392,6 +479,8 @@ class InferenceEngine:
                 self._finish(slot, seq, finished)
                 continue
             seq.generated.append(tok)
+            if seq.record is not None:
+                seq.record.note_decode(now, 1)
             if self.track_progress:
                 self._progress.setdefault(seq.request_id, []).append(tok)
             if len(seq.generated) >= seq.max_new_tokens:
@@ -401,6 +490,8 @@ class InferenceEngine:
             self._positions[slot] = seq.num_tokens - 1
         for j, (seq, C) in enumerate(rows):
             seq.num_computed += C
+            if seq.record is not None:
+                seq.record.note_chunk(now, C, disp_idx)
             if seq.num_computed >= len(seq.prompt):
                 self._chunking.remove(seq)
                 seq.prefilling = False
@@ -421,12 +512,18 @@ class InferenceEngine:
         seq.pages = pages
         if self.prefix is not None:
             self.prefix.register(seq.prompt, pages)
+        now = time.monotonic()
         if seq.restore_generated:
             # recompute re-prefill done: unfold the prompt/generated split
             seq.prompt = seq.prompt[:seq.n_prompt]
             seq.generated = list(seq.restore_generated)
             seq.restore_generated = []
         eos_now = self.eos_token is not None and first_tok == self.eos_token
+        if seq.record is not None:
+            if eos_now:
+                seq.record.note_first(now)  # sampled, but never emitted
+            else:
+                seq.record.note_decode(now, 1)
         if eos_now or len(seq.generated) + 1 >= seq.max_new_tokens:
             # the first sampled token is EOS (drop it) or uses up the
             # token budget (keep it): finish without joining the batch
@@ -439,6 +536,9 @@ class InferenceEngine:
                 self._progress.setdefault(seq.request_id, []).extend(new)
             self._note_finish(seq.request_id,
                               "stop" if eos_now else "length")
+            if self.request_log is not None and seq.record is not None:
+                self.request_log.finish(
+                    seq.record, now, "stop" if eos_now else "length")
             self._release_pages(pages)
             if seq.slot is not None:
                 self._slots[seq.slot] = None
@@ -461,6 +561,10 @@ class InferenceEngine:
                 finished: Dict[str, List[int]]) -> None:
         if seq.request_id not in self._finish_reasons:
             self._note_finish(seq.request_id, "length")
+        if self.request_log is not None and seq.record is not None:
+            self.request_log.finish(
+                seq.record, time.monotonic(),
+                self._finish_reasons.get(seq.request_id, "length"))
         seq.done = True
         finished[seq.request_id] = list(seq.generated)
         self._release_pages(seq.pages)
@@ -493,6 +597,9 @@ class InferenceEngine:
         """Recompute preemption: drop the sequence's pages and re-queue it
         at the waiting head with its generated tokens folded into the
         prompt; greedy sampling makes the continuation identical."""
+        now = time.monotonic()
+        if seq.record is not None:
+            seq.record.note_stall(now)
         need_all = -(-(seq.num_tokens + 1) // self.page_size)
         if seq.preempt_count >= self.PREEMPT_CAP \
                 or need_all > self.allocator.total_pages - 1:
@@ -501,6 +608,8 @@ class InferenceEngine:
             return
         seq.preempt_count += 1
         self.stats["preemptions"] += 1
+        if seq.record is not None:
+            seq.record.note_preempt(now)
         self._release_pages(seq.pages)
         seq.pages = []
         self._slots[slot] = None
@@ -536,11 +645,12 @@ class InferenceEngine:
         toks_out, self.kv, _, _ = self._fns.decode_loop(
             self.params, tokens, positions, self.kv, ptab, lens)
         block = toks_out.cpu().numpy()             # [K, B], ONE readback
+        now = time.monotonic()                     # the tokens are here
         self.stats["decode_steps"] += K
         self.stats["decode_tokens"] += K * len(active)
         self.stats["decode_dispatches"] += 1
         for slot, seq in active:
-            fin = False
+            n_new, fin = 0, False
             for j in range(K):
                 tok = int(block[j, slot])
                 if self.eos_token is not None and tok == self.eos_token:
@@ -548,12 +658,18 @@ class InferenceEngine:
                     fin = True
                     break
                 seq.generated.append(tok)
+                n_new += 1
                 if self.track_progress:
                     self._progress.setdefault(seq.request_id,
                                               []).append(tok)
                 if len(seq.generated) >= seq.max_new_tokens:
                     fin = True
                     break
+            # ONE record entry per dispatch (the K-step loop is one
+            # readback: per-token host timestamps would be fiction),
+            # noted BEFORE _finish so e2e covers every token
+            if n_new and seq.record is not None:
+                seq.record.note_decode(now, n_new)
             if fin:
                 self._finish(slot, seq, finished)
             else:
@@ -585,6 +701,51 @@ class InferenceEngine:
     def cached_tokens(self, rid: str) -> int:
         """Prompt tokens rid served from the prefix cache (pops)."""
         return self._cached_counts.pop(rid, 0)
+
+    # ------------------------------------------------------------- metrics
+
+    def _update_metrics(self, force: bool = False) -> None:
+        """Engine gauges on the port's metrics plane, throttled to ~1/s.
+        The JAX engine's compile-invariant journal event waits for the
+        runtime; the program count is the gauge here."""
+        now = time.monotonic()
+        dt = now - self._metrics_ts
+        if dt < 1.0 and not force:
+            return
+        s, last = self.stats, self._metrics_last
+        self._metrics_last = dict(s)
+        self._metrics_ts = now
+        allocatable = self.allocator.total_pages - 1   # page 0 = scratch
+        self._g_kv_util.set(1.0 - self.allocator.num_free / allocatable)
+        cached = s["cached_tokens"]
+        denom = cached + s["prefill_tokens"]
+        self._g_hit_rate.set(cached / denom if denom else 0.0)
+        if dt > 0:
+            self._g_prefill_tps.set(
+                (s["prefill_tokens"] - last["prefill_tokens"]) / dt)
+            self._g_decode_tps.set(
+                (s["decode_tokens"] - last["decode_tokens"]) / dt)
+        # ragged-step visibility: step programs dispatched (O(1) by
+        # design), dispatches per scheduler step, and the padding
+        # fraction of ragged token slots over the gauge window
+        self._g_programs.set(float(self.compiled_step_programs()))
+        d_steps = s["steps"] - last["steps"]
+        if d_steps > 0:
+            disp = sum(s[k] - last[k] for k in
+                       ("ragged_dispatches", "decode_dispatches",
+                        "cow_copies"))
+            self._g_dispatches.set(disp / d_steps)
+        d_slots = s["ragged_slot_tokens"] - last["ragged_slot_tokens"]
+        if d_slots > 0:
+            d_real = s["ragged_real_tokens"] - last["ragged_real_tokens"]
+            self._g_pad_waste.set(1.0 - d_real / d_slots)
+        if self.request_log is not None:
+            a_ttft, a_tpot = self.request_log.slo_attainment()
+            self._g_slo_ttft.set(a_ttft)
+            self._g_slo_tpot.set(a_tpot)
+        self._g_preempts.set(float(s["preemptions"]))
+        with self._lock:
+            self._g_queue.set(len(self.waiting))
 
     # ------------------------------------------------------------ blocking
 

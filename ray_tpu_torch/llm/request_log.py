@@ -1,0 +1,274 @@
+"""Per-request flight recorder for the LLM serving path — the port's own
+copy of ``ray_tpu/llm/request_log.py``.
+
+Every request the engine touches gets ONE ``RequestRecord`` carrying its
+lifecycle event stream —
+
+  enqueue -> admit (queue wait, prefix cached_tokens) -> prefill chunks
+  (tokens, dispatch index) -> first token (TTFT) -> per-dispatch decode
+  timestamps (TPOT/ITL) -> page-pressure stalls / preemptions -> finish
+  (stop | length | evict)
+
+— held in a bounded ring (``FlightRecorder``), with O(1) cost per step
+event: timestamps are ``time.monotonic()`` deltas against the record's
+enqueue anchor, decode entries land in preallocated slots (one entry per
+DEVICE DISPATCH, taken where the dispatch's tokens reach the host), and
+nothing in the step loop allocates beyond a bounded list append.
+
+On finish the recorder feeds the port's metrics plane
+(``llm_{ttft,tpot,e2e,queue_wait}_seconds`` histograms + SLO-attainment
+counters against the ``llm_slo_ttft_ms`` / ``llm_slo_tpot_ms`` defaults).
+The JAX recorder's export queue (``drain_export``, ``drain_all_exports``)
+waits for a copy of the runtime whose telemetry flush drains it.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ray_tpu_torch.config import llm_defaults
+from ray_tpu_torch.util import metrics as metrics_mod
+
+#: per-dispatch decode entries kept verbatim per record; dispatches past
+#: the cap fold into an aggregate (last/count still exact) so a 100k-token
+#: generation cannot grow a record without bound
+DECODE_ENTRY_CAP = 512
+
+
+class RequestRecord:
+    """Lifecycle event stream of one request. All ``note_*`` methods are
+    called from the engine's single step thread; timestamps are
+    ``time.monotonic()`` offsets from the enqueue anchor ``t0`` (the wall
+    anchor ``t0_wall`` maps offsets back to clock time for display)."""
+
+    __slots__ = ("rid", "trace_id", "t0", "t0_wall", "prompt_tokens",
+                 "max_new_tokens", "admits", "chunks", "first_ts",
+                 "last_ts", "n_generated", "stalls", "preempt_ts",
+                 "finish_ts", "finish_reason", "_dec_dt", "_dec_n",
+                 "_di", "_dec_over")
+
+    def __init__(self, rid: str, prompt_tokens: int, max_new_tokens: int,
+                 trace_id: str = "",
+                 decode_cap: int = DECODE_ENTRY_CAP):
+        self.rid = rid
+        self.trace_id = trace_id
+        self.t0 = time.monotonic()
+        self.t0_wall = time.time()
+        self.prompt_tokens = prompt_tokens
+        self.max_new_tokens = max_new_tokens
+        self.admits: List[Tuple[float, int]] = []   # (ts, cached_tokens)
+        self.chunks: List[Tuple[float, int, int]] = []  # (ts, n, dispatch)
+        self.first_ts: Optional[float] = None       # TTFT
+        self.last_ts: Optional[float] = None        # newest token
+        self.n_generated = 0
+        self.stalls = 0
+        self.preempt_ts: List[float] = []
+        self.finish_ts: Optional[float] = None
+        self.finish_reason: Optional[str] = None
+        # preallocated per-dispatch decode entries: (delta vs previous
+        # token event, tokens in the dispatch) — no allocation per token
+        self._dec_dt = [0.0] * decode_cap
+        self._dec_n = [0] * decode_cap
+        self._di = 0
+        self._dec_over = 0
+
+    # ------------------------------------------------------------- events
+
+    def note_admit(self, now: float, cached_tokens: int) -> None:
+        """Admitted into a slot (one entry per admission — a preempted
+        request re-admits and gets a second phase)."""
+        self.admits.append((now - self.t0, cached_tokens))
+
+    def note_chunk(self, now: float, n_tokens: int,
+                   dispatch_idx: int) -> None:
+        self.chunks.append((now - self.t0, n_tokens, dispatch_idx))
+
+    def note_stall(self, now: float) -> None:
+        """A page-pressure admission/allocation failure touched this
+        request (counted, not timeline-stored: stalls can repeat every
+        scheduler step under pressure)."""
+        self.stalls += 1
+
+    def note_preempt(self, now: float) -> None:
+        self.preempt_ts.append(now - self.t0)
+
+    def note_first(self, now: float) -> None:
+        """First token sampled (TTFT clock stops); idempotent so the
+        re-prefill after a preemption never moves it."""
+        if self.first_ts is None:
+            self.first_ts = now - self.t0
+            self.last_ts = self.first_ts
+
+    def note_decode(self, now: float, n_tokens: int) -> None:
+        """``n_tokens`` landed from one device dispatch. One preallocated
+        (delta_ts, n) entry per dispatch; past the cap only aggregates
+        move."""
+        off = now - self.t0
+        if self.first_ts is None:
+            self.first_ts = off
+        elif self._di < len(self._dec_dt):
+            self._dec_dt[self._di] = off - (self.last_ts or off)
+            self._dec_n[self._di] = n_tokens
+            self._di += 1
+        else:
+            self._dec_over += n_tokens
+        self.last_ts = off
+        self.n_generated += n_tokens
+
+    # ------------------------------------------------------------ derived
+
+    @property
+    def done(self) -> bool:
+        return self.finish_reason is not None
+
+    @property
+    def queue_wait(self) -> Optional[float]:
+        return self.admits[0][0] if self.admits else None
+
+    @property
+    def ttft(self) -> Optional[float]:
+        return self.first_ts
+
+    @property
+    def tpot(self) -> Optional[float]:
+        """Mean seconds per output token AFTER the first (vLLM TPOT)."""
+        if self.first_ts is None or self.last_ts is None \
+                or self.n_generated < 2:
+            return None
+        return (self.last_ts - self.first_ts) / (self.n_generated - 1)
+
+    def decode_entries(self) -> List[Tuple[float, int]]:
+        """(delta_ts, n_tokens) per decode dispatch, verbatim up to the
+        preallocation cap."""
+        return list(zip(self._dec_dt[:self._di], self._dec_n[:self._di]))
+
+    def cached_tokens(self) -> int:
+        return self.admits[-1][1] if self.admits else 0
+
+    def to_dict(self) -> dict:
+        """Wire/display form (plain JSON-able types only)."""
+        return {
+            "rid": self.rid,
+            "trace_id": self.trace_id,
+            "t0_wall": self.t0_wall,
+            "prompt_tokens": self.prompt_tokens,
+            "max_new_tokens": self.max_new_tokens,
+            "admits": [[round(ts, 6), c] for ts, c in self.admits],
+            "chunks": [[round(ts, 6), n, d] for ts, n, d in self.chunks],
+            "queue_wait": self.queue_wait,
+            "cached_tokens": self.cached_tokens(),
+            "ttft": self.ttft,
+            "tpot": self.tpot,
+            "e2e": self.finish_ts,
+            "n_generated": self.n_generated,
+            "decode": [[round(dt, 6), n]
+                       for dt, n in self.decode_entries()],
+            "decode_overflow_tokens": self._dec_over,
+            "stalls": self.stalls,
+            "preempts": len(self.preempt_ts),
+            "preempt_ts": [round(ts, 6) for ts in self.preempt_ts],
+            "finish_reason": self.finish_reason,
+            "done": self.done,
+            "age": time.monotonic() - self.t0,
+        }
+
+
+class FlightRecorder:
+    """Bounded ring of ``RequestRecord``s keyed by request id.
+
+    ``start``/``get``/``snapshot`` lock around the ring; the per-record
+    ``note_*`` calls are engine-thread-only and lockless. Finishing a
+    record observes the serving histograms (``llm_ttft_seconds`` etc.)
+    and bumps the SLO-attainment counters.
+    """
+
+    def __init__(self, capacity: Optional[int] = None,
+                 slo_ttft_s: Optional[float] = None,
+                 slo_tpot_s: Optional[float] = None):
+        defaults = llm_defaults()
+        self.capacity = max(2, defaults["llm_request_log_size"]
+                            if capacity is None else capacity)
+        self.slo_ttft_s = (defaults["llm_slo_ttft_ms"] / 1e3
+                           if slo_ttft_s is None else slo_ttft_s)
+        self.slo_tpot_s = (defaults["llm_slo_tpot_ms"] / 1e3
+                           if slo_tpot_s is None else slo_tpot_s)
+        self._lock = threading.Lock()
+        self._records: "collections.OrderedDict[str, RequestRecord]" = \
+            collections.OrderedDict()
+        self.n_finished = 0
+        self.n_ttft_ok = 0
+        self.n_tpot_ok = 0
+        self.n_preempts = 0
+        self._h_ttft = metrics_mod.llm_ttft_seconds_histogram()
+        self._h_tpot = metrics_mod.llm_tpot_seconds_histogram()
+        self._h_e2e = metrics_mod.llm_e2e_seconds_histogram()
+        self._h_wait = metrics_mod.llm_queue_wait_seconds_histogram()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._records)
+
+    def start(self, rid: str, prompt_tokens: int, max_new_tokens: int,
+              trace_id: str = "") -> RequestRecord:
+        rec = RequestRecord(rid, prompt_tokens, max_new_tokens,
+                            trace_id=trace_id)
+        with self._lock:
+            self._records[rid] = rec
+            while len(self._records) > self.capacity:
+                self._evict_one_locked()
+        return rec
+
+    def _evict_one_locked(self) -> None:
+        # oldest FINISHED record first; only a ring full of live
+        # requests (capacity < concurrency) evicts a live one
+        for key, r in self._records.items():
+            if r.done:
+                del self._records[key]
+                return
+        self._records.popitem(last=False)
+
+    def get(self, rid: str) -> Optional[RequestRecord]:
+        with self._lock:
+            return self._records.get(rid)
+
+    def finish(self, rec: RequestRecord, now: float, reason: str) -> None:
+        if rec.finish_reason is not None:
+            return
+        rec.finish_ts = now - rec.t0
+        rec.finish_reason = reason
+        self.n_finished += 1
+        self.n_preempts += len(rec.preempt_ts)
+        ttft, tpot = rec.ttft, rec.tpot
+        if ttft is not None and ttft <= self.slo_ttft_s:
+            self.n_ttft_ok += 1
+        if tpot is None or tpot <= self.slo_tpot_s:
+            # a 1-token request has no inter-token latency: it cannot
+            # miss the TPOT target
+            self.n_tpot_ok += 1
+        try:
+            if ttft is not None:
+                self._h_ttft.observe(ttft)
+            if tpot is not None:
+                self._h_tpot.observe(tpot)
+            self._h_e2e.observe(rec.finish_ts)
+            if rec.queue_wait is not None:
+                self._h_wait.observe(rec.queue_wait)
+        except Exception:  # noqa: BLE001 — telemetry must never kill
+            pass
+
+    def slo_attainment(self) -> Tuple[float, float]:
+        """(ttft_fraction, tpot_fraction) of finished requests under the
+        configured SLO targets; (1.0, 1.0) before any request finishes."""
+        n = self.n_finished
+        if n == 0:
+            return 1.0, 1.0
+        return self.n_ttft_ok / n, self.n_tpot_ok / n
+
+    def snapshot(self, live_only: bool = False) -> List[dict]:
+        """Current ring contents as wire dicts, oldest first."""
+        with self._lock:
+            recs = list(self._records.values())
+        return [r.to_dict() for r in recs if not (live_only and r.done)]

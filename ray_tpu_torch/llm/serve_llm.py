@@ -8,8 +8,15 @@ continuous-batching loop, so concurrent requests share ragged steps.
 OpenAI-style ``completions``/``chat_completions`` bodies, streaming or
 not, ride the same two paths.
 
+Each request's engine record carries the caller's ambient trace id
+(``util/trace_context``), and the log records the server emits for it
+carry its request id and that trace id (``util/log_plane``; the server
+installs the process logger). ``request_records()`` is the engine's
+flight-recorder snapshot; ``set_overload_level()`` is the degradation
+ladder's hook on the step token budget.
+
 Not ported yet: ``build_llm_app`` and ``placement_for_engine`` (they need
-a serve runtime), the log plane and trace-context hooks.
+a serve runtime).
 """
 
 from __future__ import annotations
@@ -21,9 +28,19 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 
+from ray_tpu_torch.config import llm_defaults
 from ray_tpu_torch.llm.engine import InferenceEngine
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer
 from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.util import log_plane, trace_context
+
+
+def _ambient_trace_id() -> str:
+    """The trace_id ambient on the caller's context, linked into the
+    engine's flight-recorder record so a request's record, its log lines
+    and its trace share one id."""
+    amb = trace_context.current()
+    return amb[0] if amb else ""
 
 
 def model_config_from_dict(model_config: Optional[Dict[str, Any]]
@@ -54,6 +71,9 @@ class LLMServer:
         cfg = model_config_from_dict(model_config)
         self.engine = InferenceEngine(cfg, **(engine_config or {}))
         self.engine.track_progress = True  # the serve loop drains it
+        # no runtime boots the port's processes: the server installs the
+        # process logger its request records go to
+        log_plane.ensure_started(role="llm")
         self.tokenizer = tokenizer or ByteTokenizer()
         self.model_name = model_name
         self.chat_template = chat_template or apply_chat_template
@@ -105,22 +125,33 @@ class LLMServer:
         prompt = self._prompt_ids(request)
         max_tokens = int(request.get("max_tokens", 32))
         ev = threading.Event()
-        rid = self.engine.add_request(prompt, max_tokens)
-        with self._lock:
-            self._events[rid] = ev
-            if rid in self._results:  # engine already finished it
-                ev.set()
-        self._wake.set()
-        if not ev.wait(timeout=300):
-            # the engine still finishes the request; mark it abandoned so
-            # the loop drops the late result instead of leaking it
+        rid = self.engine.add_request(prompt, max_tokens,
+                                      trace_id=_ambient_trace_id())
+        # ambient request id: every log record emitted while this
+        # request is in flight on this thread carries request_id=rid
+        with log_plane.request_context(rid):
+            log_plane.get_logger().info(
+                f"llm request start ({len(prompt)} prompt tok, "
+                f"max_new {max_tokens})")
             with self._lock:
+                self._events[rid] = ev
+                if rid in self._results:  # engine already finished it
+                    ev.set()
+            self._wake.set()
+            if not ev.wait(timeout=300):
+                # the engine still finishes the request; mark it
+                # abandoned so the loop drops the late result instead of
+                # leaking it
+                with self._lock:
+                    self._events.pop(rid, None)
+                    self._abandoned.add(rid)
+                log_plane.get_logger().warning("llm request timed out")
+                raise TimeoutError(f"LLM request {rid} timed out")
+            with self._lock:
+                toks = self._results.pop(rid)
                 self._events.pop(rid, None)
-                self._abandoned.add(rid)
-            raise TimeoutError(f"LLM request {rid} timed out")
-        with self._lock:
-            toks = self._results.pop(rid)
-            self._events.pop(rid, None)
+            log_plane.get_logger().info(
+                f"llm request finished ({len(toks)} tok)")
         return {"token_ids": toks, "request_id": rid}
 
     # ------------------------------------------------------------ streaming
@@ -132,8 +163,16 @@ class LLMServer:
         max_tokens = int(request.get("max_tokens", 32))
         q: "queue_mod.Queue" = queue_mod.Queue()
         with self._lock:
-            rid = self.engine.add_request(prompt, max_tokens)
+            rid = self.engine.add_request(prompt, max_tokens,
+                                          trace_id=_ambient_trace_id())
             self._token_qs[rid] = q
+        # a generator can't hold the ambient contextvar across yields
+        # without leaking it into the consumer, so stamp the lifecycle
+        # records explicitly instead
+        with log_plane.request_context(rid):
+            log_plane.get_logger().info(
+                f"llm stream start ({len(prompt)} prompt tok, "
+                f"max_new {max_tokens})")
         self._wake.set()
         produced: List[int] = []
         completed = False
@@ -145,6 +184,9 @@ class LLMServer:
                     break
                 produced.extend(item)
                 yield {"token_ids": item, "request_id": rid}
+            with log_plane.request_context(rid):
+                log_plane.get_logger().info(
+                    f"llm stream finished ({len(produced)} tok)")
             yield {"done": True, "request_id": rid,
                    "token_ids": list(produced),
                    "finish_reason": self.engine.finish_reason(rid),
@@ -307,6 +349,34 @@ class LLMServer:
                 "evictable_pages": prefix.num_evictable,
             }
         return out
+
+    def request_records(self) -> List[Dict[str, Any]]:
+        """Flight-recorder snapshot of this server's engine (wire dicts;
+        [] when the recorder is disabled)."""
+        if self.engine.request_log is None:
+            return []
+        return self.engine.request_log.snapshot()
+
+    def set_overload_level(self, level: int,
+                           budget_factor: float = 0.5) -> int:
+        """Degradation ladder hook: level n runs the engine at
+        step_token_budget * budget_factor**n — tighter prefill admission
+        keeps decode TPOT alive for already-admitted requests at the cost
+        of new-request TTFT. Level 0 restores the configured budget.
+        Returns the effective budget (an unbounded base budget of 0
+        degrades from the config default so level>0 always tightens
+        something)."""
+        if not hasattr(self, "_base_token_budget"):
+            self._base_token_budget = self.engine.step_token_budget
+        level = max(0, int(level))
+        if level == 0:
+            self.engine.step_token_budget = self._base_token_budget
+        else:
+            base = self._base_token_budget or \
+                llm_defaults()["llm_step_token_budget"] or 2048
+            self.engine.step_token_budget = max(
+                64, int(base * (budget_factor ** level)))
+        return self.engine.step_token_budget
 
     def check_health(self) -> None:
         if not self._thread.is_alive():

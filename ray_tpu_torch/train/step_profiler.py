@@ -1,6 +1,8 @@
 """Step-time attribution: split a train step into phases — the PyTorch
-port of ``ray_tpu/train/step_profiler.py`` (phase gauges and spans wait for
-copies of the metrics and tracing planes).
+port of ``ray_tpu/train/step_profiler.py``. With ``emit=True`` the result
+sets the ``train_step_time_s`` and ``train_phase_time_s{phase}`` gauges
+of the port's metrics plane; the span tree waits for a copy of the
+runtime's task-event buffer.
 
 PyTorch runs each phase as its own sequence of kernels, so the phases are
 timed as separate runs of the step's pieces:
@@ -28,6 +30,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from ray_tpu_torch.train.train_step import make_train_step, param_leaves
+from ray_tpu_torch.util import metrics as metrics_mod
 
 PHASES = ("forward", "backward", "optimizer", "collective_wait")
 
@@ -84,14 +87,16 @@ def _clone(tree):
 
 def profile_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                        optimizer, params, opt_state, batch, *,
-                       steps: int = 3, warmup: int = 1) -> StepBreakdown:
+                       steps: int = 3, warmup: int = 1,
+                       emit: bool = True) -> StepBreakdown:
     """Profile one train step configuration and return its breakdown.
 
     loss_fn(params, batch) -> scalar; ``optimizer`` builds an optimizer
     over a list of leaves, as for ``make_train_step``; ``opt_state`` is
     the caller's optimizer. The profiler works on copies of the
     parameters and of the optimizer's state, so the caller's training
-    state is left untouched.
+    state is left untouched. With emit=True the step and phase gauges are
+    set from the breakdown.
     """
     device = param_leaves(params)[0].device
     p = _clone(params)
@@ -132,5 +137,18 @@ def profile_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         scale = step_s / compute
         phases = {"forward": t_fwd * scale, "backward": t_bwd * scale,
                   "optimizer": t_opt * scale, "collective_wait": 0.0}
-    return StepBreakdown(step_time_s=step_s, compile_time_s=compile_s,
-                         phases=phases, n_steps=steps)
+    breakdown = StepBreakdown(step_time_s=step_s, compile_time_s=compile_s,
+                              phases=phases, n_steps=steps)
+    if emit:
+        _emit_gauges(breakdown)
+    return breakdown
+
+
+def _emit_gauges(b: StepBreakdown) -> None:
+    try:
+        metrics_mod.train_step_time_gauge().set(b.step_time_s)
+        for phase, secs in b.phases.items():
+            metrics_mod.train_phase_time_gauge().set(
+                secs, tags={"phase": phase})
+    except Exception:  # noqa: BLE001 — telemetry never fails profiling
+        pass

@@ -38,6 +38,11 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     assert "ray_tpu_torch.ops.flash_attention" in mods
     assert "ray_tpu_torch.train.train_step" in mods
     assert "ray_tpu_torch.train.step_profiler" in mods
+    for new in ("ray_tpu_torch.util.metrics", "ray_tpu_torch.util.log_plane",
+                "ray_tpu_torch.util.trace_context",
+                "ray_tpu_torch.llm.request_log", "ray_tpu_torch.llm.batch",
+                "ray_tpu_torch.train.optim"):
+        assert new in mods, new
     code = (
         "import importlib\n"
         f"for m in {mods!r}:\n"

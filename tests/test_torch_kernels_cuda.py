@@ -610,3 +610,42 @@ def test_server_on_a_geometry_the_kernels_refuse_raises_at_construction(
                                          n_kv_heads=8, n_layers=1),
                         page_size=24, device=cuda)
     assert time.monotonic() - t0 < 30
+
+
+@pytest.mark.cuda
+def test_batch_predictor_default_raises_at_construction(cuda):
+    # LLMBatchPredictor's default (preset "tiny": head dim 8) on the card
+    # raises in its constructor, as the server's does
+    from ray_tpu_torch.llm.batch import LLMBatchPredictor
+    with pytest.raises(ValueError, match="head dim 8"):
+        LLMBatchPredictor()
+
+
+@pytest.mark.cuda
+def test_adafactor_on_the_card_matches_the_cpu(cuda):
+    # three Adafactor steps on a factored and a full second moment, fp32
+    # on both devices: summation order only (tests/test_torch_adafactor.py
+    # holds the CPU against optax to the same limits)
+    from ray_tpu_torch.train import Adafactor
+    g = torch.Generator().manual_seed(0)
+    shapes = [(3, 128, 256), (300, 128), (127, 64), (64,)]
+    init = [0.05 * torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) for s in shapes]
+             for _ in range(3)]
+    runs = []
+    for dev in ("cpu", cuda):
+        ps = [p.to(dev, copy=True) for p in init]
+        opt = Adafactor(ps, lr=1e-3)
+        for step in grads:
+            for p, gr in zip(ps, step):
+                p.grad = gr.to(dev)
+            opt.step()
+        runs.append((ps, opt))
+    (cpu_ps, cpu_opt), (dev_ps, dev_opt) = runs
+    for a, b in zip(dev_ps, cpu_ps):
+        assert (a.cpu() - b).abs().max() <= 1e-6 * b.abs().max()
+        for key, sb in cpu_opt.state[b].items():
+            sa = dev_opt.state[a][key].cpu()
+            assert (sa - sb).abs().max() <= 1e-5 * sb.abs().max(), key
+    assert set(dev_opt.state[dev_ps[0]]) == {"step", "v_row", "v_col"}
+    assert set(dev_opt.state[dev_ps[2]]) == {"step", "v"}
