@@ -79,11 +79,29 @@ result line is printed):
      full attention;
   9. the optimizer on the card: three Adafactor steps on a small fp32
      tree (factored and full second moments) against the same steps on
-     the CPU.
+     the CPU;
+ 10. Mixtral training: ``make_train_step`` over the Mixtral ``loss_fn`` at
+     Mixtral-8x7B's widths (vocab 32000, dim 4096, 32 q / 8 kv heads, ffn
+     14336, 8 experts, top-2, rope theta 1e6) cut to 2 of 32 layers
+     (3,033,616,384 parameters, 919,687,168 active), fp32 master weights
+     from seed 0, bf16 compute, ``Adafactor(lr=1e-3)``, B 4 x L 2048 from
+     seed 1: 2 warm-up and 3 timed steps with remat "full" (the JAX
+     default), then 3 with "selective" (the first untimed), every port
+     launch counter set to 0 just before and read just after (the JAX
+     Mixtral runs no Pallas kernel, so all must stay 0); step time,
+     tokens/s, MFU on active parameters, peak memory, the MoE's host
+     reads, tokens per expert per layer, the step profiler's phases, and
+     one step under torch.profiler split into expert products, dispatch,
+     attention, router and the rest; then the same model's bf16 routing
+     against its own fp32 forward (B 1 x L 512), which must agree on
+     every token whose fp32 2nd/3rd probability gap exceeds
+     ``ROUTING_MARGIN``, and a small fp32 Mixtral on the card against the
+     CPU (loss, aux, routing, every gradient).
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1552,6 +1570,327 @@ def phase_optimizer(device, steps=3):
     assert worst["param"] <= 1 and worst["state"] <= 1, worst
 
 
+# --------------------------------------------- phase 10: Mixtral training
+
+MIXTRAL_CONFIG = {"n_layers": 2}    # mixtral_8x7b widths, 2 of 32 layers
+MIXTRAL_BATCH = (4, 2048)           # B, L
+MIXTRAL_WARMUP, MIXTRAL_STEPS = 2, 3
+MIXTRAL_SELECTIVE_STEPS = 3         # the first one untimed
+# the card-against-CPU oracle: Mixtral's vocab, heads and experts at a
+# width the CPU runs in seconds
+MIXTRAL_ORACLE = {"dim": 512, "n_heads": 8, "n_kv_heads": 2,
+                  "ffn_dim": 1024, "n_layers": 2}
+MIXTRAL_ORACLE_BATCH = (2, 256)
+# fp32 on both devices, TF32 off: loss and aux within 1e-5 of themselves,
+# each gradient within 1e-5 of its leaf's largest value (summation order
+# only; tests/test_torch_mixtral.py holds the CPU against JAX to the same)
+MIXTRAL_ORACLE_RTOL = 1e-5
+ROUTING_BATCH = (1, 512)
+# bf16 against fp32 routing of one model: a token whose fp32 gap between
+# its 2nd and 3rd router probability exceeds this keeps its experts
+ROUTING_MARGIN = 2.0 ** -5
+MIXTRAL_GROUPS = ("expert products", "dispatch", "attention", "router",
+                  "rest")
+# ops of the MoE dispatch: the sort, the segment sizes, the gathers and
+# the scatter-adds (and their backward); aten::index on 1-D inputs (the
+# sorted weights; on 2-D it is the embedding's gather)
+DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::bincount",
+                "aten::index_select", "aten::index_add_",
+                "aten::floor_divide")
+
+
+@contextlib.contextmanager
+def recording(module, name, keep):
+    """While open, each call of ``module.name`` appends its result to
+    ``keep``."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        keep.append(out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, orig)
+
+
+def port_launch_counts():
+    """Every launch counter of the port's kernels."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.ops import paged_attention as tpa
+    return {**tfa.launch_counts, **tpa.launch_counts}
+
+
+def reset_port_launch_counts():
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.ops import paged_attention as tpa
+    for counts in (tfa.launch_counts, tpa.launch_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def mixtral_group(name, shapes, cfg, seq_len):
+    """The group of MIXTRAL_GROUPS an op's device time belongs to, from
+    its name and input shapes: the 2-D products with the expert width are
+    the experts' (forward and backward), those with the expert count the
+    router's; the batched products and the [.., L, L] score passes are
+    attention's."""
+    dims = {d for shape in shapes if isinstance(shape, (list, tuple))
+            for d in shape if isinstance(d, int)}
+    if name == "aten::mm":
+        if cfg.ffn_dim in dims:
+            return "expert products"
+        return "router" if cfg.n_experts in dims else "rest"
+    first = shapes[0] if shapes and isinstance(shapes[0], list) else []
+    if name in DISPATCH_OPS or (name in ("aten::index", "aten::index_put_")
+                                and len(first) == 1):
+        return "dispatch"
+    if name == "aten::bmm" or first[-2:] == [seq_len, seq_len]:
+        return "attention"
+    if len(first) == 2 and first[-1] == cfg.n_experts:
+        return "router"
+    return "rest"
+
+
+def profile_mixtral_step(step, device, cfg, seq_len):
+    """One train step under torch.profiler (ops with their input shapes,
+    and the kernels): the device time of each of MIXTRAL_GROUPS (each op's
+    own kernels; kernels linked to no op go to the rest), the busy time
+    and its share of the profiled step's wall time, and the largest parts
+    of the rest (ops by name, unlinked kernels by kernel name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.monotonic()
+        step()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    groups = dict.fromkeys(MIXTRAL_GROUPS, 0.0)
+    rest, unlinked = {}, {}
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue        # a record_function range, on either side
+        if e.device_type != DeviceType.CPU:         # a kernel
+            unlinked[e.name] = unlinked.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+            continue
+        for k in e.kernels:
+            unlinked[k.name] = unlinked.get(k.name, 0.0) - k.duration / 1e3
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if ms > 0:
+            group = mixtral_group(e.name, e.input_shapes, cfg, seq_len)
+            groups[group] += ms
+            if group == "rest":
+                rest[e.name] = rest.get(e.name, 0.0) + ms
+    for name, ms in unlinked.items():
+        if ms > 1e-6:
+            groups["rest"] += ms
+            rest[f"kernel {name[:60]}"] = ms
+    busy = sum(groups.values())
+    top_rest = sorted(rest.items(), key=lambda kv: -kv[1])[:6]
+    return groups, busy, busy / wall_ms, top_rest
+
+
+def phase_mixtral(device, config=None, batch=MIXTRAL_BATCH, profile=True,
+                  card="the CPU"):
+    """make_train_step over the Mixtral loss at Mixtral-8x7B widths (cut in
+    depth), remat "full" then "selective", on ``card`` (the nvidia-smi
+    name and power limit, printed beside the times); returns the trained
+    parameters and the configuration for the routing check."""
+    from ray_tpu_torch.models import mixtral as tm
+    from ray_tpu_torch.parallel import moe
+    from ray_tpu_torch.train import make_train_step, profile_train_step
+
+    cfg = tm.MixtralConfig.mixtral_8x7b(**(config or MIXTRAL_CONFIG))
+    B, L = batch
+    cuda = device.type == "cuda"
+    t0 = time.monotonic()
+    params = tm.init_params(cfg, seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), generator=g,
+                           device=device)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in [params["embed"], params["final_norm"],
+                                *params["layers"].values()])
+    optimizer = make_optimizer("adafactor")
+    train = {policy: make_train_step(functools.partial(
+        tm.loss_fn, cfg=dataclasses.replace(cfg, remat_policy=policy)),
+        optimizer) for policy in ("full", "selective")}
+    opt = train["full"][0](params)
+    log(f"Mixtral training: {tm.num_params(cfg)} parameters "
+        f"({tm.active_params(cfg)} active), {cfg.n_layers} of 32 layers, "
+        f"dim {cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, ffn "
+        f"{cfg.ffn_dim}, {cfg.n_experts} experts top-{cfg.top_k}, B {B} L "
+        f"{L}, adafactor {optimizer.keywords}; parameters {param_bytes} "
+        f"bytes (fp32), gradients {param_bytes} bytes (fp32, between the "
+        f"backward and the update), set-up {time.monotonic() - t0:.1f} s")
+    reset_port_launch_counts()
+    moe.sync_counts["segment_sizes"] = 0
+    losses, runs, routed = [], {}, []
+    for policy, warmup, steps in (
+            ("full", MIXTRAL_WARMUP, MIXTRAL_STEPS),
+            ("selective", 1, MIXTRAL_SELECTIVE_STEPS - 1)):
+        step_fn = train[policy][1]
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(warmup + steps):
+            last = policy == "full" and i == warmup + steps - 1
+            t_step = time.monotonic()
+            with (recording(tm, "_top_k", routed) if last
+                  else contextlib.nullcontext()):
+                params, opt, m = step_fn(params, opt, tokens)
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+            times.append(time.monotonic() - t_step)
+        step_s = sum(times[warmup:]) / steps
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        if cuda:
+            total = torch.cuda.get_device_properties(device).total_memory
+            assert peak < total, (policy, peak, total)
+        runs[policy] = (step_s, peak, steps)
+    syncs = moe.sync_counts["segment_sizes"]
+    launches = port_launch_counts()
+    assert all(math.isfinite(x) and math.isfinite(n)
+               for x, n in losses), losses
+    assert losses[-1][0] < losses[0][0], f"loss did not fall: {losses}"
+    n_steps = MIXTRAL_WARMUP + MIXTRAL_STEPS + MIXTRAL_SELECTIVE_STEPS
+    # the forward and the remat recompute each read the sizes once a layer
+    assert syncs == 2 * cfg.n_layers * n_steps, syncs
+    assert not any(launches.values()), launches
+    state_bytes = sum(t.numel() * t.element_size()
+                      for s in opt.state.values() for t in s.values()
+                      if isinstance(t, torch.Tensor)
+                      and t.device.type == device.type)
+    per_expert = [torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+                  .tolist() for idx, _ in routed[:cfg.n_layers]]
+    log(f"Mixtral training: losses {[round(x, 4) for x, _ in losses]}, "
+        f"grad norms {[round(n, 4) for _, n in losses]}")
+    for policy, (step_s, peak, steps) in runs.items():
+        tok_s = B * L / step_s
+        mfu = tok_s * tm.flops_per_token(cfg, L) / BF16_FLOPS
+        log(f"Mixtral training (remat {policy}): step {step_s * 1e3:.1f} ms "
+            f"(mean of {steps} timed), "
+            f"{tok_s:.0f} tokens/s, MFU {mfu:.1%} of 989 TFLOP/s (H100 "
+            f"SXM dense bf16 peak; flops_per_token on active parameters), "
+            f"peak memory {peak} bytes (torch.cuda.max_memory_allocated); "
+            f"{card}")
+    log(f"Mixtral training: optimizer state {state_bytes} bytes on the "
+        f"card; MoE segment-size reads {syncs} over {n_steps} steps "
+        f"({syncs // n_steps} a step: forward + recompute per layer); port "
+        f"kernel launches {sum(launches.values())}; tokens per expert per "
+        f"layer at the last remat-full step {per_expert}")
+    if profile:
+        step_s = runs["full"][0]
+        loss = functools.partial(tm.loss_fn, cfg=cfg)
+        step_fn = train["full"][1]
+        bd = profile_train_step(loss, optimizer, params, opt, tokens,
+                                steps=2, warmup=1, emit=False)
+        log(f"Mixtral training: profile_train_step step "
+            f"{bd.step_time_s * 1e3:.1f} ms, phases ms "
+            f"{json.dumps({k: round(x, 2) for k, x in bd.phase_ms().items()})}")
+        groups, busy, share, top_rest = profile_mixtral_step(
+            lambda: step_fn(params, opt, tokens), device, cfg, L)
+        log(f"Mixtral training: one remat-full step under the profiler: "
+            f"device busy {busy:.1f} ms = {share:.1%} of its wall time; "
+            f"by group (ms, share of busy) " + json.dumps(
+                {k: [round(v, 2), round(v / busy, 4) if busy else 0.0]
+                 for k, v in groups.items()})
+            + f"; largest in the rest (ms): "
+            + json.dumps({k: round(v, 2) for k, v in top_rest}))
+    assert not any(port_launch_counts().values())
+    return params, cfg
+
+
+def phase_mixtral_routing(device, params, cfg, batch=ROUTING_BATCH):
+    """The bf16 model's top-k experts against its own fp32 forward, layer
+    by layer, each run on its own activations, under no_grad. A token
+    whose experts differ in one layer carries an O(1) difference into the
+    next, so in each layer the tokens held to the margin are those whose
+    experts agreed in every earlier layer."""
+    from ray_tpu_torch.models import mixtral as tm
+
+    g = torch.Generator(device=device).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, batch, generator=g,
+                           device=device)
+    probs = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            with recording(tm, "_router_probs", probs.setdefault(dtype, [])):
+                tm.forward(params, tokens,
+                           dataclasses.replace(cfg, dtype=dtype))
+    shares, worst, held = [], [], []
+    agreed = torch.ones(batch[0] * batch[1], dtype=torch.bool,
+                        device=device)
+    for p16, p32 in zip(probs[torch.bfloat16], probs[torch.float32]):
+        top16 = p16.topk(cfg.top_k, dim=-1).indices.sort(-1).values
+        top32 = p32.topk(cfg.top_k + 1, dim=-1)
+        gap = top32.values[:, -2] - top32.values[:, -1]
+        same = (top16 == top32.indices[:, :-1].sort(-1).values).all(-1)
+        shares.append(round(same.float().mean().item(), 4))
+        differ = agreed & ~same
+        worst.append(gap[differ].max().item() if differ.any() else 0.0)
+        held.append(int((agreed & (gap > ROUTING_MARGIN)).sum()))
+        agreed &= same
+    log(f"Mixtral routing, bf16 vs fp32 at full width (B {batch[0]} L "
+        f"{batch[1]}): tokens with the same top-{cfg.top_k}, per layer "
+        f"{shares}; among tokens that agreed in every earlier layer, the "
+        f"largest fp32 2nd/3rd gap of a token that differs, per layer "
+        f"{[round(w, 5) for w in worst]}; margin {ROUTING_MARGIN:g}, "
+        f"tokens held to it per layer {held}")
+    assert max(worst) <= ROUTING_MARGIN, (worst, ROUTING_MARGIN)
+
+
+def phase_mixtral_oracle(device, config=None, batch=MIXTRAL_ORACLE_BATCH):
+    """A small fp32 Mixtral on ``device`` against the same parameters and
+    tokens on the CPU: loss, aux, routing and every gradient."""
+    from ray_tpu_torch.models import mixtral as tm
+    from ray_tpu_torch.train import param_leaves
+
+    cfg = tm.MixtralConfig.mixtral_8x7b(**(config or MIXTRAL_ORACLE),
+                                        dtype=torch.float32)
+    cpu = torch.device("cpu")
+    init = tm.init_params(cfg, seed=3, device=cpu)
+    tokens = torch.randint(0, cfg.vocab_size, batch,
+                           generator=torch.Generator().manual_seed(4))
+    results = {}
+    for dev in (cpu, device):
+        p = {k: v.to(dev, copy=True).requires_grad_()
+             if isinstance(v, torch.Tensor) else
+             {n: t.to(dev, copy=True).requires_grad_() for n, t in v.items()}
+             for k, v in init.items()}
+        routed, aux = [], []
+        with recording(tm, "_top_k", routed), \
+                recording(tm, "_aux_loss", aux):
+            loss = tm.loss_fn(p, tokens.to(dev), cfg)
+            loss.backward()
+        results[dev.type] = (
+            loss.item(), torch.stack(aux[:cfg.n_layers]).mean().item(),
+            [i.cpu() for i, _ in routed[:cfg.n_layers]],
+            [leaf.grad.cpu() for leaf in param_leaves(p)])
+    (lc, ac, ic, gc), (ld, ad, idd, gd) = results["cpu"], \
+        results[device.type]
+    assert abs(ld - lc) <= MIXTRAL_ORACLE_RTOL * abs(lc), (ld, lc)
+    assert abs(ad - ac) <= MIXTRAL_ORACLE_RTOL * abs(ac), (ad, ac)
+    for a, b in zip(idd, ic):
+        assert torch.equal(a.sort(-1).values, b.sort(-1).values)
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(gd, gc))
+    log(f"Mixtral oracle (dim {cfg.dim}, {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, {cfg.n_layers} layers, fp32, B {batch[0]} L "
+        f"{batch[1]}): loss {ld:.7f} on the card vs {lc:.7f} on the CPU, "
+        f"aux {ad:.7f} vs {ac:.7f}, routing equal, {len(gd)} gradients, "
+        f"worst {worst:.2e} of the leaf's largest value")
+    assert worst <= MIXTRAL_ORACLE_RTOL, worst
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1628,6 +1967,12 @@ def main():
     torch.cuda.empty_cache()
     phase_train_oracle(device)
     phase_optimizer(device)
+    torch.cuda.empty_cache()
+    mixtral_params, mixtral_cfg = phase_mixtral(device, card=card)
+    phase_mixtral_routing(device, mixtral_params, mixtral_cfg)
+    del mixtral_params
+    torch.cuda.empty_cache()
+    phase_mixtral_oracle(device)
 
     bf16 = kern["bf16"]
     record = {"kernels": [{

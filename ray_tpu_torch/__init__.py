@@ -1,7 +1,8 @@
 """ray_tpu_torch — the PyTorch + CUDA port of ray_tpu's serving and
 single-card training paths.
 
-The Llama model and its loss; the ragged paged-KV attention and flash
+The Llama and Mixtral models and their losses, the MLP, and the routed
+MoE FFN (``parallel/moe.py``); the ragged paged-KV attention and flash
 attention forward and backward (hand-written CUDA C++ kernels for Hopper
 under ``ops/csrc/``, each with a plain PyTorch version beside it); the
 continuous-batching ``InferenceEngine`` with its flight recorder and
@@ -22,6 +23,9 @@ _LAZY = {
     "init_params": ("ray_tpu_torch.models.llama", "init_params"),
     "forward": ("ray_tpu_torch.models.llama", "forward"),
     "loss_fn": ("ray_tpu_torch.models.llama", "loss_fn"),
+    "MLPConfig": ("ray_tpu_torch.models.mlp", "MLPConfig"),
+    "mlp_init": ("ray_tpu_torch.models.mlp", "mlp_init"),
+    "mlp_apply": ("ray_tpu_torch.models.mlp", "mlp_apply"),
     "make_train_step": ("ray_tpu_torch.train.train_step", "make_train_step"),
     "profile_train_step": ("ray_tpu_torch.train.step_profiler",
                            "profile_train_step"),

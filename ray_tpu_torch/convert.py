@@ -3,13 +3,13 @@
 without this module importing JAX) to the port's dict of tensors, and
 back to numpy.
 
-Names, nesting and shapes are the same in both packages
-(``models/llama.py: init_params``), so conversion is leaf by leaf.
+Names, nesting and shapes are the same in both packages (dicts, and
+lists such as the MLP's layers), so conversion is leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -26,24 +26,30 @@ def _to_tensor(leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """JAX parameter tree -> the port's {name: tensor} tree on ``device``
-    (the card unless the caller asks for the CPU; raises when there is
-    no card), dtypes kept."""
+def _map(fn: Callable[[Any], Any], tree):
+    """fn over the leaves of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def from_jax(tree, device="cuda"):
+    """JAX parameter tree -> the port's tree of tensors on ``device`` (the
+    card unless the caller asks for the CPU; raises when there is no
+    card), dtypes kept."""
     dev = resolve_device(device)
-    return {k: from_jax(v, dev) if isinstance(v, dict)
-            else _to_tensor(v, dev) for k, v in tree.items()}
+    return _map(lambda leaf: _to_tensor(leaf, dev), tree)
 
 
-def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_numpy(tree):
     """The port's tensor tree -> numpy arrays (host copies). bf16 leaves
     become float32 arrays, which hold every bf16 value exactly (numpy has
     no bf16 of its own); ``jnp.asarray(a, jnp.bfloat16)`` restores them."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = to_numpy(v)
-        else:
-            t = v.detach().cpu()
-            out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return out
+    return _map(_to_numpy, tree)

@@ -8,14 +8,18 @@ half-split rope, causal softmax in fp32, tied-embedding head that
 accumulates and returns fp32 logits. Attention is "full" (plain torch) or
 "flash" (``ops.flash_attention``: the CUDA kernels on the card). Remat is
 ``torch.utils.checkpoint`` per layer, its policies saving what the JAX
-policies save. Not in this port yet: the pipeline, ring and Ulysses paths
-and the fsdp-overlap loss (they need a device mesh).
+policies save ("selective": the tensors tagged by ``checkpoint_name``).
+The attention block is shared with ``models/mixtral.py``. Not in this
+port yet: the pipeline, ring and Ulysses paths and the fsdp-overlap loss
+(they need a device mesh).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Dict
 
 import torch
@@ -93,12 +97,8 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
         return torch.ones(shape, dtype=pd, device=dev)
 
     def dense(*shape, fan_in=None):
-        scale = (fan_in if fan_in is not None else shape[-2]) ** -0.5
-        out = torch.empty(shape, dtype=pd, device=dev)
-        for part in (out if out.dim() == 3 else [out]):
-            part.copy_(torch.randn(part.shape, generator=g, device=dev)
-                       * scale)
-        return out
+        return dense_init(g, shape, pd,
+                          fan_in if fan_in is not None else shape[-2])
 
     return {
         "embed": dense(cfg.vocab_size, d, fan_in=d),
@@ -115,6 +115,17 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
         },
         "final_norm": norm_init(d),
     }
+
+
+def dense_init(g: torch.Generator, shape, dtype, fan_in) -> torch.Tensor:
+    """N(0, 1/fan_in) values of ``shape`` on ``g``'s device, drawn one
+    trailing matrix at a time (one layer's, or one expert's), so the fp32
+    scratch stays one matrix's size."""
+    out = torch.empty(shape, dtype=dtype, device=g.device)
+    for part in out.view(-1, *shape[-2:]):
+        part.copy_(torch.randn(part.shape, generator=g, device=g.device)
+                   * fan_in ** -0.5)
+    return out
 
 
 def _rmsnorm(x, w, eps):
@@ -194,17 +205,60 @@ def head_logits(x, embed):
     return x.float() @ w.float().t()
 
 
-# aten ops whose outputs each policy saves. JAX's "selective" saves the 7
-# projection products per layer (tagged by name); here the layer's only
-# 2-D products are those 7 (aten.mm; aten._int_mm with the int8 MLP), so
-# "selective" and "dots_no_batch" save the same tensors; "dots" also saves
-# the batched attention products (aten.bmm: the [B, H, L, L] scores of
-# full attention), as JAX's checkpoint_dots does.
-_PROJECTIONS = (torch.ops.aten.mm.default, torch.ops.aten._int_mm.default)
+#: the names ``checkpoint_name`` gives the attention and MLP projections
+#: and Mixtral's combined expert output: what remat_policy "selective"
+#: saves (and nothing else), as in the JAX package
+SELECTIVE_SAVE_NAMES = ("attn_q", "attn_k", "attn_v", "attn_o",
+                        "mlp_gate", "mlp_up", "mlp_down",
+                        "moe_out")
+
+_tag = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """The port's ``jax.ad_checkpoint.checkpoint_name``: a block around the
+    one op that produces the named tensor. Under remat policy "selective"
+    the outputs of the ops run inside a block named in
+    SELECTIVE_SAVE_NAMES are saved for the backward; everything else is
+    recomputed. It is a block and not a call on the result because
+    PyTorch's selective checkpoint decides for each op as it runs."""
+    outer = getattr(_tag, "name", None)
+    _tag.name = name
+    try:
+        yield
+    finally:
+        _tag.name = outer
+
+
+def _projection(h, w, name):
+    """h [..., K] @ w [K, N] as one 2-D product (``aten.mm``) tagged
+    ``name``."""
+    a = h.reshape(-1, h.shape[-1])
+    with checkpoint_name(name):
+        out = torch.mm(a, w)
+    return out.view(*h.shape[:-1], w.shape[-1])
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    """Save what runs inside a block named in SELECTIVE_SAVE_NAMES. The
+    int8 MLP's products are untagged (``int8_matmul`` quantizes its
+    operands around its one product) and are saved by op, as
+    ``aten._int_mm`` outputs."""
+    saved = (getattr(_tag, "name", None) in SELECTIVE_SAVE_NAMES
+             or op is torch.ops.aten._int_mm.default)
+    return (CheckpointPolicy.MUST_SAVE if saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# aten ops whose outputs the "dots" policies save: every 2-D product
+# (aten.mm; aten._int_mm with the int8 MLP), and for "dots" also the
+# batched attention products (aten.bmm: the [B, H, L, L] scores of full
+# attention), as JAX's checkpoint_dots does
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten._int_mm.default)
 _SAVED_OPS = {
-    "selective": _PROJECTIONS,
-    "dots_no_batch": _PROJECTIONS,
-    "dots": _PROJECTIONS + (torch.ops.aten.bmm.default,),
+    "dots_no_batch": _PRODUCTS,
+    "dots": _PRODUCTS + (torch.ops.aten.bmm.default,),
 }
 
 
@@ -216,36 +270,32 @@ def _save_ops_policy(ops, ctx, op, *args, **kwargs):
 def remat_policy_fn(name: str):
     """Config string -> the ``context_fn`` of ``torch.utils.checkpoint``:
     for "full" the default (save only the layer's input, recompute the
-    rest); for the others a selective-checkpoint context saving the ops'
-    outputs listed in ``_SAVED_OPS``. Raises on an unknown name."""
+    rest); for "selective" a selective-checkpoint context saving the
+    tagged tensors (``_selective_policy``); for the "dots" policies one
+    saving the outputs of the ops in ``_SAVED_OPS``. Raises on an unknown
+    name."""
     if name == "full":
         return noop_context_fn
-    if name not in _SAVED_OPS:
+    if name == "selective":
+        policy = _selective_policy
+    elif name in _SAVED_OPS:
+        policy = functools.partial(_save_ops_policy, _SAVED_OPS[name])
+    else:
         raise ValueError(f"unknown remat_policy {name!r}")
-    return functools.partial(
-        create_selective_checkpoint_contexts,
-        functools.partial(_save_ops_policy, _SAVED_OPS[name]))
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn):
-    """One transformer block; lp leaves have the layer axis removed."""
+def _attention(lp: Params, x, cfg, positions, attn_fn):
+    """x + the attention block of rmsnorm(x): the half of a layer that
+    Llama and Mixtral share (leaves attn_norm, wq, wk, wv, wo)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, L, _ = x.shape
     cd = cfg.dtype
 
-    if cfg.int8_mlp:
-        from ray_tpu_torch.ops.int8 import int8_matmul
-
-        def mlp_mm(a, w):
-            return int8_matmul(a, w.to(cd))
-    else:
-        def mlp_mm(a, w):
-            return a @ w.to(cd)
-
     h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = h @ lp["wq"].to(cd)
-    k = h @ lp["wk"].to(cd)
-    v = h @ lp["wv"].to(cd)
+    q = _projection(h, lp["wq"].to(cd), "attn_q")
+    k = _projection(h, lp["wk"].to(cd), "attn_k")
+    v = _projection(h, lp["wv"].to(cd), "attn_v")
     q = _rope(q.reshape(B, L, hq, hd), positions, cfg.rope_theta)
     k = _rope(k.reshape(B, L, hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(B, L, hkv, hd)
@@ -254,12 +304,27 @@ def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn):
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     o = attn_fn(q, k, v).reshape(B, L, hq * hd)
-    x = x + o @ lp["wo"].to(cd)
+    return x + _projection(o, lp["wo"].to(cd), "attn_o")
 
+
+def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn):
+    """One transformer block; lp leaves have the layer axis removed."""
+    cd = cfg.dtype
+
+    if cfg.int8_mlp:
+        from ray_tpu_torch.ops.int8 import int8_matmul
+
+        def mlp_mm(a, w, name):
+            return int8_matmul(a, w.to(cd))
+    else:
+        def mlp_mm(a, w, name):
+            return _projection(a, w.to(cd), name)
+
+    x = _attention(lp, x, cfg, positions, attn_fn)
     h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(mlp_mm(h, lp["w_gate"]))
-    up = mlp_mm(h, lp["w_up"])
-    return x + mlp_mm(gate * up, lp["w_down"])
+    gate = F.silu(mlp_mm(h, lp["w_gate"], "mlp_gate"))
+    up = mlp_mm(h, lp["w_up"], "mlp_up")
+    return x + mlp_mm(gate * up, lp["w_down"], "mlp_down")
 
 
 def _make_attn_fn(cfg: LlamaConfig):
@@ -274,20 +339,33 @@ def _make_attn_fn(cfg: LlamaConfig):
     raise ValueError(f"unknown attention {cfg.attention!r}")
 
 
-def _scan_layers(layers: Params, x, cfg: LlamaConfig, positions, attn_fn):
-    """Apply the stacked layers in order. With ``cfg.remat`` and grad
-    enabled each layer runs under ``torch.utils.checkpoint`` with the
-    policy's context. The stacked leaves are unbound once, so the
+def remat_layer(body, cfg):
+    """body(lp, x) under ``torch.utils.checkpoint`` with the remat policy's
+    context when ``cfg.remat`` is set and grad is enabled; the policy name
+    is checked whenever ``cfg.remat`` is set."""
+    if not cfg.remat:
+        return body
+    context_fn = remat_policy_fn(cfg.remat_policy)
+    if not torch.is_grad_enabled():
+        return body
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             context_fn=context_fn)
+
+
+def unstack_layers(layers: Params, n_layers: int):
+    """Each layer's leaves, from one unbind of each stacked leaf, so the
     backward stacks each leaf's layer gradients in one op."""
-    body = functools.partial(_layer, cfg=cfg, positions=positions,
-                             attn_fn=attn_fn)
-    context_fn = remat_policy_fn(cfg.remat_policy) if cfg.remat else None
-    remat = cfg.remat and torch.is_grad_enabled()
     per_layer = {name: leaf.unbind(0) for name, leaf in layers.items()}
-    for i in range(cfg.n_layers):
-        lp = {name: leaves[i] for name, leaves in per_layer.items()}
-        x = checkpoint(body, lp, x, use_reentrant=False,
-                       context_fn=context_fn) if remat else body(lp, x)
+    return [{name: leaves[i] for name, leaves in per_layer.items()}
+            for i in range(n_layers)]
+
+
+def _scan_layers(layers: Params, x, cfg: LlamaConfig, positions, attn_fn):
+    """Apply the stacked layers in order, each under ``remat_layer``."""
+    body = remat_layer(functools.partial(
+        _layer, cfg=cfg, positions=positions, attn_fn=attn_fn), cfg)
+    for lp in unstack_layers(layers, cfg.n_layers):
+        x = body(lp, x)
     return x
 
 

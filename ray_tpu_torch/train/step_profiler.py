@@ -82,6 +82,8 @@ def _timed(fn: Callable[[], Any], device, *, steps: int, warmup: int,
 def _clone(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().clone()
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
     return {k: _clone(v) for k, v in tree.items()}
 
 

@@ -16,10 +16,12 @@ import torch
 
 
 def param_leaves(params) -> List[torch.Tensor]:
-    """The tensors of a (nested) parameter dict, in the order JAX flattens
-    a dict: by sorted key, depth first."""
+    """The tensors of a (nested) parameter dict or list, in the order JAX
+    flattens them: a dict by sorted key, a list in order, depth first."""
     if isinstance(params, torch.Tensor):
         return [params]
+    if isinstance(params, list):
+        return [leaf for p in params for leaf in param_leaves(p)]
     return [leaf for key in sorted(params) for leaf in
             param_leaves(params[key])]
 

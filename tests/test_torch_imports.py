@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     for new in ("ray_tpu_torch.util.metrics", "ray_tpu_torch.util.log_plane",
                 "ray_tpu_torch.util.trace_context",
                 "ray_tpu_torch.llm.request_log", "ray_tpu_torch.llm.batch",
-                "ray_tpu_torch.train.optim"):
+                "ray_tpu_torch.train.optim", "ray_tpu_torch.parallel.moe",
+                "ray_tpu_torch.models.mixtral", "ray_tpu_torch.models.mlp"):
         assert new in mods, new
     code = (
         "import importlib\n"
@@ -51,6 +52,13 @@ def test_every_module_imports_without_jax_or_ray_tpu():
         "for name in ray_tpu_torch.__all__:\n"
         "    getattr(ray_tpu_torch, name)\n")
     assert _run(code) == "[]"
+
+
+def test_model_modules_import_without_jax_or_ray_tpu():
+    """The second model family and the MLP on their own."""
+    assert _run("import ray_tpu_torch.models.mixtral, "
+                "ray_tpu_torch.parallel.moe, ray_tpu_torch.models.mlp\n") \
+        == "[]"
 
 
 @pytest.mark.parametrize("script", ["chip_smoke", "chip_compare"])

@@ -649,3 +649,33 @@ def test_adafactor_on_the_card_matches_the_cpu(cuda):
             assert (sa - sb).abs().max() <= 1e-5 * sb.abs().max(), key
     assert set(dev_opt.state[dev_ps[0]]) == {"step", "v_row", "v_col"}
     assert set(dev_opt.state[dev_ps[2]]) == {"step", "v"}
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_card_matches_cpu_and_repeats(cuda):
+    # the routed MoE FFN (no kernel of its own: cuBLAS products, sort,
+    # gathers and scatter-adds): fp32 on the card against the CPU, the
+    # same routing, and in bf16 two calls equal bit for bit, backward
+    # included (each index_add_ writes distinct rows)
+    from ray_tpu_torch.parallel import moe
+    g = torch.Generator().manual_seed(0)
+    params = moe.init_moe_params(256, 512, 8, seed=0, device="cpu")
+    params["w_gate"] = 256 ** -0.5 * torch.randn(8, 256, 512, generator=g)
+    x = torch.randn(1024, 256, generator=g)
+    want = moe.moe_ffn(params, x)
+    dev = {k: v.to(cuda) for k, v in params.items()}
+    got = moe.moe_ffn(dev, x.to(cuda))
+    assert torch.equal(moe._routing(dev, x.to(cuda), 2)[0].cpu(),
+                       moe._routing(params, x, 2)[0])
+    assert tolerance_ratio(got.cpu(), want) <= 1
+    half = {k: v.to(BF16).requires_grad_() for k, v in dev.items()}
+    runs = []
+    for _ in range(2):
+        xb = x.to(cuda, BF16).requires_grad_()
+        out = moe.moe_ffn(half, xb)
+        out.float().square().sum().backward()
+        runs.append([out.detach(), xb.grad] + [half[k].grad for k in half])
+        for v in half.values():
+            v.grad = None
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
