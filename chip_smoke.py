@@ -96,7 +96,19 @@ result line is printed):
      against its own fp32 forward (B 1 x L 512), which must agree on
      every token whose fp32 2nd/3rd probability gap exceeds
      ``ROUTING_MARGIN``, and a small fp32 Mixtral on the card against the
-     CPU (loss, aux, routing, every gradient).
+     CPU (loss, aux, routing, every gradient);
+ 11. RL on the card: the port's local-mode runtime
+     (``ray_tpu_torch.init(local_mode=True, num_cpus=4)``), then PPO,
+     IMPALA and DQN on CartPole and SAC on Pendulum at the JAX tests'
+     settings (tests/test_rllib.py), each ``build(device="cuda")`` and
+     ``train()``ed until the JAX test's gate on the best episode-return
+     mean, every port launch counter set to 0 before and read after (all
+     must stay 0: no Pallas kernel lies on this path); per algorithm the
+     iteration ms split into sampling and the learner update, the update
+     alone, one profiled update's device busy share, the check that a
+     runner's weights do not move with the learner's, and one update of
+     a fresh learner on the card against the CPU (fp32, each leaf within
+     1e-5 of its largest value).
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1891,6 +1903,224 @@ def phase_mixtral_oracle(device, config=None, batch=MIXTRAL_ORACLE_BATCH):
     assert worst <= MIXTRAL_ORACLE_RTOL, worst
 
 
+# ------------------------------------------------- phase 11: RL on the card
+
+def rl_cases():
+    """tests/test_rllib.py's settings and gates for each algorithm:
+    name -> (config, most iterations, gate on the best episode-return
+    mean). The model is RLlib's default module: a tanh MLP, hidden (64,
+    64), policy and value heads (SAC: actor and twin critics)."""
+    from ray_tpu_torch.rllib import (DQNConfig, IMPALAConfig, PPOConfig,
+                                     SACConfig)
+    return {
+        "PPO": (PPOConfig(num_env_runners=2, num_envs_per_runner=16,
+                          rollout_length=64, lr=1e-3, entropy_coeff=0.01,
+                          num_epochs=4, minibatches=4, seed=3), 40, 100.0),
+        "IMPALA": (IMPALAConfig(num_env_runners=2, num_envs_per_runner=16,
+                                rollout_length=32, batches_per_iteration=8,
+                                lr=1e-3, entropy_coeff=0.01, seed=0),
+                   30, 120.0),
+        "DQN": (DQNConfig(num_env_runners=2, num_envs_per_runner=8,
+                          rollout_length=32, lr=1e-3, learning_starts=500,
+                          updates_per_iter=16, target_sync_every=100,
+                          epsilon_decay_iters=25, seed=1), 60, 100.0),
+        "SAC": (SACConfig(num_env_runners=2, num_envs_per_runner=8,
+                          rollout_length=32, lr=1e-3, learning_starts=512,
+                          updates_per_iter=256, train_batch_size=256,
+                          seed=0), 60, -350.0),
+    }
+
+
+# card against CPU: each leaf within 1e-5 of its largest value, the loss
+# metric within 1e-5 of itself (the Mixtral oracle's limits)
+RL_ORACLE_RTOL = 1e-5
+# SAC's oracle update: 8 stacked batches, so that on the card the steps
+# after the learner's 3 eager warm-up steps run as replays of its graph
+RL_ORACLE_SAC_STEPS = 8
+
+
+def runner_params(handle):
+    """The parameters an EnvRunner actor holds (local mode: the actor's
+    instance lives in this process)."""
+    from ray_tpu_torch.core.worker import global_worker
+    return global_worker.backend.actors[handle.actor_id].instance.params
+
+
+def learner_call(name, algo, batch):
+    """A thunk running one update of ``algo``'s learner on ``batch`` (its
+    own replay sample for DQN and SAC)."""
+    if name == "DQN":
+        return lambda: algo.learner.update(algo.params, algo.target_params,
+                                           batch)
+    if name in ("PPO", "SAC"):
+        return lambda: algo.learner.update(algo.params, batch, algo._gen)
+    return lambda: algo.learner.update(algo.params, batch)
+
+
+def learner_batch(name, algo):
+    """A batch in the shape the algorithm's learner takes, from its own
+    runners (PPO, IMPALA) or replay buffer (DQN, SAC)."""
+    import numpy as np
+    import ray_tpu_torch
+    cfg = algo.config
+    if name == "DQN":
+        return algo.buffer.sample(cfg.train_batch_size)
+    if name == "SAC":
+        stack = [algo.buffer.sample(cfg.train_batch_size)
+                 for _ in range(cfg.updates_per_iter)]
+        return {k: np.stack([s[k] for s in stack]) for k in stack[0]}
+    if name == "IMPALA":
+        ready, _ = ray_tpu_torch.wait(list(algo._inflight), num_returns=1,
+                                      timeout=600)
+        return ray_tpu_torch.get(ready[0])
+    algo._broadcast_weights()
+    batches = ray_tpu_torch.get([r.sample.remote() for r in algo.runners],
+                                timeout=600)
+    batch = {k: np.concatenate([b[k] for b in batches], axis=1)
+             for k in ("obs", "actions", "logp", "values", "rewards",
+                       "dones")}
+    batch["last_value"] = np.concatenate([b["last_value"] for b in batches])
+    return batch
+
+
+def check_runner_snapshot(algo, batch_update):
+    """The weights a runner holds share no storage with the learner's and
+    do not change across the learner's next update."""
+    from ray_tpu_torch.rllib.module import snapshot
+    from ray_tpu_torch.train import param_leaves
+    held = runner_params(algo.runners[0])
+    before = snapshot(held)
+    ptrs = {t.data_ptr() for t in param_leaves(algo.params)}
+    assert not ptrs & {t.data_ptr() for t in param_leaves(held)}
+    new, _ = batch_update()
+    assert any(not torch.equal(a, b) for a, b in zip(
+        param_leaves(new), param_leaves(algo.params)))
+    for a, b in zip(param_leaves(held), param_leaves(before)):
+        assert torch.equal(a, b), "a runner's weights moved with the learner"
+
+
+def rl_oracle(name, params, batch, device, target=None):
+    """One update of a fresh ``name`` learner on the card and on the CPU,
+    from the same parameters and batch, with the same permutations (PPO)
+    or noise (SAC): -> the worst leaf ratio and the loss metric's, each
+    against RL_ORACLE_RTOL (at most 1 passes)."""
+    import numpy as np
+    from ray_tpu_torch.rllib import dqn, impala, learner, sac
+    from ray_tpu_torch.rllib.env import PendulumVectorEnv
+    from ray_tpu_torch.rllib.module import tree_map
+    from ray_tpu_torch.train import param_leaves
+    g = torch.Generator().manual_seed(11)
+    if name == "PPO":
+        n = batch["rewards"].size
+        perms = torch.stack([torch.randperm(n, generator=g)
+                             for _ in range(4)]).numpy()
+    if name == "SAC":
+        batch = {k: v[:RL_ORACLE_SAC_STEPS] for k, v in batch.items()}
+        noise = {k: torch.randn(batch["actions"].shape, generator=g).numpy()
+                 for k in ("next", "actor")}
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        if name == "PPO":
+            new, m = learner.PPOLearner(lr=1e-3).update(p, batch,
+                                                        perms=perms)
+        elif name == "IMPALA":
+            new, m = impala.IMPALALearner(lr=1e-3).update(p, batch)
+        elif name == "DQN":
+            t = tree_map(lambda t: t.to(dev, copy=True), target)
+            new, m = dqn.DQNLearner(lr=1e-3).update(p, t, batch)
+        else:
+            new, m = sac.SACLearner(
+                lr=1e-3, action_scale=PendulumVectorEnv.action_scale
+            ).update(p, batch, noise=noise)
+        out[dev.type] = ([t.cpu() for t in param_leaves(new)],
+                         m["critic_loss" if name == "SAC" else "loss"])
+    (want, lw), (got, lg) = out["cpu"], out[device.type]
+    leaf = max(((a - b).abs().max() / (RL_ORACLE_RTOL * b.abs().max()))
+               .item() for a, b in zip(got, want))
+    assert np.isfinite(lg)
+    return leaf, abs(lg - lw) / (RL_ORACLE_RTOL * abs(lw))
+
+
+def phase_rl(device, card="the CPU", cases=None):
+    """RLlib on ``device`` through the user's entry points: the port's
+    local-mode runtime, then each algorithm's ``build(device=)`` and
+    ``train()`` until its gate, with every port launch counter set to 0
+    just before and read just after (no Pallas kernel lies on this path,
+    so all must stay 0); per algorithm the iteration time split into
+    sampling and the learner update, the update on its own, one profiled
+    update's device busy share, the weight-snapshot check and the card
+    against the CPU. Returns {name: (iterations, best mean)}."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib.module import snapshot
+    cases = cases if cases is not None else rl_cases()
+    t_phase = time.monotonic()
+    reset_port_launch_counts()
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
+    out = {}
+    try:
+        for name, (config, iterations, gate) in cases.items():
+            algo = config.build(device=device)
+            try:
+                t0 = time.monotonic()
+                best, results, it_ms = float("-inf"), [], []
+                for _ in range(iterations):
+                    t = time.monotonic()
+                    results.append(algo.train())
+                    it_ms.append((time.monotonic() - t) * 1e3)
+                    mean = results[-1]["episode_return_mean"]
+                    if mean == mean:
+                        best = max(best, mean)
+                    if best >= gate:
+                        break
+                train_s = time.monotonic() - t0
+                sample_ms = [r["time_sample_s"] * 1e3 for r in results]
+                learn_ms = [r["time_learn_s"] * 1e3 for r in results]
+                batch = learner_batch(name, algo)
+                update = learner_call(name, algo, batch)
+                if name == "IMPALA":
+                    ray_tpu_torch.wait(list(algo._inflight),
+                                       num_returns=len(algo._inflight),
+                                       timeout=600)
+                update()
+                alone = []
+                for _ in range(3):
+                    t = time.monotonic()
+                    update()
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    alone.append((time.monotonic() - t) * 1e3)
+                alone_ms = sum(alone) / len(alone)
+                _, busy = profile_device(update, device, alone_ms)
+                check_runner_snapshot(algo, update)
+                leaf, loss = rl_oracle(
+                    name, snapshot(algo.params), batch, device,
+                    snapshot(algo.target_params) if name == "DQN" else None)
+            finally:
+                algo.stop()
+            log(f"RL {name}: best episode-return mean {best:.2f} after "
+                f"{len(results)} iterations (gate {gate}, at most "
+                f"{iterations}), {train_s:.2f} s; iteration ms mean "
+                f"{sum(it_ms) / len(it_ms):.2f} (sampling, the get on the "
+                f"runners, {sum(sample_ms) / len(sample_ms):.2f}; learner "
+                f"update {sum(learn_ms) / len(learn_ms):.2f}); learner "
+                f"update alone {alone_ms:.2f} ms (mean of 3); one profiled "
+                f"update: {busy}; card against CPU: worst leaf "
+                f"{leaf * RL_ORACLE_RTOL:.2e} of its largest value, loss "
+                f"{loss * RL_ORACLE_RTOL:.2e} of itself; runner snapshot "
+                f"held; {card}")
+            assert best >= gate, f"{name} failed to learn: best {best}"
+            assert leaf <= 1 and loss <= 1, (name, leaf, loss)
+            out[name] = (len(results), best)
+    finally:
+        ray_tpu_torch.shutdown()
+    launches = port_launch_counts()
+    assert not any(launches.values()), launches
+    log(f"RL phase: {time.monotonic() - t_phase:.1f} s, port kernel "
+        f"launches {sum(launches.values())}; {card}")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1973,6 +2203,8 @@ def main():
     del mixtral_params
     torch.cuda.empty_cache()
     phase_mixtral_oracle(device)
+    torch.cuda.empty_cache()
+    phase_rl(device, card)
 
     bf16 = kern["bf16"]
     record = {"kernels": [{

@@ -1,5 +1,13 @@
-"""ray_tpu_torch — the PyTorch + CUDA port of ray_tpu's serving and
-single-card training paths.
+"""ray_tpu_torch — the PyTorch + CUDA port of ray_tpu's serving,
+single-card training and RLlib paths.
+
+The runtime is the JAX package's local mode, copied (``core/``,
+``remote_function.py``, ``actor.py``, ``exceptions.py``):
+``init(local_mode=True)``, then tasks and actors through ``remote`` and
+``get``/``put``/``wait``, run as threads of this process. The cluster
+runtime is not part of this package yet, so ``init()`` without
+``local_mode=True`` raises. RLlib (``rllib/``: PPO, IMPALA, DQN and SAC
+with their env runners) runs on it.
 
 The Llama and Mixtral models and their losses, the MLP, and the routed
 MoE FFN (``parallel/moe.py``); the ragged paged-KV attention and flash
@@ -15,8 +23,121 @@ neither ``jax`` nor anything of ``ray_tpu``.
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where every kernel's plain version runs instead.
 
-Submodules import lazily (PEP 562), as in ``ray_tpu.llm``.
+Submodules beyond the runtime import lazily (PEP 562), as in
+``ray_tpu.llm``.
 """
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from ray_tpu_torch import exceptions
+from ray_tpu_torch.actor import ActorHandle, get_actor
+from ray_tpu_torch.core.generator import ObjectRefGenerator
+from ray_tpu_torch.core.object_ref import ObjectRef
+from ray_tpu_torch.core.worker import global_worker, require_connected
+from ray_tpu_torch.remote_function import remote_decorator as remote
+
+_RUNTIME = [
+    "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
+    "kill", "cancel", "get_actor", "method", "get_runtime_context",
+    "ObjectRef", "ObjectRefGenerator", "ActorHandle", "exceptions",
+]
+
+
+def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
+         num_gpus: Optional[int] = None,
+         resources: Optional[Dict[str, float]] = None,
+         local_mode: bool = False,
+         ignore_reinit_error: bool = False) -> Dict[str, str]:
+    """Start the in-process runtime: ``local_mode=True`` runs tasks on a
+    thread pool and each actor on a thread of its own (reference
+    local-mode semantics). The cluster runtime is not ported yet, so
+    anything else raises."""
+    if global_worker.connected:
+        if ignore_reinit_error:
+            return {"address": "existing"}
+        raise RuntimeError("ray_tpu_torch.init() called twice "
+                           "(pass ignore_reinit_error=True to tolerate)")
+    if not local_mode:
+        raise NotImplementedError(
+            "ray_tpu_torch.init() supports local mode only "
+            "(init(local_mode=True)); the cluster runtime waits for ROADMAP "
+            "Queue 1 item 7")
+    merged = dict(resources or {})
+    if num_gpus is not None:
+        merged["GPU"] = float(num_gpus)
+    global_worker.connect_local(num_cpus=num_cpus, resources=merged)
+    return {"address": "local"}
+
+
+def shutdown() -> None:
+    if global_worker.connected:
+        global_worker.disconnect()
+
+
+def is_initialized() -> bool:
+    return global_worker.connected
+
+
+def get(refs, *, timeout: Optional[float] = None):
+    return require_connected().get(refs, timeout=timeout)
+
+
+def put(value) -> ObjectRef:
+    return require_connected().put(value)
+
+
+def wait(refs, *, num_returns: int = 1, timeout: Optional[float] = None,
+         fetch_local: bool = True):
+    return require_connected().wait(refs, num_returns=num_returns,
+                                    timeout=timeout, fetch_local=fetch_local)
+
+
+def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
+    require_connected().kill_actor(actor.actor_id, no_restart)
+
+
+def cancel(ref: ObjectRef, *, force: bool = False,
+           recursive: bool = True) -> None:
+    require_connected().cancel_task(ref, force=force, recursive=recursive)
+
+
+def method(**opts):
+    """Decorator carrying per-method defaults (e.g. num_returns) on actors."""
+    def wrap(fn):
+        fn.__rtpu_method_options__ = opts
+        return fn
+    return wrap
+
+
+class _RuntimeContext:
+    @property
+    def job_id(self):
+        return global_worker.job_id
+
+    @property
+    def node_id(self):
+        return global_worker.node_id
+
+    @property
+    def worker_id(self):
+        return global_worker.worker_id
+
+    @property
+    def task_id(self):
+        return global_worker.current_task_id
+
+    def get(self) -> Dict[str, str]:
+        return {
+            "job_id": self.job_id.hex(),
+            "worker_id": self.worker_id.hex(),
+        }
+
+
+def get_runtime_context() -> _RuntimeContext:
+    return _RuntimeContext()
+
 
 _LAZY = {
     "LlamaConfig": ("ray_tpu_torch.models.llama", "LlamaConfig"),
@@ -38,7 +159,7 @@ _LAZY = {
     "Adafactor": ("ray_tpu_torch.train.optim", "Adafactor"),
 }
 
-__all__ = list(_LAZY)
+__all__ = _RUNTIME + list(_LAZY)
 
 
 def __getattr__(name: str):

@@ -1,0 +1,172 @@
+"""Streaming generator returns: ObjectRefGenerator.
+
+Role-equivalent to the reference's streaming generators (reference:
+python/ray/_raylet.pyx:1348 ObjectRefGenerator, :1391 the streaming
+num_returns protocol): a task or actor method declared with
+``num_returns="streaming"`` executes a (sync or async) generator on the
+worker; every yielded value is shipped to the owner AS IT IS PRODUCED and
+becomes an ObjectRef the consumer can ``get`` before the task finishes —
+the primitive under Serve token streaming.
+
+Transport: the executing worker sends each item to the owner's RPC server
+(``stream_item``, small values inline, large sealed into shm with the
+location) and finishes with the ordinary push-task reply carrying the
+final item count — so completion rides the existing retry/error machinery.
+Item readiness and completion travel on different sockets; the consumer
+therefore waits on item N's memory-store readiness OR a recorded total
+< N, whichever comes first (ordering between the two channels is not
+assumed).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+from ray_tpu_torch.core.ids import ObjectID, TaskID, WorkerID
+from ray_tpu_torch.core.object_ref import ObjectRef
+
+
+class StreamState:
+    """Owner-side record of one streaming task's progress."""
+
+    __slots__ = ("total", "error", "cv", "arrived", "closed")
+
+    def __init__(self):
+        self.total: Optional[int] = None   # item count, set at completion
+        self.error: Optional[BaseException] = None
+        self.cv = threading.Condition()
+        # indices whose values landed in the owner (memory store or shm
+        # location) — the generator's cleanup frees whatever the consumer
+        # never turned into an ObjectRef, otherwise every abandoned stream
+        # leaks its items in the owner process
+        self.arrived: set = set()
+        # set by generator cleanup BEFORE draining `arrived`: an item
+        # handler that loses the race records nothing and frees its item
+        # itself (record_arrival -> False)
+        self.closed = False
+
+    def finish(self, total: Optional[int],
+               error: Optional[BaseException] = None) -> None:
+        with self.cv:
+            if total is not None:
+                self.total = total
+            self.error = error if self.error is None else self.error
+            self.cv.notify_all()
+
+    def record_arrival(self, index: int) -> bool:
+        with self.cv:
+            if self.closed:
+                return False
+            self.arrived.add(index)
+            return True
+
+
+class ObjectRefGenerator:
+    """Iterator of ObjectRefs for a streaming task's yielded values.
+
+    ``next(gen)`` blocks until the next item is available (or the stream
+    ends → StopIteration, or the task failed → raises the task's error
+    after all successfully-yielded items are consumed).
+    """
+
+    def __init__(self, task_id: TaskID, owner: WorkerID, worker,
+                 state: StreamState):
+        self._task_id = task_id
+        self._owner = owner
+        self._worker = worker
+        self._state = state
+        self._next_idx = 1
+
+    def __iter__(self) -> "ObjectRefGenerator":
+        return self
+
+    def __next__(self) -> ObjectRef:
+        return self._next(timeout=None)
+
+    def _next(self, timeout: Optional[float]) -> ObjectRef:
+        oid = ObjectID.for_return(self._task_id, self._next_idx)
+        st = self._state
+
+        def _wake() -> None:
+            with st.cv:
+                st.cv.notify_all()
+
+        # low-latency wakeup on item arrival (fires immediately if already
+        # there); the short cv poll below is only a safety net
+        self._worker.memory_store.add_ready_callback(oid, _wake)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            if self._worker.memory_store.is_ready(oid):
+                self._next_idx += 1
+                return ObjectRef(oid, self._owner)
+            with st.cv:
+                if st.total is not None and self._next_idx > st.total:
+                    # drop the entry the probe above force-created for an
+                    # index that will never be produced (it holds the
+                    # _wake callback too) — without this every consumed
+                    # stream leaks one memory-store record
+                    self._worker.memory_store.delete(oid)
+                    if st.error is not None:
+                        raise st.error
+                    raise StopIteration
+                if st.error is not None and st.total is None:
+                    # transport-level failure: no more items will arrive
+                    self._worker.memory_store.delete(oid)
+                    raise st.error
+                st.cv.wait(timeout=0.02)
+            if deadline is not None and time.monotonic() >= deadline:
+                from ray_tpu_torch.exceptions import GetTimeoutError
+                raise GetTimeoutError(
+                    f"streaming item {self._next_idx} of task "
+                    f"{self._task_id.hex()[:16]} not ready in {timeout}s")
+
+    def completed(self) -> bool:
+        with self._state.cv:
+            return self._state.total is not None \
+                or self._state.error is not None
+
+    def _cleanup(self) -> None:
+        """Free items the consumer never took a ref to (dropped generator
+        mid-stream). Consumed indices (< _next_idx) are governed by their
+        ObjectRefs' refcounts; everything else that arrived is freed here
+        and the backend forgets the stream state."""
+        st = self._state
+        with st.cv:
+            st.closed = True
+            leftover = sorted(i for i in st.arrived if i >= self._next_idx)
+            st.arrived.clear()
+        backend = getattr(self._worker, "backend", None)
+        if backend is not None:
+            try:
+                backend.unregister_stream(self._task_id)
+            except Exception:  # noqa: BLE001
+                pass
+        if not leftover:
+            return
+        worker, task_id = self._worker, self._task_id
+
+        def _free_all() -> None:
+            # off-thread: each shm-resident item's free is a blocking node
+            # RPC — running N of those inside __del__ would stall whatever
+            # application thread happened to drop the last reference
+            for i in leftover:
+                oid = ObjectID.for_return(task_id, i)
+                try:
+                    worker.refcounter.untrack(oid)
+                    worker._free_object(oid)
+                except Exception:  # noqa: BLE001 — cleanup is best-effort
+                    pass
+
+        threading.Thread(target=_free_all, daemon=True,
+                         name="stream-reap").start()
+
+    def __del__(self):
+        try:
+            self._cleanup()
+        except Exception:  # noqa: BLE001 — never raise from GC
+            pass
+
+    def __repr__(self):
+        return f"ObjectRefGenerator({self._task_id.hex()[:16]})"

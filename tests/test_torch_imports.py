@@ -42,7 +42,21 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.util.trace_context",
                 "ray_tpu_torch.llm.request_log", "ray_tpu_torch.llm.batch",
                 "ray_tpu_torch.train.optim", "ray_tpu_torch.parallel.moe",
-                "ray_tpu_torch.models.mixtral", "ray_tpu_torch.models.mlp"):
+                "ray_tpu_torch.models.mixtral", "ray_tpu_torch.models.mlp",
+                "ray_tpu_torch.exceptions", "ray_tpu_torch.remote_function",
+                "ray_tpu_torch.actor", "ray_tpu_torch.core.ids",
+                "ray_tpu_torch.core.task_spec",
+                "ray_tpu_torch.core.object_ref",
+                "ray_tpu_torch.core.memory_store",
+                "ray_tpu_torch.core.refcount", "ray_tpu_torch.core.generator",
+                "ray_tpu_torch.core.worker",
+                "ray_tpu_torch.core.local_backend",
+                "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.replay",
+                "ray_tpu_torch.rllib.module", "ray_tpu_torch.rllib.learner",
+                "ray_tpu_torch.rllib.env_runner",
+                "ray_tpu_torch.rllib.trainer_base",
+                "ray_tpu_torch.rllib.algorithm", "ray_tpu_torch.rllib.impala",
+                "ray_tpu_torch.rllib.dqn", "ray_tpu_torch.rllib.sac"):
         assert new in mods, new
     code = (
         "import importlib\n"
@@ -59,6 +73,19 @@ def test_model_modules_import_without_jax_or_ray_tpu():
     assert _run("import ray_tpu_torch.models.mixtral, "
                 "ray_tpu_torch.parallel.moe, ray_tpu_torch.models.mlp\n") \
         == "[]"
+
+
+def test_runtime_imports_without_torch_jax_or_ray_tpu():
+    """The copied local-mode runtime needs neither torch nor JAX."""
+    code = ("import ray_tpu_torch\n"
+            "ray_tpu_torch.init(local_mode=True)\n"
+            "ray_tpu_torch.shutdown()\n"
+            "assert 'torch' not in sys.modules, 'torch'\n")
+    assert _run(code) == "[]"
+
+
+def test_rllib_imports_without_jax_or_ray_tpu():
+    assert _run("import ray_tpu_torch.rllib\n") == "[]"
 
 
 @pytest.mark.parametrize("script", ["chip_smoke", "chip_compare"])

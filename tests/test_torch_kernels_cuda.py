@@ -679,3 +679,36 @@ def test_moe_ffn_on_card_matches_cpu_and_repeats(cuda):
             v.grad = None
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ppo_update_on_card_matches_cpu(cuda):
+    # one PPOLearner update (no kernel of its own: GAE, 16 minibatch
+    # steps of the MLP's forward and backward, optax's clipped Adam) from
+    # the same parameters, batch and permutations, fp32 with TF32 off
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.learner import PPOLearner
+    from ray_tpu_torch.rllib.module import init_module
+    from ray_tpu_torch.train import param_leaves
+    params = init_module(torch.Generator().manual_seed(0), 4, 2)
+    runner = EnvRunner("CartPole-v1", 16, 64, seed=0, device="cpu")
+    runner.set_weights(params)
+    batch = runner.sample()
+    g = torch.Generator().manual_seed(1)
+    perms = torch.stack([torch.randperm(1024, generator=g)
+                         for _ in range(4)]).numpy()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, mw = PPOLearner(lr=1e-3).update(params, batch, perms=perms)
+        got, mg = PPOLearner(lr=1e-3).update(
+            {k: v.to(cuda) for k, v in params.items()}, batch, perms=perms)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(param_leaves(got), param_leaves(want)):
+        assert a.device.type == "cuda"
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+    assert abs(mg["loss"] - mw["loss"]) <= 1e-5 * abs(mw["loss"])
+    assert np.isfinite(mg["loss"])
