@@ -108,7 +108,45 @@ result line is printed):
      alone, one profiled update's device busy share, the check that a
      runner's weights do not move with the learner's, and one update of
      a fresh learner on the card against the CPU (fp32, each leaf within
-     1e-5 of its largest value).
+     1e-5 of its largest value);
+ 12. data, batch inference and BC on the card, in the port's local mode:
+     12a. ``batch_inference`` at the main path's widths (phase 4's model
+     and engine: Llama-3-8B, all 32 layers, bf16, random weights from the
+     engine's seed) over 16 rows made with ``data.from_items`` (prompts
+     of 5 to 1,000 tokens) in 4 blocks through ``ActorPoolStrategy(1)``,
+     32 new tokens each: the ragged launches, counted from 0, must equal
+     the pool's engine's count as phase 4 computes it, the plain version
+     must never run on CUDA tensors, every row must come back with its id
+     and prompt and with 32 tokens or a stop, and equal
+     ``LLMBatchPredictor`` called directly on the same blocks with the
+     same weights (built once the pool's engine is gone); rows/s,
+     generated tokens/s, the stage's ExecStats and both peaks printed;
+     12b. the same at the bench widths in fp32 through
+     ``ActorPoolStrategy(2)``: every row's tokens and finish reason equal
+     ``generate`` on that prompt alone, both engines' launches counted;
+     12c. BC: a PPO teacher (phase 11's PPO) to its gate,
+     ``record_dataset`` of 8192 rows (obs fp32, action int32), then
+     ``BCConfig(dataset, lr 1e-3, batch 512, seed 11).build(device=
+     "cuda")`` to a best mean of 100 within 15 iterations
+     (tests/test_rllib.py:239), every port launch counter at 0, the
+     epoch's time split into batch iteration and learner updates, and one
+     BC update on the card against the CPU (each leaf within 1e-5);
+ 13. Tune's Population Based Training over the train step:
+     ``make_train_step`` over ``loss_fn`` at phase 7's widths cut to 2 of
+     its 8 layers, fp32 master weights from seed 0, bf16 compute,
+     ``Adafactor(lr=cfg["lr"])``, B 2 x L 2048 from seed 1; 4 trials with
+     lr 1e-3, 1e-3, 3e-1, 3e-1, 2 at once, 4 reports of 2 steps each, a
+     checkpoint (params and Adafactor state) at every 2nd report; PBT
+     (perturbation interval 2, quantile 0.5, lr resampled from
+     loguniform(1e-4, 3e-3), seed 0) on the loss; the flash launches,
+     counted from 0, must equal the count for the steps the trials ran
+     (re-runs after a restore included), trial 0's first two losses a
+     standalone run's, each exploited trial's first loss its donor's at
+     that iteration (1e-6 of itself), and both lr-3e-1 trials must end
+     lower than their last loss before their exploit; checkpoint bytes,
+     pickling and loading seconds, each trial's step ms against one
+     alone, and the peak memory printed.
+Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2036,8 +2074,10 @@ def rl_oracle(name, params, batch, device, target=None):
         out[dev.type] = ([t.cpu() for t in param_leaves(new)],
                          m["critic_loss" if name == "SAC" else "loss"])
     (want, lw), (got, lg) = out["cpu"], out[device.type]
-    leaf = max(((a - b).abs().max() / (RL_ORACLE_RTOL * b.abs().max()))
-               .item() for a, b in zip(got, want))
+    # a leaf that stays 0 on both (a head the loss does not reach) is 0
+    leaf = max(((a - b).abs().max() / (RL_ORACLE_RTOL * b.abs().max()
+                                       .clamp_min(1e-30))).item()
+               for a, b in zip(got, want))
     assert np.isfinite(lg)
     return leaf, abs(lg - lw) / (RL_ORACLE_RTOL * abs(lw))
 
@@ -2121,10 +2161,549 @@ def phase_rl(device, card="the CPU", cases=None):
     return out
 
 
+# ---------------------------- phase 12: data, batch inference and BC
+
+
+#: (engine, seconds its predictor took to build) for each predictor the
+#: pool built in this process (local mode: the pool's actors are threads
+#: here), for the engines' step counts
+PREDICTOR_ENGINES = []
+DATA_ROWS, DATA_BLOCKS, DATA_NEW_TOKENS = 16, 4, 32
+# 12a's prompts: 5 to 1,000 tokens at the 8B widths (max_seq_len 2048);
+# 12b's: 5 to 400 at the bench widths (max_seq_len 512)
+DATA_LENGTHS = (5, 1000)
+DATA_BENCH_LENGTHS = (5, 400)
+# BC on the card (tests/test_rllib.py:239): a PPO teacher (rl_cases'
+# PPO) to its gate, 8192 recorded rows, then BC to 100 within 15
+# iterations; one BC update on the card against the CPU as phase 11's
+BC_ROWS, BC_ITERATIONS, BC_GATE = 8192, 15, 100.0
+BC_CONFIG = dict(lr=1e-3, batch_size=512, seed=11)
+
+
+def counting_predictor():
+    """``LLMBatchPredictor`` that puts its engine and its build time in
+    PREDICTOR_ENGINES, so that the phase reads the engine's step counts
+    once the pool is gone.
+    The data layer cloudpickles the class, by value for a class of the
+    script run as ``__main__``, so the list is looked up through the
+    class's module when the pool's actor constructs it."""
+    from ray_tpu_torch.llm.batch import LLMBatchPredictor
+
+    class CountingPredictor(LLMBatchPredictor):
+        def __init__(self, *args, **kwargs):
+            t0 = time.monotonic()
+            super().__init__(*args, **kwargs)
+            sys.modules[type(self).__module__].PREDICTOR_ENGINES.append(
+                (self.engine, time.monotonic() - t0))
+
+    return CountingPredictor
+
+
+def data_rows(vocab, lengths):
+    """DATA_ROWS rows ``{"prompt": token ids, "id": j}``, prompt lengths
+    spread evenly over ``lengths`` (the smallest and largest)."""
+    lo, hi = lengths
+    return [{"prompt": _prompt(40 + j, lo + (hi - lo) * j // (DATA_ROWS - 1),
+                               vocab), "id": j} for j in range(DATA_ROWS)]
+
+
+def expected_ragged_launches(engines):
+    """Phase 4's count, summed over ``engines``: per layer, one launch a
+    ragged step and decode_chunk a decode dispatch."""
+    return sum(e.cfg.n_layers * (e.stats["ragged_dispatches"]
+                                 + e.decode_chunk
+                                 * e.stats["decode_dispatches"])
+               for e in engines)
+
+
+def run_batch_inference(rows, model_config, engine_config, concurrency):
+    """``batch_inference`` over ``rows`` in DATA_BLOCKS blocks through
+    ActorPoolStrategy(concurrency), every launch counter set to 0 just
+    before and read just after: -> the output rows, the stage's
+    ExecStats, the pool's engines, the launches, the stage's wall seconds
+    and the seconds its predictors took to build (inside the stage). The
+    runtime must be up."""
+    from unittest import mock
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.llm import batch as tbatch
+    PREDICTOR_ENGINES.clear()
+    ds = rd.from_items(rows, num_blocks=DATA_BLOCKS)
+    with mock.patch.object(tbatch, "LLMBatchPredictor",
+                           counting_predictor()):
+        out_ds = tbatch.batch_inference(
+            ds, model_config=model_config, engine_config=engine_config,
+            max_new_tokens=DATA_NEW_TOKENS, concurrency=concurrency)
+    reset_port_launch_counts()
+    t0 = time.monotonic()
+    out = out_ds.take_all()
+    wall = time.monotonic() - t0
+    launches = port_launch_counts()
+    engines = [e for e, _ in PREDICTOR_ENGINES]
+    build_s = [s for _, s in PREDICTOR_ENGINES]
+    PREDICTOR_ENGINES.clear()
+    assert [r["id"] for r in out] == [r["id"] for r in rows]
+    for row, got in zip(rows, out):
+        assert got["prompt"] == row["prompt"], row["id"]
+        assert len(got["generated"]) == DATA_NEW_TOKENS \
+            or got["finish_reason"] == "stop", got
+    return out, out_ds.stats(), engines, launches, wall, build_s
+
+
+def log_stage(name, out, stats, engines, wall, build_s):
+    n_tok = sum(len(r["generated"]) for r in out)
+    log(f"{name}: {len(out)} rows in {wall:.2f} s ({len(out) / wall:.2f} "
+        f"rows/s, {n_tok / wall:.1f} generated tokens/s; the predictors' "
+        f"builds inside the stage {[round(s, 2) for s in build_s]} s), the "
+        f"stage's ExecStats {json.dumps(stats)}, {len(engines)} engines, "
+        f"stats {[dict(e.stats) for e in engines]}")
+
+
+def phase_batch_inference(model_config=None, engine_config=None,
+                          lengths=DATA_LENGTHS):
+    """12a: ``batch_inference`` at the main path's widths (phase 4's
+    model and engine), DATA_ROWS rows in DATA_BLOCKS blocks through one
+    pool actor; the ragged launches equal the pool's engine's count, the
+    plain version never runs on CUDA tensors, and every row's tokens and
+    finish reason equal ``LLMBatchPredictor`` called directly on the
+    same blocks with the same weights (the engine's seed), built once
+    the pool's engine is gone. Returns the launches and their count."""
+    import gc
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.llm.batch import LLMBatchPredictor
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    model_config = model_config or MAIN_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    cuda = torch.device(engine_config.get("device", "cuda")).type == "cuda"
+    t_phase = time.monotonic()
+    cfg = model_config_from_dict(model_config)
+    rows = data_rows(cfg.vocab_size, lengths)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
+    try:
+        out, stats, engines, launches, wall, build_s = run_batch_inference(
+            rows, model_config, engine_config, concurrency=1)
+        expected = expected_ragged_launches(engines)
+        log_stage(f"batch_inference ({cfg.n_layers} layers dim {cfg.dim} "
+                  f"{cfg.dtype}, prompts of {lengths[0]}-{lengths[1]} "
+                  f"tokens x {DATA_NEW_TOKENS} new, ActorPoolStrategy(1))",
+                  out, stats, engines, wall, build_s)
+        del engines
+    finally:
+        ray_tpu_torch.shutdown()        # the pool's actors and engine go
+    gc.collect()
+    peak_pool = torch.cuda.max_memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    pred = LLMBatchPredictor(model_config, engine_config,
+                             max_new_tokens=DATA_NEW_TOKENS)
+    direct_build_s = time.monotonic() - t0
+    bounds = np.linspace(0, len(rows), DATA_BLOCKS + 1).astype(int)
+    t0 = time.monotonic()
+    direct = [r for lo, hi in zip(bounds[:-1], bounds[1:])
+              for r in pred(rows[lo:hi])]
+    direct_s = time.monotonic() - t0
+    peak_direct = torch.cuda.max_memory_allocated() if cuda else 0
+    del pred
+    gc.collect()
+    for got, want in zip(out, direct):
+        assert got == want, (got["id"], got["generated"], want["generated"])
+    log(f"batch_inference: launches {launches}, expected "
+        f"ragged_paged_attention {expected}; every row equal to the "
+        f"direct predictor's on the same blocks, which took "
+        f"{direct_s:.2f} s after a {direct_build_s:.2f} s build, against "
+        f"the stage's {wall:.2f} s, its build included (finish reasons "
+        f"{sorted({r['finish_reason'] for r in out})}); peak memory "
+        f"{peak_pool} bytes with the pool, {peak_direct} with the direct "
+        f"predictor; phase 12a {time.monotonic() - t_phase:.1f} s")
+    return launches, expected
+
+
+def phase_batch_rows(model_config=None, engine_config=None,
+                     lengths=DATA_BENCH_LENGTHS):
+    """12b: ``batch_inference`` at the bench widths in fp32 through
+    ActorPoolStrategy(2) (two engines at once, one per pool actor): every
+    row's tokens and finish reason equal the engine's ``generate`` on
+    that prompt alone (phase 5b's rule: fp32 rows differ by summation
+    order only); the ragged launches equal both engines' counts. Returns
+    the launches and their count."""
+    import ray_tpu_torch
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    model_config = model_config or {**BENCH_MODEL, "dtype": "float32"}
+    engine_config = engine_config or BENCH_ENGINE
+    t_phase = time.monotonic()
+    cfg = model_config_from_dict(model_config)
+    rows = data_rows(cfg.vocab_size, lengths)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
+    try:
+        out, stats, engines, launches, wall, build_s = run_batch_inference(
+            rows, model_config, engine_config, concurrency=2)
+        expected = expected_ragged_launches(engines)
+        log_stage(f"batch_inference at the bench widths ({cfg.n_layers} "
+                  f"layers, {cfg.dtype}, ActorPoolStrategy(2))", out,
+                  stats, engines, wall, build_s)
+        assert len(engines) == 2, len(engines)
+        alone = InferenceEngine(cfg, engines[0].params, **engine_config)
+        del engines
+    finally:
+        ray_tpu_torch.shutdown()
+    for row, got in zip(rows, out):
+        want = alone.generate(row["prompt"], DATA_NEW_TOKENS)
+        reason = alone.request_log.snapshot()[-1]["finish_reason"]
+        assert got["generated"] == want, (row["id"], got["generated"], want)
+        assert got["finish_reason"] == reason, (got["finish_reason"], reason)
+    log(f"batch_inference at the bench widths: launches {launches}, "
+        f"expected ragged_paged_attention {expected} (both engines); every "
+        f"row equal to generate alone; phase 12b "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return launches, expected
+
+
+def phase_bc(device, teacher=None, iterations=BC_ITERATIONS, gate=BC_GATE,
+             rows=BC_ROWS, card="the CPU"):
+    """12c: BC through the user's entry points on ``device``: a PPO
+    teacher (``teacher``: (config, most iterations, gate), rl_cases' PPO
+    by default) trained to its gate, ``record_dataset`` of ``rows`` rows
+    (obs fp32, action int32), then ``BCConfig(...).build(device=)``
+    trained until its best mean reaches ``gate`` within ``iterations``;
+    every port launch counter stays 0 (no Pallas kernel lies on this
+    path); the epoch's time split into batch iteration and updates; one
+    BC update on ``device`` against the CPU. Returns a summary."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import BCConfig, BCLearner, record_dataset
+    from ray_tpu_torch.rllib.module import snapshot, tree_map
+    from ray_tpu_torch.train import param_leaves
+    config, teacher_iterations, teacher_gate = teacher or rl_cases()["PPO"]
+    t_phase = time.monotonic()
+    reset_port_launch_counts()
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
+    try:
+        ppo = config.build(device=device)
+        try:
+            teacher_best, n_teacher = float("-inf"), 0
+            while n_teacher < teacher_iterations and \
+                    teacher_best < teacher_gate:
+                mean = ppo.train()["episode_return_mean"]
+                n_teacher += 1
+                if mean == mean:
+                    teacher_best = max(teacher_best, mean)
+            assert teacher_best >= teacher_gate, \
+                f"teacher PPO failed to learn: best {teacher_best}"
+            t_rec = time.monotonic()
+            ds = record_dataset(ppo, num_samples=rows)
+            record_s = time.monotonic() - t_rec
+        finally:
+            ppo.stop()
+        assert ds.count() == rows
+        first = next(ds.iter_batches(batch_size=BC_CONFIG["batch_size"],
+                                     drop_last=True))
+        assert first["obs"].dtype == np.float32 and \
+            first["action"].dtype == np.int32, first
+        bc = BCConfig(dataset=ds, **BC_CONFIG).build(device=device)
+        try:
+            best, results = float("-inf"), []
+            for _ in range(iterations):
+                results.append(bc.train())
+                mean = results[-1]["episode_return_mean"]
+                if mean == mean:
+                    best = max(best, mean)
+                if best >= gate:
+                    break
+            params = snapshot(bc.params)
+        finally:
+            bc.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    launches = port_launch_counts()
+    assert not any(launches.values()), launches
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        learner = BCLearner(lr=BC_CONFIG["lr"])
+        learner.init(p)
+        new, m = learner.update(p, first)
+        out[dev.type] = ([t.cpu() for t in param_leaves(new)],
+                         m["bc_loss"])
+    (want, lw), (got, lg) = out["cpu"], out[device.type]
+    # a leaf that stays 0 on both (a head the loss does not reach) is 0
+    leaf = max(((a - b).abs().max() / (RL_ORACLE_RTOL * b.abs().max()
+                                       .clamp_min(1e-30))).item()
+               for a, b in zip(got, want))
+    loss = abs(lg - lw) / (RL_ORACLE_RTOL * abs(lw))
+    data_ms = [r["time_data_s"] * 1e3 for r in results]
+    learn_ms = [r["time_learn_s"] * 1e3 for r in results]
+    it_ms = [r["time_this_iter_s"] * 1e3 for r in results]
+    log(f"BC: teacher PPO best {teacher_best:.2f} after {n_teacher} "
+        f"iterations; record_dataset {rows} rows in {record_s:.2f} s; BC "
+        f"best episode-return mean {best:.2f} after {len(results)} "
+        f"iterations (gate {gate}, at most {iterations}); epoch of "
+        f"{rows // BC_CONFIG['batch_size']} batches: iteration ms mean "
+        f"{sum(it_ms) / len(it_ms):.2f} (batch iteration "
+        f"{sum(data_ms) / len(data_ms):.2f}, learner updates "
+        f"{sum(learn_ms) / len(learn_ms):.2f}, the rest greedy "
+        f"evaluation); update card against CPU: worst leaf "
+        f"{leaf * RL_ORACLE_RTOL:.2e} of its largest value, loss "
+        f"{loss * RL_ORACLE_RTOL:.2e} of itself; port kernel launches "
+        f"{sum(launches.values())}; phase 12c "
+        f"{time.monotonic() - t_phase:.1f} s; {card}")
+    assert best >= gate, f"BC failed to reach the gate: best {best}"
+    assert leaf <= 1 and loss <= 1, (leaf, loss)
+    return {"teacher_best": teacher_best, "bc_best": best,
+            "bc_iterations": len(results), "leaf": leaf}
+
+
+# ----------------------------- phase 13: Tune PBT over the train step
+
+# phase 7's widths cut to 2 of its 8 layers; fp32 master weights from
+# seed 0, bf16 compute, Adafactor(lr=cfg["lr"]), B 2 x L 2048 from seed 1
+TUNE_CONFIG = dict(TRAIN_CONFIG, n_layers=2)
+TUNE_BATCH = (2, 2048)
+TUNE_LRS = (1e-3, 1e-3, 3e-1, 3e-1)
+TUNE_ITERATIONS = 4             # reports per trial
+TUNE_STEPS_PER_REPORT = 2
+TUNE_INTERVAL = 2               # PBT's perturbation interval
+# losses of the same forward pass on the same weights and batch: equal
+# up to fp32 noise of the loss's own size
+TUNE_LOSS_RTOL = 1e-6
+
+
+def tune_trainable(device, config, batch, events):
+    """A Tune trainable over ``make_train_step``: each report is
+    TUNE_STEPS_PER_REPORT steps; ``loss`` is the first step's (the
+    forward pass on the weights the report starts from). At every
+    TUNE_INTERVAL-th iteration the report carries a checkpoint of the
+    state that iteration started from (params and Adafactor state), so
+    a trial restored from it runs that iteration again, from the same
+    weights, with its new lr. ``events`` gets ("step", lr, ms),
+    ("save", s) and ("load", s) as they happen (local mode passes the
+    trainable by reference), so steps a stopped trial ran without
+    reporting them count too."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.rllib.module import snapshot
+    from ray_tpu_torch.train import Adafactor, make_train_step
+    mcfg = LlamaConfig(**config)
+    B, L = batch
+
+    def trainable(cfg):
+        import copy
+        g = torch.Generator(device=device).manual_seed(1)
+        tokens = torch.randint(0, mcfg.vocab_size, (B, L), generator=g,
+                               device=device)
+        init_fn, step_fn = make_train_step(
+            functools.partial(loss_fn, cfg=mcfg),
+            functools.partial(Adafactor, lr=cfg["lr"]))
+        t = time.monotonic()
+        state = tune.get_checkpoint()
+        if state is None:
+            params, done = init_params(mcfg, seed=0, device=device), 0
+        else:
+            events.append(("load", time.monotonic() - t))
+            params, done = state["params"], state["iteration"]
+        opt = init_fn(params)
+        if state is not None:
+            opt.load_state_dict(state["opt"])
+            for group in opt.param_groups:
+                group["lr"] = cfg["lr"]
+        del state
+        for it in range(done + 1, TUNE_ITERATIONS + 1):
+            ckpt = None if it % TUNE_INTERVAL else {
+                "params": snapshot(params),
+                "opt": copy.deepcopy(opt.state_dict()), "iteration": it - 1}
+            losses, ms = [], []
+            for _ in range(TUNE_STEPS_PER_REPORT):
+                t = time.monotonic()
+                params, opt, m = step_fn(params, opt, tokens)
+                losses.append(float(m["loss"]))            # syncs
+                ms.append((time.monotonic() - t) * 1e3)
+                events.append(("step", cfg["lr"], ms[-1]))
+            t = time.monotonic()
+            tune.report({"loss": losses[0], "losses": losses, "iter": it,
+                         "step_ms": ms, "lr": cfg["lr"]}, checkpoint=ckpt)
+            if ckpt is not None:
+                events.append(("save", time.monotonic() - t))
+            del ckpt
+
+    return trainable
+
+
+def recording_pbt(**kwargs):
+    """``PopulationBasedTraining`` that records each exploit it decides:
+    the trial, how many results it had, the donor and the donor's result
+    that came with the checkpoint handed over (the newest of a
+    checkpointing iteration)."""
+    from ray_tpu_torch.tune import PopulationBasedTraining
+
+    class RecordingPBT(PopulationBasedTraining):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.exploits = []
+
+        def on_result(self, trial, result, all_trials):
+            decision = super().on_result(trial, result, all_trials)
+            directive = getattr(trial, "_pbt_exploit", None)
+            if directive is not None:
+                donor = next(t for t in all_trials
+                             if t.trial_id == directive["source_id"])
+                donor_result = [r for r in donor.results
+                                if r["iter"] % TUNE_INTERVAL == 0][-1]
+                self.exploits.append({
+                    "trial": trial.trial_id, "at": len(trial.results),
+                    "donor": donor.trial_id,
+                    "donor_result": dict(donor_result),
+                    "lr": directive["config"]["lr"]})
+            return decision
+
+    return RecordingPBT(**kwargs)
+
+
+def phase_tune(device, config=None, batch=TUNE_BATCH, lrs=TUNE_LRS):
+    """Tune's PBT over the train step on ``device``: len(lrs) trials, 2
+    at once, TUNE_ITERATIONS reports each; the flash launch counters set
+    to 0 before and read after must equal expected_flash_launches over
+    the steps the trials ran (on a CUDA device; on the CPU the plain
+    versions run and all stay 0); trial 0's first two losses equal a
+    standalone run's; every exploited trial's first loss equals its
+    donor's at that iteration; the trials that started at the largest lr
+    end lower than their last loss before their exploit. Returns a
+    summary."""
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.llama import (LlamaConfig, init_params,
+                                            loss_fn, num_params)
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.train import Adafactor, make_train_step
+    config = config or TUNE_CONFIG
+    mcfg = LlamaConfig(**config)
+    B, L = batch
+    cuda = device.type == "cuda"
+    t_phase = time.monotonic()
+    # the standalone run: trial 0's configuration and lr outside Tune
+    params = init_params(mcfg, seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, mcfg.vocab_size, (B, L), generator=g,
+                           device=device)
+    init_fn, step_fn = make_train_step(functools.partial(loss_fn, cfg=mcfg),
+                                       functools.partial(Adafactor,
+                                                         lr=lrs[0]))
+    opt = init_fn(params)
+    alone, alone_ms = [], []
+    for _ in range(2 * TUNE_STEPS_PER_REPORT):
+        t = time.monotonic()
+        params, opt, m = step_fn(params, opt, tokens)
+        alone.append(float(m["loss"]))
+        alone_ms.append((time.monotonic() - t) * 1e3)
+    del params, opt, m
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    events = []
+    scheduler = recording_pbt(
+        perturbation_interval=TUNE_INTERVAL, quantile_fraction=0.5,
+        hyperparam_mutations={"lr": tune.loguniform(1e-4, 3e-3)}, seed=0)
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    try:
+        ray_tpu_torch.init(local_mode=True, num_cpus=4)
+        try:
+            t_fit = time.monotonic()
+            grid = tune.Tuner(
+                tune_trainable(device, config, batch, events),
+                param_space={"lr": tune.grid_search(list(lrs))},
+                tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                            scheduler=scheduler,
+                                            max_concurrent_trials=2),
+                run_config=tune.TuneRunConfig(
+                    storage_path=storage,
+                    resources_per_trial={"CPU": 1, "GPU": 1})).fit()
+            fit_s = time.monotonic() - t_fit
+        finally:
+            # joins the trial actors, which wait for their functions'
+            # threads
+            ray_tpu_torch.shutdown()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(storage) for f in files
+                         if f.startswith("ckpt_"))
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    launches = dict(tfa.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    steps = [e for e in events if e[0] == "step"]
+    saves = [e[1] for e in events if e[0] == "save"]
+    loads = [e[1] for e in events if e[0] == "load"]
+    assert not grid.errors, [t.error for t in grid.errors]
+    log(f"tune: PBT over make_train_step, {num_params(mcfg)} parameters "
+        f"({mcfg.n_layers} layers dim {mcfg.dim}, {mcfg.attention}, remat "
+        f"{mcfg.remat_policy}), B {B} L {L}, {len(lrs)} trials lr {lrs}, "
+        f"2 at once, {TUNE_ITERATIONS} reports of {TUNE_STEPS_PER_REPORT} "
+        f"steps; fit {fit_s:.1f} s, {len(steps)} steps run")
+    for trial in grid.trials:
+        step_ms = [x for r in trial.results for x in r["step_ms"][1:]]
+        log(f"tune: {trial.trial_id} lr {trial.results[0]['lr']} -> "
+            f"{trial.config['lr']:.3g}: (iter, loss) "
+            f"{[(r['iter'], round(r['loss'], 5)) for r in trial.results]}, "
+            f"step ms (each after the first of a report) "
+            f"{sum(step_ms) / len(step_ms):.1f}")
+    log(f"tune: exploits {scheduler.exploits}")
+    log(f"tune: checkpoints {len(saves)}, {ckpt_bytes} bytes written, "
+        f"pickling {sum(saves):.2f} s ({[round(s, 2) for s in saves]}), "
+        f"loading {sum(loads):.2f} s ({[round(s, 2) for s in loads]})")
+    log(f"tune: step ms alone {sum(alone_ms[2:]) / 2:.1f} (steps 3-4 of "
+        f"the standalone run); peak memory {peak} bytes with the trials "
+        f"on the card; flash launches {launches}")
+    # the steps the trials ran, and the kernels they launched
+    if cuda:
+        assert launches == expected_flash_launches(mcfg.n_layers,
+                                                   len(steps)), launches
+    else:
+        assert not any(launches.values()), launches
+    first = grid.trials[0].results[0]["losses"]
+    for got, want in zip(first, alone[:2]):
+        assert abs(got - want) <= TUNE_LOSS_RTOL * abs(want), (first, alone)
+    by_id = {t.trial_id: t for t in grid.trials}
+    for e in scheduler.exploits:
+        after = by_id[e["trial"]].results[e["at"]]
+        want = e["donor_result"]
+        assert after["iter"] == want["iter"], (e, after)
+        assert abs(after["loss"] - want["loss"]) <= \
+            TUNE_LOSS_RTOL * abs(want["loss"]), (e, after)
+    top = max(lrs)
+    for trial in grid.trials:
+        if trial.results[0]["lr"] != top:
+            continue
+        mine = [e for e in scheduler.exploits if e["trial"] ==
+                trial.trial_id]
+        assert mine, f"{trial.trial_id} (lr {top}) was never exploited"
+        before = trial.results[mine[0]["at"] - 1]["loss"]
+        assert trial.results[-1]["loss"] < before, \
+            (trial.trial_id, before, trial.results[-1]["loss"])
+    log(f"tune: trial 0's first losses {first} equal the standalone run's "
+        f"{alone[:2]}; {len(scheduler.exploits)} exploits, each first "
+        f"loss equal to its donor's; phase 13 "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"steps": len(steps), "exploits": scheduler.exploits,
+            "launches": launches}
+
+
 # ------------------------------------------------------------------ main
 
 
 def main():
+    t_script = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -2205,6 +2784,27 @@ def main():
     phase_mixtral_oracle(device)
     torch.cuda.empty_cache()
     phase_rl(device, card)
+    torch.cuda.empty_cache()
+
+    t_data = time.monotonic()
+    data_launches, data_expected = phase_batch_inference()
+    assert data_launches["ragged_paged_attention"] == data_expected, \
+        (data_launches, data_expected)
+    assert data_launches["ragged_paged_attention_reference_cuda"] == 0, \
+        "the plain attention ran on CUDA tensors in batch_inference"
+    torch.cuda.empty_cache()
+    rows_launches, rows_expected = phase_batch_rows()
+    assert rows_launches["ragged_paged_attention"] == rows_expected, \
+        (rows_launches, rows_expected)
+    assert rows_launches["ragged_paged_attention_reference_cuda"] == 0
+    torch.cuda.empty_cache()
+    phase_bc(device, card=card)
+    log(f"phase 12: {time.monotonic() - t_data:.1f} s")
+    torch.cuda.empty_cache()
+    t_tune = time.monotonic()
+    phase_tune(device)
+    log(f"phase 13: {time.monotonic() - t_tune:.1f} s; the whole script "
+        f"{time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
     record = {"kernels": [{

@@ -6,8 +6,11 @@ The runtime is the JAX package's local mode, copied (``core/``,
 ``init(local_mode=True)``, then tasks and actors through ``remote`` and
 ``get``/``put``/``wait``, run as threads of this process. The cluster
 runtime is not part of this package yet, so ``init()`` without
-``local_mode=True`` raises. RLlib (``rllib/``: PPO, IMPALA, DQN and SAC
-with their env runners) runs on it.
+``local_mode=True`` raises. ``init`` registers ``shutdown`` to run at
+the interpreter's exit, so that actor threads still inside torch code
+are joined before the interpreter goes. RLlib (``rllib/``: PPO, IMPALA,
+DQN, SAC and BC with their env runners), the datasets of ``data/`` and
+Tune (``tune/``) run on it.
 
 The Llama and Mixtral models and their losses, the MLP, and the routed
 MoE FFN (``parallel/moe.py``); the ragged paged-KV attention and flash
@@ -29,6 +32,7 @@ Submodules beyond the runtime import lazily (PEP 562), as in
 
 from __future__ import annotations
 
+import atexit
 from typing import Dict, Optional
 
 from ray_tpu_torch import exceptions
@@ -41,7 +45,7 @@ from ray_tpu_torch.remote_function import remote_decorator as remote
 _RUNTIME = [
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
     "kill", "cancel", "get_actor", "method", "get_runtime_context",
-    "ObjectRef", "ObjectRefGenerator", "ActorHandle", "exceptions",
+    "cluster_resources", "available_resources", "nodes", "ObjectRef", "ObjectRefGenerator", "ActorHandle", "exceptions",
 ]
 
 
@@ -53,7 +57,8 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
     """Start the in-process runtime: ``local_mode=True`` runs tasks on a
     thread pool and each actor on a thread of its own (reference
     local-mode semantics). The cluster runtime is not ported yet, so
-    anything else raises."""
+    anything else raises. ``shutdown`` runs at the interpreter's exit
+    unless the caller ran it before."""
     if global_worker.connected:
         if ignore_reinit_error:
             return {"address": "existing"}
@@ -62,16 +67,20 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
     if not local_mode:
         raise NotImplementedError(
             "ray_tpu_torch.init() supports local mode only "
-            "(init(local_mode=True)); the cluster runtime waits for ROADMAP "
-            "Queue 1 item 7")
+            "(init(local_mode=True)); the cluster runtime is not ported "
+            "yet")
     merged = dict(resources or {})
     if num_gpus is not None:
         merged["GPU"] = float(num_gpus)
     global_worker.connect_local(num_cpus=num_cpus, resources=merged)
+    # a thread still inside torch code when the interpreter exits aborts
+    # the process: join the actor threads first (disconnect does)
+    atexit.register(shutdown)
     return {"address": "local"}
 
 
 def shutdown() -> None:
+    atexit.unregister(shutdown)
     if global_worker.connected:
         global_worker.disconnect()
 
@@ -101,6 +110,18 @@ def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
 def cancel(ref: ObjectRef, *, force: bool = False,
            recursive: bool = True) -> None:
     require_connected().cancel_task(ref, force=force, recursive=recursive)
+
+
+def cluster_resources() -> Dict[str, float]:
+    return require_connected().backend.cluster_resources()
+
+
+def available_resources() -> Dict[str, float]:
+    return require_connected().backend.available_resources()
+
+
+def nodes() -> list:
+    return require_connected().backend.nodes()
 
 
 def method(**opts):

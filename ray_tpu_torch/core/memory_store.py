@@ -27,7 +27,12 @@ class _Entry:
 
 class MemoryStore:
     def __init__(self):
-        self._lock = threading.Lock()
+        # reentrant: the cyclic collector may run an ObjectRef's __del__
+        # inside any allocation here (an _Entry in _entry), and __del__
+        # frees its object with delete(), which takes this lock again on
+        # the same thread; a plain Lock deadlocks there (the JAX package's
+        # local mode does, in most runs of a groupby)
+        self._lock = threading.RLock()
         self._entries: Dict[ObjectID, _Entry] = {}
         self._callbacks: Dict[ObjectID, List[Callable[[], None]]] = {}
         # transient any-of waiters: oid -> set of Events; registered and

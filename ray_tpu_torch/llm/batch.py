@@ -1,19 +1,27 @@
-"""Batch LLM inference — the port of ``ray_tpu/llm/batch.py``'s
-``LLMBatchPredictor``: one engine per predictor, each batch of prompts
-admitted together so the engine's continuous batching and ragged steps
-amortize the batch.
+"""Batch LLM inference over datasets — the port of
+``ray_tpu/llm/batch.py``: a dataset of prompts flows through a pool of
+stateful predictor actors, one ``InferenceEngine`` per actor, each data
+block's prompts admitted together so the engine's continuous batching and
+ragged steps amortize the block.
 
-    pred = LLMBatchPredictor({"preset": "llama3_8b"}, {"page_size": 16})
-    rows = pred([{"prompt": "hello"}, ...])
-    # rows gain "generated" (token ids), "generated_text", "finish_reason"
+    ds = ray_tpu_torch.data.from_items([{"prompt": "hello"}, ...])
+    out = batch_inference(ds, model_config={"preset": "llama3_8b"},
+                          engine_config={"page_size": 16})
+    out.take_all()  # rows gain "generated" (token ids),
+                    # "generated_text" and "finish_reason"
 
-``batch_inference`` (a dataset through a pool of predictor actors) waits
-for a copy of the data runtime.
+``LLMBatchPredictor`` is the class the pool's actors construct; called
+on its own it runs one batch of rows. Scheduling, backpressure and block
+accounting come from the data layer (``map_batches(cls,
+compute=ActorPoolStrategy(n))``), which runs on the local-mode runtime
+(``ray_tpu_torch.init(local_mode=True)``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
+
+from ray_tpu_torch.data.dataset import ActorPoolStrategy
 
 from ray_tpu_torch.llm.engine import InferenceEngine
 from ray_tpu_torch.llm.serve_llm import model_config_from_dict
@@ -74,3 +82,32 @@ class LLMBatchPredictor:
                     self.tokenizer.decode(toks)
             out_rows.append(new)
         return out_rows
+
+
+def batch_inference(ds, *, model_config: Optional[Dict[str, Any]] = None,
+                    engine_config: Optional[Dict[str, Any]] = None,
+                    max_new_tokens: int = 32, concurrency: int = 1,
+                    prompt_column: str = "prompt",
+                    output_column: str = "generated",
+                    detokenize: bool = True, tokenizer=None,
+                    batch_size: Optional[int] = None):
+    """Run every row's prompt through a pool of ``concurrency`` predictor
+    actors; returns a dataset whose rows gain ``output_column`` (token
+    ids), ``<output_column>_text`` and ``finish_reason`` (reference:
+    ray.data.llm build_processor → processor(ds)). The configs go to
+    ``LLMBatchPredictor``; each actor's engine runs on the card unless
+    ``engine_config`` asks for the CPU. Pass ``tokenizer``
+    (encode/decode) to replace the ByteTokenizer default."""
+    return ds.map_batches(
+        LLMBatchPredictor,
+        compute=ActorPoolStrategy(concurrency),
+        batch_format="rows", batch_size=batch_size,
+        fn_constructor_kwargs={
+            "model_config": model_config,
+            "engine_config": engine_config,
+            "max_new_tokens": max_new_tokens,
+            "prompt_column": prompt_column,
+            "output_column": output_column,
+            "detokenize": detokenize,
+            "tokenizer": tokenizer,
+        })

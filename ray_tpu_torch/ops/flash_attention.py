@@ -28,6 +28,7 @@ blocks, [B, L, H, D], as in the JAX package (q scaled in its own dtype).
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -42,6 +43,15 @@ launch_counts = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
                  "flash_attention_dkv": 0,
                  "flash_attention_fwd_reference_cuda": 0,
                  "flash_attention_bwd_reference_cuda": 0}
+_count_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    """One more in ``launch_counts[name]``; under a lock, since wrappers
+    run on several threads at once (the runtime's actors and trials)."""
+    with _count_lock:
+        launch_counts[name] += 1
+
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for (Llama: 128; bf16 at 64
@@ -140,7 +150,7 @@ def _fwd_reference(q, k, v, causal: bool, sm_scale: float,
     does not divide L leaves a shorter last block, as the CUDA kernels'
     masked last tiles do (the dispatchers take only dividing blocks)."""
     if q.is_cuda:
-        launch_counts["flash_attention_fwd_reference_cuda"] += 1
+        _count("flash_attention_fwd_reference_cuda")
     BH, Lq, D = q.shape
     Lk = k.shape[1]
     blk_q, blk_k = min(blk_q, Lq), min(blk_k, Lk)
@@ -179,7 +189,7 @@ def _bwd_reference(q, k, v, lse, do, delta, causal: bool, sm_scale: float,
     do's dtype before p^T . do, ds in k's / q's dtype before each product,
     fp32 sums. Blocks as in ``_fwd_reference``."""
     if q.is_cuda:
-        launch_counts["flash_attention_bwd_reference_cuda"] += 1
+        _count("flash_attention_bwd_reference_cuda")
     BH, Lq, D = q.shape
     Lk = k.shape[1]
     blk_q, blk_k = min(blk_q, Lq), min(blk_k, Lk)
@@ -250,7 +260,7 @@ def _launch(library: str, entry: str, device, *args) -> None:
     """Call a kernel's C entry point with tensors passed as pointers, on
     the device's current stream; raise if the launch failed."""
     _kernels.launch(library, entry, device, *args)
-    launch_counts[entry] += 1
+    _count(entry)
 
 
 def _fwd_cuda(q, k, v, causal: bool, sm_scale: float):

@@ -50,6 +50,7 @@ dequantized inside the attention.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -65,6 +66,14 @@ launch_counts = {"ragged_paged_attention": 0,
                  "ragged_paged_attention_reference_cuda": 0,
                  "paged_attention": 0,
                  "paged_attention_reference_cuda": 0}
+_count_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    """One more in ``launch_counts[name]``; under a lock, since wrappers
+    run on several threads at once (the runtime's actors and trials)."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _token_descriptors(q_start, q_len, kv_len, T: int):
@@ -106,7 +115,7 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     ``max_q_len``-sized blocks (default T).
     """
     if q.is_cuda:
-        launch_counts["ragged_paged_attention_reference_cuda"] += 1
+        _count("ragged_paged_attention_reference_cuda")
     T, Hq, D = q.shape
     R, max_pages = page_table.shape
     _, Hkv, ps, _ = k_pages.shape
@@ -347,7 +356,7 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
         work, T, R, Hq, Hkv, ps, D, max_pages, plan.decode_rows,
         plan.q_blocks, pages_per_split, float(sm_scale))
     if T:
-        launch_counts["ragged_paged_attention"] += 1
+        _count("ragged_paged_attention")
     return out
 
 
@@ -452,7 +461,7 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens, *,
     [B, Hq, D] in q's dtype; a length-0 row gives 0.
     """
     if q.is_cuda:
-        launch_counts["paged_attention_reference_cuda"] += 1
+        _count("paged_attention_reference_cuda")
     B, Hq, D = q.shape
     _, Hkv, ps, _ = k_pages.shape
     max_pages = page_table.shape[1]
@@ -490,7 +499,7 @@ def _paged_decode_reference(q, k_pages, v_pages, page_table, seq_lens,
     splits (m = -inf) skipped.
     """
     if q.is_cuda:
-        launch_counts["paged_attention_reference_cuda"] += 1
+        _count("paged_attention_reference_cuda")
     B, Hq, D = q.shape
     _, Hkv, ps, _ = k_pages.shape
     max_pages = page_table.shape[1]
@@ -579,7 +588,7 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
                     _DTYPE_CODES[q.dtype], q, k_pages, v_pages, page_table,
                     seq_lens, out, work, B, P, Hq, Hkv, ps, D, max_pages,
                     pages_per_split, float(sm_scale))
-    launch_counts["paged_attention"] += 1
+    _count("paged_attention")
     return out
 
 

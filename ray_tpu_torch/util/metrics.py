@@ -1,8 +1,8 @@
 """Application metrics: Counter / Gauge / Histogram — the port's own copy
 of ``ray_tpu/util/metrics.py``: the per-process registry, the three metric
 types, and the factories the port calls (the train step gauges, the log
-plane's counters, the LLM engine's gauges and the flight recorder's
-histograms). Metrics register in this process's registry; ``snapshot()``
+plane's counters, the LLM engine's gauges, the flight recorder's
+histograms and Tune's running-trials gauge). Metrics register in this process's registry; ``snapshot()``
 reads it in the JAX package's wire form.
 """
 
@@ -184,6 +184,12 @@ def train_phase_time_gauge() -> Gauge:
                  description="seconds per step spent in each train phase "
                              "(rank 0)",
                  tag_keys=("phase",))
+
+
+def tune_running_trials_gauge() -> Gauge:
+    """Trials currently holding an actor in this tuner process."""
+    return Gauge("tune_running_trials",
+                 description="trials currently running")
 
 
 def log_records_total_counter() -> Counter:

@@ -56,7 +56,18 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.rllib.env_runner",
                 "ray_tpu_torch.rllib.trainer_base",
                 "ray_tpu_torch.rllib.algorithm", "ray_tpu_torch.rllib.impala",
-                "ray_tpu_torch.rllib.dqn", "ray_tpu_torch.rllib.sac"):
+                "ray_tpu_torch.rllib.dqn", "ray_tpu_torch.rllib.sac",
+                "ray_tpu_torch.rllib.bc", "ray_tpu_torch.data",
+                "ray_tpu_torch.data.block", "ray_tpu_torch.data.dataset",
+                "ray_tpu_torch.data.iterator", "ray_tpu_torch.data.read_api",
+                "ray_tpu_torch.data._internal",
+                "ray_tpu_torch.data._internal.shuffle",
+                "ray_tpu_torch.data._internal.streaming_executor",
+                "ray_tpu_torch.tune", "ray_tpu_torch.tune.search",
+                "ray_tpu_torch.tune.searcher", "ray_tpu_torch.tune.trial",
+                "ray_tpu_torch.tune.schedulers",
+                "ray_tpu_torch.tune.tune_controller",
+                "ray_tpu_torch.tune.tuner"):
         assert new in mods, new
     code = (
         "import importlib\n"
@@ -80,6 +91,15 @@ def test_runtime_imports_without_torch_jax_or_ray_tpu():
     code = ("import ray_tpu_torch\n"
             "ray_tpu_torch.init(local_mode=True)\n"
             "ray_tpu_torch.shutdown()\n"
+            "assert 'torch' not in sys.modules, 'torch'\n")
+    assert _run(code) == "[]"
+
+
+def test_data_and_tune_import_without_torch_jax_or_ray_tpu():
+    """The copied datasets and Tune need neither torch nor JAX until a
+    caller asks for tensors."""
+    code = ("import ray_tpu_torch.data, ray_tpu_torch.data._internal\n"
+            "import ray_tpu_torch.tune\n"
             "assert 'torch' not in sys.modules, 'torch'\n")
     assert _run(code) == "[]"
 

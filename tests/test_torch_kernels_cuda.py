@@ -712,3 +712,51 @@ def test_ppo_update_on_card_matches_cpu(cuda):
         assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
     assert abs(mg["loss"] - mw["loss"]) <= 1e-5 * abs(mw["loss"])
     assert np.isfinite(mg["loss"])
+
+
+@pytest.mark.cuda
+def test_iter_torch_batches_puts_numeric_columns_on_the_card(cuda):
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
+    try:
+        ds = rd.from_numpy({"x": np.arange(10, dtype=np.float32),
+                            "i": np.arange(10)}, num_blocks=3)
+        batches = list(ds.iterator().iter_torch_batches(batch_size=4))
+    finally:
+        ray_tpu_torch.shutdown()
+    assert [len(b["x"]) for b in batches] == [4, 4, 2]
+    for b in batches:
+        assert b["x"].device.type == "cuda" and b["x"].dtype == F32
+        assert b["i"].device.type == "cuda" and b["i"].dtype == torch.int64
+    assert torch.cat([b["x"] for b in batches]).sum().item() == 45.0
+
+
+@pytest.mark.cuda
+def test_batch_inference_launches_the_ragged_kernel(cuda):
+    # a dataset through a pool of two predictor actors, at a head dim the
+    # kernels take (64, pages of 32): the kernel runs, its plain version
+    # never does, and rows come back whole and in order
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.llm.batch import batch_inference
+    rows = [{"prompt": list(range(1, 5 + 7 * j)), "id": j} for j in range(6)]
+    for name in tpa.launch_counts:
+        tpa.launch_counts[name] = 0
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
+    try:
+        out = batch_inference(
+            rd.from_items(rows, num_blocks=3),
+            model_config={"n_layers": 2, "dim": 256, "n_heads": 4,
+                          "n_kv_heads": 2, "dtype": "bfloat16"},
+            engine_config={"page_size": 32, "total_pages": 64,
+                           "max_seq_len": 256}, max_new_tokens=6,
+            concurrency=2).take_all()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert [r["id"] for r in out] == list(range(6))
+    assert all(len(r["generated"]) == 6 for r in out)
+    assert tpa.launch_counts["ragged_paged_attention"] > 0
+    assert tpa.launch_counts["ragged_paged_attention_reference_cuda"] == 0

@@ -1,5 +1,5 @@
-"""The port's ``LLMBatchPredictor`` and the server's telemetry hooks against
-the JAX package's, on the CPU.
+"""The port's ``LLMBatchPredictor``, ``batch_inference`` and the server's
+telemetry hooks against the JAX package's, on the CPU.
 
 The predictors run the JAX package's parameters (carried across with
 ``convert``) with an EOS token that one row's greedy stream reaches, so
@@ -7,10 +7,20 @@ the rows carry both finish reasons; their rows must be equal to the JAX
 predictor's, key by key. The server's ``request_records()`` must carry the
 caller's ambient trace id, its log records the request id (and the trace
 id where one is ambient), and ``set_overload_level`` must set the token
-budget the JAX server sets.
+budget the JAX server sets. ``batch_inference`` runs through both
+packages' local modes, in one block and in several through a pool of two
+actors, and its rows must equal the JAX package's, key by key; the JAX
+package's side runs with the cyclic collector paused, as in
+tests/test_torch_data.py (its local-mode memory store deadlocks when the
+collector frees an ObjectRef inside the store's lock). chip_smoke.py's
+phase 12a and 12b run here at a small size.
 """
 
+import contextlib
+import gc
+import sys
 import threading
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -18,11 +28,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import ray_tpu
+import ray_tpu_torch
+from ray_tpu import data as jdata
 from ray_tpu.llm.batch import LLMBatchPredictor as JPredictor
+from ray_tpu.llm.batch import batch_inference as jbatch_inference
 from ray_tpu.llm.serve_llm import LLMServer as JServer
 from ray_tpu.models import llama as jl
 from ray_tpu_torch import convert
-from ray_tpu_torch.llm.batch import LLMBatchPredictor
+from ray_tpu_torch import data as tdata
+from ray_tpu_torch.llm.batch import LLMBatchPredictor, batch_inference
 from ray_tpu_torch.llm.serve_llm import LLMServer
 from ray_tpu_torch.util import log_plane, trace_context
 
@@ -171,3 +186,81 @@ def test_set_overload_level_matches_jax(server, base):
     server.set_overload_level(2)
     assert len(server({"prompt_ids": [3, 4, 5],
                        "max_tokens": 3})["token_ids"]) == 3
+
+
+@contextlib.contextmanager
+def collector_paused():
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.collect()
+        gc.enable()
+
+
+@pytest.fixture
+def runtimes():
+    ray_tpu.init(local_mode=True, num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
+    yield
+    ray_tpu_torch.shutdown()
+    ray_tpu.shutdown()
+
+
+BATCH_ROWS = DICT_ROWS + [{"prompt": p, "id": 4 + i}
+                          for i, p in enumerate(PLAIN_ROWS)]
+
+
+@pytest.mark.parametrize("blocks, concurrency", [(1, 1), (3, 2)])
+def test_batch_inference_rows_match_jax(params, runtimes, blocks,
+                                        concurrency):
+    jp, tp = params
+    kw = dict(max_new_tokens=8, concurrency=concurrency)
+    with collector_paused():
+        want = jbatch_inference(
+            jdata.from_items(BATCH_ROWS, num_blocks=blocks),
+            model_config=dict(MODEL, dtype=jnp.float32),
+            engine_config=dict(ENGINE, params=jp), **kw).take_all()
+    out = batch_inference(
+        tdata.from_items(BATCH_ROWS, num_blocks=blocks),
+        model_config=dict(MODEL, dtype="float32"),
+        engine_config=dict(ENGINE, params=tp, device="cpu"), **kw)
+    assert out.num_blocks() == blocks
+    got = out.take_all()
+    assert got == want
+    assert [r["id"] for r in got] == [r["id"] for r in BATCH_ROWS]
+    assert {r["finish_reason"] for r in got} == {"stop", "length"}
+    assert out.stats()["tasks"] == blocks
+    assert out.stats()["rows"] == len(BATCH_ROWS)
+
+
+def counting_ragged(monkeypatch):
+    """The engine's attention counting a launch per call on the CPU, as
+    the kernel's wrapper does on the card."""
+    from ray_tpu_torch.llm import model as tmodel
+    from ray_tpu_torch.ops import paged_attention as tpa
+    orig = tmodel.ragged_paged_attention
+
+    def counted(*args, **kwargs):
+        tpa._count("ragged_paged_attention")
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(tmodel, "ragged_paged_attention", counted)
+
+
+def test_chip_smoke_batch_inference_phases_on_the_cpu(monkeypatch):
+    """chip_smoke.py's phases 12a and 12b at a small size on the CPU: the
+    pool's launches against its engines' counts, 12a's rows against the
+    direct predictor's and 12b's against generate's."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    counting_ragged(monkeypatch)
+    small = {"n_layers": 2, "dtype": "float32"}
+    launches, expected = chip_smoke.phase_batch_inference(
+        small, dict(chip_smoke.MAIN_ENGINE, device="cpu"), lengths=(5, 60))
+    assert launches["ragged_paged_attention"] == expected > 0
+    launches, expected = chip_smoke.phase_batch_rows(
+        dict(small, n_heads=4, n_kv_heads=2, dim=64),
+        dict(chip_smoke.BENCH_ENGINE, device="cpu"), lengths=(5, 80))
+    assert launches["ragged_paged_attention"] == expected > 0
+    assert not ray_tpu_torch.is_initialized()

@@ -220,10 +220,14 @@ def cancelled_task(rt):
     return None
 
 
+def resources(rt):
+    return rt.cluster_resources(), rt.available_resources(), rt.nodes()
+
+
 PROGRAMS = [tasks, ref_arguments, num_returns, actor_calls_in_order,
             method_num_returns, put_get, wait_with_num_returns_and_timeout,
             get_timeout, task_error, kill_then_call, named_actor,
-            runtime_env_vars, streaming, cancelled_task]
+            runtime_env_vars, streaming, cancelled_task, resources]
 
 
 @pytest.mark.parametrize("program", PROGRAMS, ids=lambda p: p.__name__)
@@ -307,3 +311,90 @@ def test_shutdown_waits_for_actor_threads():
     ray_tpu_torch.shutdown()
     assert not [t for t in threading.enumerate()
                 if t.name == "actor-Slow" and t.is_alive()]
+
+
+def test_resources_with_a_card_and_custom_resources():
+    """``init(num_gpus=, resources=)`` shows in the resource views, as the
+    JAX package's ``resources=`` does (it has no num_gpus)."""
+    ray_tpu.init(local_mode=True, num_cpus=2, resources={"GPU": 1.0,
+                                                         "pool": 3.0})
+    ray_tpu_torch.init(local_mode=True, num_cpus=2, num_gpus=1,
+                       resources={"pool": 3.0})
+    try:
+        assert ray_tpu_torch.cluster_resources() == \
+            ray_tpu.cluster_resources() == {"CPU": 2.0, "GPU": 1.0,
+                                            "pool": 3.0}
+        assert ray_tpu_torch.nodes() == ray_tpu.nodes()
+    finally:
+        ray_tpu_torch.shutdown()
+        ray_tpu.shutdown()
+
+
+# an IMPALA program that ends without shutdown(): its runner actors are
+# still sampling inside torch code when the interpreter exits
+EXIT_PROGRAM = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import ray_tpu_torch
+from ray_tpu_torch.rllib import IMPALAConfig
+ray_tpu_torch.init(local_mode=True)
+algo = IMPALAConfig(seed=0).build(device="cpu")
+algo.train()
+algo.train()
+print("trained")
+"""
+
+
+def test_exit_without_shutdown_joins_the_actor_threads():
+    """``init`` registers ``shutdown`` to run at exit: without it, the
+    program above aborted ("terminate called without an active
+    exception", rc 134) in about three runs of four, so it runs three
+    times."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    for _ in range(3):
+        out = subprocess.run([sys.executable, "-c",
+                              EXIT_PROGRAM.format(root=root)],
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+        assert out.stdout.strip() == "trained"
+        assert "terminate called" not in out.stderr
+
+
+def test_memory_store_frees_inside_its_own_lock():
+    """The cyclic collector may run an ObjectRef's ``__del__`` inside an
+    allocation the memory store makes under its lock; ``__del__`` frees
+    its object through the same lock on the same thread. Here an entry's
+    construction drops the last reference to another object: the store
+    must not deadlock (the JAX package's plain lock does)."""
+    from ray_tpu_torch.core import memory_store as ms
+    from ray_tpu_torch.core.ids import ObjectID, TaskID
+    store = ms.MemoryStore()
+    task = TaskID.for_driver(ray_tpu_torch.core.ids.JobID.from_int(1))
+    held, fresh = ObjectID.for_put(task, 1), ObjectID.for_put(task, 2)
+    store.put(held, "value")
+
+    class FreeingEntry(ms._Entry):
+        def __init__(self):
+            super().__init__()
+            store.delete(held)            # what __del__ would do here
+
+    done = threading.Event()
+
+    def run():
+        orig = ms._Entry
+        ms._Entry = FreeingEntry
+        try:
+            store.put(fresh, 1)
+        finally:
+            ms._Entry = orig
+        done.set()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(10)
+    assert done.is_set(), "the store deadlocked on its own lock"
+    assert not store.contains(held) and store.get_if_ready(fresh)[0] == 1
