@@ -25,7 +25,8 @@ result line is printed):
   4. the main path: ``LLMServer`` at Llama-3-8B widths, all 32 layers,
      bf16, random weights from a seed, answering concurrent requests
      through ``__call__`` and ``stream`` (one prompt prefilled in chunks,
-     one prefix-cache hit); every launch counter is set to 0 just before
+     one prefix-cache hit; the first wave admitted at one engine step,
+     so that phase 14's worker schedules it alike); every launch counter is set to 0 just before
      and read just after, and must match the engine's step counts. The
      flight recorder is on (the default): each request's TTFT, TPOT and
      end-to-end time from its record beside the external timer, held to
@@ -146,6 +147,34 @@ result line is printed):
      lower than their last loss before their exploit; checkpoint bytes,
      pickling and loading seconds, each trial's step ms against one
      alone, and the peak memory printed.
+ 14. the cluster runtime on the card, after phase 13 with the driver's
+     engines freed: 14a. ``ray_tpu_torch.init(num_cpus=4)`` boots a head,
+     a node daemon and the shm store as processes (boot time printed);
+     the node counts the card itself (``GPU`` 1), and neither daemon
+     holds a CUDA context (nvidia-smi's compute processes and their
+     /proc maps and open files); 14b. a ``num_gpus=1`` actor builds phase
+     4's server (Llama-3-8B widths, 32 layers, bf16, random weights from
+     the engine's seed) in its worker process, which sees only card "0"
+     through ``CUDA_VISIBLE_DEVICES``, and answers phase 4's requests:
+     every token stream must equal phase 4's, and the worker's ragged
+     launches, counted from 0 after construction and read through the
+     actor, must equal the engine's count as phase 4 computes it (the
+     driver's counters stay 0); the actor's creation time, each request's
+     wall time beside phase 4's, the worker's peak memory and nvidia-smi's
+     line for it printed; 14d. tensors from the worker's card (bf16,
+     fp32, a strided view) nested in a dict arrive as CPU tensors equal
+     byte for byte to ``.cpu()`` in the worker, and a 1 GiB CPU tensor
+     goes through the shm store twice, the first freed before the second
+     (put, get and a worker's read, GB/s); 14c. a second ``num_gpus=1``
+     actor stays pending while the first holds the card; killing the
+     first ends its process and frees its device memory, and the second
+     places and answers phase 4's requests with phase 4's streams and the
+     engine's ragged count; 14e. PPO at phase 11's settings, the learner
+     on the card, with its env runners as worker processes that sample on
+     their CPUs, to the JAX test's gate; then, to split that change into
+     its two parts, the runner processes on the card, and after
+     ``shutdown()`` the local mode's thread runners on the CPU and on the
+     card: each run's iteration split into sampling and update.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -154,6 +183,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -840,11 +870,46 @@ def _stamp_launches(fns, stamps):
         setattr(fns, name, stamped)
 
 
+def main_requests(vocab, chunk):
+    """Phase 4's requests: the first wave, sent at once, as (kind,
+    prompt, max_tokens) — one prompt prefilled in chunks, one that
+    publishes a 256-token prefix — and the prefix-hit request sent alone
+    after it."""
+    prefix = _prompt(1, 256, vocab)
+    reqs = [("stream", _prompt(2, chunk + 188, vocab), 24),     # chunked
+            ("call", prefix + _prompt(3, 40, vocab), 16),        # publishes
+            ("call", _prompt(4, 20, vocab), 32),
+            ("stream", _prompt(5, 9, vocab), 32)]
+    hit_req = {"prompt_ids": prefix + _prompt(6, 30, vocab),
+               "max_tokens": 16}
+    return reqs, hit_req
+
+
+def admit_together(engine, n, timeout=60.0):
+    """Hold the engine's next step until ``n`` requests wait, so that a
+    wave sent from ``n`` threads is admitted at one step in whichever
+    process it runs: the engine's schedule is then the same everywhere,
+    and with the same weights, kernels and card, so is every token. The
+    hold lifts itself at that step."""
+    step = engine.step
+
+    def held(*args, **kwargs):
+        deadline = time.monotonic() + timeout
+        while len(engine.waiting) < n and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        engine.step = step
+        return step(*args, **kwargs)
+
+    engine.step = held
+
+
 def phase_main_path(model_config=None, engine_config=None,
                     launch_stamp_fails=True):
     """LLMServer end to end; returns the engine's stats, the launches,
-    the launches expected, and the step programs dispatched in this
-    process before and after the phase. The recorder's first-token and
+    the launches expected, the step programs dispatched in this process
+    before and after the phase, and the token streams with each request's
+    end-to-end wall time ({"wave": [...], "hit": [...], "e2e_s": {i:
+    s}}, the hit request at index len(wave)). The recorder's first-token and
     finish times must trail the caller's timers by 0 to READBACK_LAG_S;
     with ``launch_stamp_fails`` the same times read at each dispatch's
     launch must trail them by more (where a dispatch outlasts the lag,
@@ -871,12 +936,7 @@ def phase_main_path(model_config=None, engine_config=None,
         f"{cfg.vocab_size} {cfg.dtype}, weights {w_bytes} bytes, KV pool "
         f"{kv_bytes} bytes, set-up {time.monotonic() - t0:.1f} s")
     V = cfg.vocab_size
-    chunk = eng.prefill_chunk
-    prefix = _prompt(1, 256, V)
-    reqs = [("stream", _prompt(2, chunk + 188, V), 24),     # chunked
-            ("call", prefix + _prompt(3, 40, V), 16),        # publishes
-            ("call", _prompt(4, 20, V), 32),
-            ("stream", _prompt(5, 9, V), 32)]
+    reqs, hit_req = main_requests(V, eng.prefill_chunk)
     results = [None] * len(reqs)
     # request -> (rid, external TTFT, TPOT and end-to-end seconds; the
     # first two only where a stream shows when its tokens arrive)
@@ -915,6 +975,7 @@ def phase_main_path(model_config=None, engine_config=None,
         tpa.launch_counts[name] = 0
     try:
         t_wave = time.monotonic()
+        admit_together(eng, len(reqs))
         threads = [threading.Thread(target=run, args=(i, *r))
                    for i, r in enumerate(reqs)]
         for t in threads:
@@ -926,8 +987,6 @@ def phase_main_path(model_config=None, engine_config=None,
         # after the first wave published the shared prefix: a hit, alone
         # (one ragged step, two decode dispatches), timed; then the same
         # request again under the profiler for the device's busy time
-        hit_req = {"prompt_ids": prefix + _prompt(6, 30, V),
-                   "max_tokens": 16}
         t_hit = time.monotonic()
         hit_out = srv(hit_req)
         hit = hit_out["token_ids"]
@@ -1024,7 +1083,9 @@ def phase_main_path(model_config=None, engine_config=None,
         if j != traced:
             assert [r["trace_id"] for r in logs
                     if r["request_id"] == other] == ["", ""], j
-    return stats, launches, expected, (programs_before, programs)
+    streams = {"wave": results, "hit": hit,
+               "e2e_s": {i: t[3] for i, t in timers.items()}}
+    return stats, launches, expected, (programs_before, programs), streams
 
 
 def profile_device(fn, device, unprofiled_ms, focus=()):
@@ -2082,6 +2143,11 @@ def rl_oracle(name, params, batch, device, target=None):
     return leaf, abs(lg - lw) / (RL_ORACLE_RTOL * abs(lw))
 
 
+#: algorithm -> (iteration, sampling, learner update) mean ms of phase
+#: 11's run, for phase 14e's comparison
+RL_SPLITS = {}
+
+
 def phase_rl(device, card="the CPU", cases=None):
     """RLlib on ``device`` through the user's entry points: the port's
     local-mode runtime, then each algorithm's ``build(device=)`` and
@@ -2152,6 +2218,9 @@ def phase_rl(device, card="the CPU", cases=None):
             assert best >= gate, f"{name} failed to learn: best {best}"
             assert leaf <= 1 and loss <= 1, (name, leaf, loss)
             out[name] = (len(results), best)
+            RL_SPLITS[name] = (sum(it_ms) / len(it_ms),
+                               sum(sample_ms) / len(sample_ms),
+                               sum(learn_ms) / len(learn_ms))
     finally:
         ray_tpu_torch.shutdown()
     launches = port_launch_counts()
@@ -2699,6 +2768,470 @@ def phase_tune(device, config=None, batch=TUNE_BATCH, lrs=TUNE_LRS):
             "launches": launches}
 
 
+# ------------------------- phase 14: the cluster runtime on the card
+
+CLUSTER_CPUS = 4
+#: the shm arena of phase 14's cluster: 14d's 1 GiB tensor and the
+#: actor's returns fit at once
+CLUSTER_STORE_BYTES = 3 << 30
+BIG_TENSOR_BYTES = 1 << 30
+#: free device memory once a killed GPU worker's process has ended may
+#: lie at most this far under the free memory before it started (the
+#: driver's own allocations between the two readings are none)
+MEMORY_RETURN_SLACK = 256 << 20
+
+
+class MainServer:
+    """Phase 14's actor (``remote(num_gpus=1)``): phase 4's ``LLMServer``
+    in a worker process of the cluster runtime, which sees only its
+    leased card. ``build=False`` defers the server to ``build()``, so the
+    worker touches no device until asked."""
+
+    def __init__(self, model_config, engine_config, build=True):
+        import os
+        self.t_enter = time.time()
+        self.pid = os.getpid()
+        self.model_config, self.engine_config = model_config, engine_config
+        self.srv = None
+        self.build_s = None
+        if build:
+            self.build()
+
+    def where(self):
+        """-> pid, CUDA_VISIBLE_DEVICES, when the process started and
+        when __init__ was entered (touches no device)."""
+        import os
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        age = uptime - ticks / os.sysconf("SC_CLK_TCK")
+        return {"pid": self.pid, "t_enter": self.t_enter,
+                "t_start": time.time() - age,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "build_s": self.build_s}
+
+    def build(self):
+        from ray_tpu_torch.llm.serve_llm import LLMServer
+        from ray_tpu_torch.ops import paged_attention as tpa
+        t0 = time.monotonic()
+        self.srv = LLMServer(self.model_config, self.engine_config)
+        if self.srv.engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.build_s = time.monotonic() - t0
+        # counted from 0 after construction
+        for name in tpa.launch_counts:
+            tpa.launch_counts[name] = 0
+        return self.build_s
+
+    def device(self):
+        dev = self.srv.engine.device
+        if dev.type != "cuda":
+            return {"type": dev.type}
+        return {"type": "cuda", "name": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count(),
+                "peak_allocated": torch.cuda.max_memory_allocated(),
+                "reserved": torch.cuda.memory_reserved()}
+
+    def answer(self):
+        """Phase 4's requests, sent as phase 4 sends them: the first wave
+        from one thread each, admitted at one step, then the prefix hit
+        alone. -> the token streams and each request's wall seconds."""
+        srv, eng = self.srv, self.srv.engine
+        reqs, hit_req = main_requests(eng.cfg.vocab_size, eng.prefill_chunk)
+        out = {"wave": [None] * len(reqs), "e2e_s": {}}
+
+        def run(i, kind, prompt, max_tokens):
+            t = time.monotonic()
+            body = {"prompt_ids": prompt, "max_tokens": max_tokens}
+            if kind == "call":
+                toks = srv(body)["token_ids"]
+            else:
+                toks = []
+                for item in srv.stream(body):
+                    if item.get("done"):
+                        break
+                    toks += item["token_ids"]
+            out["wave"][i] = toks
+            out["e2e_s"][i] = time.monotonic() - t
+
+        admit_together(eng, len(reqs))
+        threads = [threading.Thread(target=run, args=(i, *r))
+                   for i, r in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            assert not t.is_alive(), "request thread hung"
+        t = time.monotonic()
+        out["hit"] = srv(hit_req)["token_ids"]
+        out["e2e_s"][len(reqs)] = time.monotonic() - t
+        return out
+
+    def counts(self):
+        """-> this process's launch counters, the ragged launches phase 4
+        computes from the engine's step counts, and the engine's stats."""
+        from ray_tpu_torch.ops import paged_attention as tpa
+        eng = self.srv.engine
+        stats = self.srv.stats()
+        expected = eng.cfg.n_layers * (stats["ragged_dispatches"]
+                                       + eng.decode_chunk
+                                       * stats["decode_dispatches"])
+        return dict(tpa.launch_counts), expected, stats
+
+    def tensors(self):
+        """A bf16 and an fp32 tensor on the engine's device (and a strided
+        view of the first), nested in a dict, beside their ``.cpu()``
+        copies made here."""
+        dev = self.srv.engine.device
+        g = torch.Generator(device=dev).manual_seed(7)
+        bf16 = torch.randn(2048, 4096, generator=g, device=dev).to(
+            torch.bfloat16)
+        f32 = torch.randn(1024, 1024, generator=g, device=dev)
+        view = bf16.t()[::2]
+        return {"device": {"nested": {"bf16": bf16}, "list": [f32, view]},
+                "host": {"bf16": bf16.cpu(), "f32": f32.cpu(),
+                         "view": view.cpu()}}
+
+
+def check_streams(got, main_streams):
+    """Every token stream of ``got`` equals phase 4's (when given)."""
+    if main_streams is None:
+        return
+    for i, (toks, want) in enumerate(zip(got["wave"], main_streams["wave"])):
+        assert toks == want, (i, toks, want)
+    assert got["hit"] == main_streams["hit"], got["hit"]
+
+
+def same_bytes(a, b):
+    """Equal dtype, shape and bytes, ``b`` a CPU tensor."""
+    return (b.device.type == "cpu" and a.dtype == b.dtype
+            and a.shape == b.shape and torch.equal(
+                a.contiguous().reshape(-1).view(torch.uint8),
+                b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def smi_compute_apps():
+    """pid -> nvidia-smi's line for each compute process it lists."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    apps = {}
+    for line in out.splitlines():
+        head = line.split(",")[0].strip()
+        if head.isdigit():
+            apps[int(head)] = line.strip()
+    return apps
+
+
+def holds_cuda(pid):
+    """Whether process ``pid`` has the NVIDIA driver's library mapped or a
+    /dev/nvidia* device open: what a CUDA context needs (read from /proc,
+    so it holds where nvidia-smi shows no process of this container)."""
+    import os
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            if "libcuda.so" in f.read():
+                return True
+        fd_dir = f"/proc/{pid}/fd"
+        return any(os.readlink(os.path.join(fd_dir, fd)).startswith(
+            "/dev/nvidia") for fd in os.listdir(fd_dir))
+    except (FileNotFoundError, ProcessLookupError):
+        return False
+
+
+def wait_gone(pid, timeout=60.0):
+    """Wait for process ``pid`` to end; -> the seconds it took."""
+    import os
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return time.monotonic() - t0
+        time.sleep(0.01)
+    raise AssertionError(f"process {pid} still runs {timeout} s after kill")
+
+
+def ppo_split(rl_case, device, runner_device):
+    """PPO (``rl_case``: config, most iterations, gate) with the learner
+    on ``device`` and its env runners sampling on ``runner_device``, in
+    the runtime that is up, trained to its gate: -> the best mean, the
+    iteration count, and the mean iteration split into sampling and the
+    learner update (ms)."""
+    config, iterations, gate = rl_case
+    algo = dataclasses.replace(config, runner_device=runner_device).build(
+        device=device)
+    try:
+        # the runners start (a process imports torch) before the first
+        # timed iteration, as phase 11's threads do
+        algo._broadcast_weights()
+        best, results, it_ms = float("-inf"), [], []
+        t0 = time.monotonic()
+        for _ in range(iterations):
+            t = time.monotonic()
+            results.append(algo.train())
+            it_ms.append((time.monotonic() - t) * 1e3)
+            mean = results[-1]["episode_return_mean"]
+            if mean == mean:
+                best = max(best, mean)
+            if best >= gate:
+                break
+        train_s = time.monotonic() - t0
+    finally:
+        algo.stop()
+    n = len(results)
+    return {"runners": len(algo.runners), "best": best, "iterations": n,
+            "train_s": train_s, "it_ms": sum(it_ms) / n,
+            "sample_ms": sum(r["time_sample_s"] for r in results) / n * 1e3,
+            "learn_ms": sum(r["time_learn_s"] for r in results) / n * 1e3}
+
+
+def phase_cluster(model_config=None, engine_config=None, main_streams=None,
+                  num_gpus=None, big_bytes=BIG_TENSOR_BYTES,
+                  rl_case=None, card="the CPU"):
+    """The cluster runtime on the card: ``ray_tpu_torch.init()`` boots a
+    head, a node daemon and the shm store as processes; phase 4's server
+    runs in a GPU-leased worker, a second lease waits for the card,
+    tensors cross processes, and PPO's runners run as processes.
+    ``main_streams`` (phase 4's) must equal the worker's token streams;
+    ``num_gpus`` tells the node its cards (None: it counts them).
+    Returns a summary."""
+    import os
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.worker import global_worker
+    model_config = model_config or MAIN_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    cuda = engine_config.get("device", "cuda") == "cuda"
+    t_phase = time.monotonic()
+    reset_port_launch_counts()
+    if cuda:
+        # earlier phases' engines sit in reference cycles (a server and
+        # its engine thread): collect them before the cache is emptied
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"cluster: the driver holds {torch.cuda.memory_reserved()} "
+            f"bytes reserved, {torch.cuda.memory_allocated()} allocated, "
+            f"at phase 14's start; {card}")
+    shm = os.statvfs("/dev/shm")
+    store = min(CLUSTER_STORE_BYTES, 3 * big_bytes)
+    log(f"cluster: /dev/shm has {shm.f_bavail * shm.f_frsize} bytes free; "
+        f"store arena {store} bytes")
+
+    # 14a: boot
+    t0 = time.monotonic()
+    rt.init(num_cpus=CLUSTER_CPUS, num_gpus=num_gpus, _system_config={
+        "object_store_memory_bytes": store})
+    boot_s = time.monotonic() - t0
+    summary = {"boot_s": boot_s}
+    try:
+        backend = global_worker.backend
+        daemons = {"head": backend._owned_procs[0].pid,
+                   "node": backend._owned_procs[1].pid}
+        res = rt.cluster_resources()
+        log(f"cluster: boot {boot_s:.2f} s (head pid {daemons['head']}, "
+            f"node pid {daemons['node']}), resources {res}")
+        assert res.get("GPU") == 1.0, res
+        for name, pid in daemons.items():
+            assert not holds_cuda(pid), f"the {name} daemon holds CUDA"
+        if cuda:
+            # nvidia-smi may name processes by PIDs of another namespace
+            # (a container's): printed, while holds_cuda reads /proc
+            apps = smi_compute_apps()
+            log(f"cluster: nvidia-smi's compute processes {apps}, the "
+                f"driver's pid {os.getpid()}")
+            assert not set(daemons.values()) & set(apps), apps
+            free_before, total = torch.cuda.mem_get_info()
+
+        # 14b: the main path in a GPU-leased worker
+        server_cls = rt.remote(num_gpus=1)(MainServer)
+        t_submit = time.time()
+        a = server_cls.remote(model_config, engine_config)
+        where = rt.get(a.where.remote(), timeout=600)
+        create_s = time.time() - t_submit
+        dev = rt.get(a.device.remote(), timeout=60)
+        log(f"cluster: the server actor's creation {create_s:.2f} s (lease "
+            f"and spawn {where['t_start'] - t_submit:.2f} s, the worker's "
+            f"start-up, its imports and the class "
+            f"{where['t_enter'] - where['t_start']:.2f} s, the server's "
+            f"construction {where['build_s']:.2f} s); worker pid "
+            f"{where['pid']}, CUDA_VISIBLE_DEVICES {where['visible']!r}, "
+            f"device {dev}")
+        assert where["visible"] == "0", where
+        assert where["pid"] not in (os.getpid(), *daemons.values())
+        if cuda:
+            assert dev["count"] == 1 and dev["name"] == \
+                torch.cuda.get_device_name(0), dev
+            assert holds_cuda(where["pid"])
+        got = rt.get(a.answer.remote(), timeout=900)
+        launches, expected, stats = rt.get(a.counts.remote(), timeout=60)
+        mem = rt.get(a.device.remote(), timeout=60)
+        n_req = len(got["wave"])
+        for i in sorted(got["e2e_s"]):
+            theirs = main_streams["e2e_s"].get(i) if main_streams else None
+            log(f"cluster: request {i}: {got['e2e_s'][i] * 1e3:.1f} ms in "
+                f"the worker" + ("" if theirs is None else
+                                 f", {theirs * 1e3:.1f} ms in phase 4"))
+        check_streams(got, main_streams)
+        log(f"cluster: the worker's {n_req + 1} token streams "
+            + ("equal phase 4's" if main_streams is not None else
+               "(no phase 4 run to compare)")
+            + f"; worker launches {launches}, expected ragged "
+            f"{expected}; engine stats {json.dumps(stats)}")
+        if cuda:
+            assert launches["ragged_paged_attention"] == expected, \
+                (launches, expected)
+            apps = smi_compute_apps()
+            log(f"cluster: the worker's peak allocated "
+                f"{mem['peak_allocated']} bytes, reserved {mem['reserved']};"
+                f" nvidia-smi's line for its pid: "
+                f"{apps.get(where['pid'], 'none')} (all: {apps})")
+        else:
+            assert not any(launches.values()), launches
+        assert launches["ragged_paged_attention_reference_cuda"] == 0, \
+            "the plain attention ran on CUDA tensors in the worker"
+        driver = port_launch_counts()
+        assert not any(driver.values()), driver
+        summary.update(launches=launches, expected=expected,
+                       create_s=create_s)
+
+        # 14d (while the server holds the card): tensors across processes
+        out = rt.get(a.tensors.remote(), timeout=120)
+        pairs = [(out["host"]["bf16"], out["device"]["nested"]["bf16"]),
+                 (out["host"]["f32"], out["device"]["list"][0]),
+                 (out["host"]["view"], out["device"]["list"][1])]
+        for host, arrived in pairs:
+            assert same_bytes(host, arrived), (host.dtype, host.shape)
+        big = torch.arange(big_bytes // 4, dtype=torch.float32)
+        t0 = time.monotonic()
+        ref = rt.put(big)
+        put_s = time.monotonic() - t0
+        assert backend.object_plane.store.contains(ref.id().binary())
+        t0 = time.monotonic()
+        back = rt.get(ref, timeout=120)
+        get_s = time.monotonic() - t0
+        assert same_bytes(big, back)
+
+        @rt.remote(num_cpus=1)
+        def read_big(refs):
+            t = time.monotonic()
+            x = rt.get(refs[0], timeout=120)
+            t_get = time.monotonic() - t
+            total = float(x.sum(dtype=torch.float64))
+            return t_get, time.monotonic() - t - t_get, total
+
+        w_get, w_sum, w_total = rt.get(read_big.remote([ref]), timeout=300)
+        assert w_total == float(big.sum(dtype=torch.float64)), w_total
+        # the same put again once the first object has left the store
+        store_key = ref.id().binary()
+        del back, ref
+        t0 = time.monotonic()
+        while backend.object_plane.store.contains(store_key):
+            assert time.monotonic() - t0 < 60, "the freed object stays"
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        ref = rt.put(big)
+        put2_s = time.monotonic() - t0
+        del ref
+        log(f"cluster: tensors from the worker's device arrive as CPU "
+            f"tensors equal byte for byte to its .cpu() ({[tuple(h.shape) for h, _ in pairs]}, "
+            f"bf16, fp32 and a strided bf16 view); put of a {big_bytes}-byte "
+            f"CPU tensor {put_s * 1e3:.1f} ms ({big_bytes / put_s / 1e9:.2f} "
+            f"GB/s), the same put once the first was freed "
+            f"{put2_s * 1e3:.1f} ms ({big_bytes / put2_s / 1e9:.2f} GB/s), "
+            f"get {get_s * 1e3:.2f} ms (a view of the store); in a "
+            f"CPU worker get {w_get * 1e3:.2f} ms, a sum over it "
+            f"{w_sum * 1e3:.1f} ms ({big_bytes / w_sum / 1e9:.2f} GB/s); "
+            f"{card}")
+        summary.update(put_gbps=big_bytes / put_s,
+                       put2_gbps=big_bytes / put2_s)
+        del big
+
+        # 14c: leases
+        b = server_cls.remote(model_config, engine_config, build=False)
+        pending = b.where.remote()
+        ready, _ = rt.wait([pending], timeout=2)
+        assert ready == [], "a second num_gpus=1 lease placed on a held card"
+        t0 = time.monotonic()
+        rt.kill(a)
+        gone_s = wait_gone(where["pid"])
+        if cuda:
+            free_after, _ = torch.cuda.mem_get_info()
+            apps = smi_compute_apps()
+            assert where["pid"] not in apps, apps
+        b_where = rt.get(pending, timeout=300)
+        wait_s = time.monotonic() - t0
+        log(f"cluster: the second lease waited while the first held the "
+            f"card; kill -> the worker process gone in {gone_s:.2f} s, the "
+            f"second lease placed {wait_s:.2f} s after the kill (pid "
+            f"{b_where['pid']}, CUDA_VISIBLE_DEVICES "
+            f"{b_where['visible']!r})" + (
+                f"; free device memory {free_before} bytes before the first "
+                f"worker, {free_after} after its end (of {total})"
+                if cuda else ""))
+        assert b_where["visible"] == "0" and b_where["pid"] != where["pid"]
+        if cuda:
+            assert free_after >= free_before - MEMORY_RETURN_SLACK, \
+                (free_before, free_after)
+        rt.get(b.build.remote(), timeout=600)
+        got_b = rt.get(b.answer.remote(), timeout=900)
+        launches_b, expected_b, _ = rt.get(b.counts.remote(), timeout=60)
+        check_streams(got_b, main_streams)
+        log(f"cluster: the second worker answered phase 4's requests in "
+            f"{sum(got_b['e2e_s'].values()) * 1e3:.1f} ms of request wall "
+            f"time: its {len(got_b['wave']) + 1} token streams "
+            + ("equal phase 4's" if main_streams is not None else
+               "(no phase 4 run to compare)")
+            + f"; ragged launches {launches_b['ragged_paged_attention']}, "
+            f"expected {expected_b}")
+        if cuda:
+            assert launches_b["ragged_paged_attention"] == expected_b, \
+                (launches_b, expected_b)
+        assert launches_b["ragged_paged_attention_reference_cuda"] == 0
+        rt.kill(b)
+        summary.update(lease_wait_s=wait_s)
+
+        # 14e: PPO with its env runners as worker processes
+        if rl_case is None:
+            rl_case = rl_cases()["PPO"]
+        learner = "cuda" if cuda else "cpu"
+        # the runners sample on their CPUs: the gated run
+        runs = {("processes", "cpu"): ppo_split(rl_case, learner, "cpu")}
+        if cuda:
+            runs["processes", "cuda"] = ppo_split(rl_case, learner, "cuda")
+    finally:
+        rt.shutdown()
+    # the same PPO with thread runners (local mode) on each device, so
+    # that processes and devices are each changed alone
+    rt.init(local_mode=True, num_cpus=CLUSTER_CPUS)
+    try:
+        for runner in (("cpu", "cuda") if cuda else ("cpu",)):
+            runs["threads", runner] = ppo_split(rl_case, learner, runner)
+    finally:
+        rt.shutdown()
+    threads = RL_SPLITS.get("PPO")
+    for (kind, runner), r in runs.items():
+        log(f"cluster: PPO with {r['runners']} env runners as {kind} "
+            f"sampling on {runner}, the learner on {learner}: best mean "
+            f"{r['best']:.2f} after {r['iterations']} iterations (gate "
+            f"{rl_case[2]}), {r['train_s']:.2f} s; iteration ms "
+            f"{r['it_ms']:.2f} (sampling {r['sample_ms']:.2f}, learner "
+            f"update {r['learn_ms']:.2f}); {card}")
+    if threads is not None:
+        log(f"cluster: phase 11's PPO (thread runners on the card): "
+            f"iteration {threads[0]:.2f} ms (sampling {threads[1]:.2f}, "
+            f"update {threads[2]:.2f}); {card}")
+    gated = runs["processes", "cpu"]
+    assert gated["best"] >= rl_case[2], f"PPO failed to learn: {gated}"
+    summary.update(ppo_iterations=gated["iterations"],
+                   ppo_sample_ms=gated["sample_ms"],
+                   ppo_learn_ms=gated["learn_ms"],
+                   ppo_runs=runs)
+    log(f"phase 14: {time.monotonic() - t_phase:.1f} s")
+    return summary
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2736,7 +3269,7 @@ def main():
     torch.cuda.empty_cache()
     # the main path is the first engine of the process, so the step
     # programs it dispatched are all the process holds
-    stats, launches, expected, programs = phase_main_path()
+    stats, launches, expected, programs, main_streams = phase_main_path()
     assert launches["ragged_paged_attention"] == expected, \
         (launches, expected)
     assert launches["ragged_paged_attention_reference_cuda"] == 0, \
@@ -2749,7 +3282,7 @@ def main():
     # then a server at those widths, its launches counted, and the fp32
     # engine against the full forward there
     kern_bench = phase_kernel(device, BENCH_GEOMETRY)
-    _, bench_launches, bench_expected, _ = phase_main_path(
+    _, bench_launches, bench_expected, _, _ = phase_main_path(
         BENCH_MODEL, BENCH_ENGINE, launch_stamp_fails=False)
     assert bench_launches["ragged_paged_attention"] == bench_expected, \
         (bench_launches, bench_expected)
@@ -2803,8 +3336,11 @@ def main():
     torch.cuda.empty_cache()
     t_tune = time.monotonic()
     phase_tune(device)
-    log(f"phase 13: {time.monotonic() - t_tune:.1f} s; the whole script "
-        f"{time.monotonic() - t_script:.1f} s")
+    log(f"phase 13: {time.monotonic() - t_tune:.1f} s")
+    # the cluster runtime: phase 4's server in a GPU-leased worker process
+    torch.cuda.empty_cache()
+    phase_cluster(main_streams=main_streams, card=card)
+    log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
     record = {"kernels": [{

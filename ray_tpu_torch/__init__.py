@@ -1,16 +1,20 @@
-"""ray_tpu_torch — the PyTorch + CUDA port of ray_tpu's serving,
-single-card training and RLlib paths.
+"""ray_tpu_torch — the PyTorch + CUDA port of ray_tpu: its runtime,
+serving, single-card training, RLlib, data and Tune.
 
-The runtime is the JAX package's local mode, copied (``core/``,
-``remote_function.py``, ``actor.py``, ``exceptions.py``):
-``init(local_mode=True)``, then tasks and actors through ``remote`` and
-``get``/``put``/``wait``, run as threads of this process. The cluster
-runtime is not part of this package yet, so ``init()`` without
-``local_mode=True`` raises. ``init`` registers ``shutdown`` to run at
-the interpreter's exit, so that actor threads still inside torch code
-are joined before the interpreter goes. RLlib (``rllib/``: PPO, IMPALA,
-DQN, SAC and BC with their env runners), the datasets of ``data/`` and
-Tune (``tune/``) run on it.
+The runtime is the JAX package's, copied (``core/``, ``runtime/``,
+``_native/``, ``remote_function.py``, ``actor.py``, ``exceptions.py``):
+``init()`` boots a head, a node daemon and a shared-memory object store as
+subprocesses and connects as the driver, so tasks and actors run in
+worker processes; a ``num_gpus=n`` lease gets a worker of its own that
+sees only its cards (``accelerators/gpu.py``). Tensors cross processes
+as host memory and arrive as CPU tensors (``core/serialization.py``).
+``init(local_mode=True)`` runs tasks and actors as threads of this
+process instead. ``init`` registers ``shutdown`` to run at the
+interpreter's exit, so that actor threads still inside torch code are
+joined, and the daemons stopped, before the interpreter goes. RLlib
+(``rllib/``: PPO, IMPALA, DQN, SAC and BC with their env runners), the
+datasets of ``data/`` and Tune (``tune/``) run on either mode. The
+runtime's modules never import torch: the daemons stay free of it.
 
 The Llama and Mixtral models and their losses, the MLP, and the routed
 MoE FFN (``parallel/moe.py``); the ragged paged-KV attention and flash
@@ -33,7 +37,7 @@ Submodules beyond the runtime import lazily (PEP 562), as in
 from __future__ import annotations
 
 import atexit
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 from ray_tpu_torch import exceptions
 from ray_tpu_torch.actor import ActorHandle, get_actor
@@ -53,30 +57,52 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
          num_gpus: Optional[int] = None,
          resources: Optional[Dict[str, float]] = None,
          local_mode: bool = False,
-         ignore_reinit_error: bool = False) -> Dict[str, str]:
-    """Start the in-process runtime: ``local_mode=True`` runs tasks on a
-    thread pool and each actor on a thread of its own (reference
-    local-mode semantics). The cluster runtime is not ported yet, so
-    anything else raises. ``shutdown`` runs at the interpreter's exit
-    unless the caller ran it before."""
+         object_store_memory: Optional[int] = None,
+         namespace: str = "default",
+         ignore_reinit_error: bool = False,
+         _system_config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Connect this process to a cluster, starting one if needed.
+
+    - ``local_mode=True``: tasks on a thread pool and each actor on a
+      thread of its own (reference local-mode semantics).
+    - ``address=None``: boot a head, a node daemon and its shm store as
+      subprocesses of this machine, and connect as the driver; tasks and
+      actors run in worker processes. The node counts the machine's GPUs
+      unless ``num_gpus`` says how many to advertise; a ``num_gpus=n``
+      task or actor gets a worker of its own that sees only its ``n``
+      cards through ``CUDA_VISIBLE_DEVICES``.
+    - ``address="host:port"``: connect to an existing head.
+
+    ``shutdown`` runs at the interpreter's exit unless the caller ran it
+    before."""
     if global_worker.connected:
         if ignore_reinit_error:
             return {"address": "existing"}
         raise RuntimeError("ray_tpu_torch.init() called twice "
                            "(pass ignore_reinit_error=True to tolerate)")
-    if not local_mode:
-        raise NotImplementedError(
-            "ray_tpu_torch.init() supports local mode only "
-            "(init(local_mode=True)); the cluster runtime is not ported "
-            "yet")
-    merged = dict(resources or {})
-    if num_gpus is not None:
-        merged["GPU"] = float(num_gpus)
-    global_worker.connect_local(num_cpus=num_cpus, resources=merged)
+    # fresh table per session: a previous init()'s _system_config in this
+    # process must not leak into this cluster
+    from ray_tpu_torch.core.config import GlobalConfig, reset_to_defaults
+    reset_to_defaults()
+    if _system_config:
+        GlobalConfig.apply(_system_config)
+    if local_mode:
+        merged = dict(resources or {})
+        if num_gpus is not None:
+            merged["GPU"] = float(num_gpus)
+        global_worker.connect_local(num_cpus=num_cpus, resources=merged)
+        info = {"address": "local"}
+    else:
+        from ray_tpu_torch.runtime.cluster_backend import connect_or_start
+        info = connect_or_start(
+            global_worker, address=address, num_cpus=num_cpus,
+            num_gpus=num_gpus, resources=resources,
+            object_store_memory=object_store_memory, namespace=namespace)
     # a thread still inside torch code when the interpreter exits aborts
-    # the process: join the actor threads first (disconnect does)
+    # the process: join the actor threads first, and stop the daemons
+    # this driver started (disconnect does both)
     atexit.register(shutdown)
-    return {"address": "local"}
+    return info
 
 
 def shutdown() -> None:

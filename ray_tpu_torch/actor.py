@@ -17,8 +17,7 @@ from ray_tpu_torch.core.ids import ActorID
 from ray_tpu_torch.core.task_spec import ActorCreationSpec, TaskSpec
 from ray_tpu_torch.core.ids import TaskID
 from ray_tpu_torch.core.worker import require_connected
-from ray_tpu_torch.remote_function import (_build_resources,
-                                           validate_runtime_env)
+from ray_tpu_torch.remote_function import _build_resources
 
 _VALID_ACTOR_OPTIONS = {
     "num_cpus", "num_tpus", "num_gpus", "resources", "memory",
@@ -36,7 +35,8 @@ class ActorClass:
         for k in self._options:
             if k not in _VALID_ACTOR_OPTIONS:
                 raise ValueError(f"invalid option {k!r} for actor @remote")
-        self._options["runtime_env"] = validate_runtime_env(
+        from ray_tpu_torch.runtime import runtime_env as rtenv
+        self._options["runtime_env"] = rtenv.validate(
             self._options.get("runtime_env"))
         # Collect per-method defaults declared with @ray_tpu_torch.method(...).
         self._method_options: Dict[str, Dict[str, Any]] = {}
@@ -147,10 +147,10 @@ class ActorMethod:
     def bind(self, *args, **kwargs):
         """Lazy DAG node over this actor method (reference:
         dag/class_node.py ClassMethodNode): not in this package until
-        ``dag.py`` is ported (ROADMAP Queue 1 item 11)."""
+        ``dag.py`` is ported (ROADMAP Queue 1 item 8)."""
         raise NotImplementedError(
             "bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 8)")
 
     def __call__(self, *args, **kwargs):
         raise TypeError("actor methods must be invoked with .remote()")

@@ -116,6 +116,13 @@ class _LocalActor:
         while True:
             item = self.queue.get()
             if item is None:
+                # the kill tombstone: let the instance go, and with it what
+                # it holds (an engine's device memory), at the kill, not at
+                # shutdown; LocalBackend.actors keeps this entry (spec,
+                # death reason, thread) for later calls and shutdown. An
+                # async actor's calls still on its loop hold the instance
+                # until they end
+                self.instance = None
                 return
             spec: TaskSpec = item
             try:

@@ -2,14 +2,16 @@
 
 Role-equivalent to the reference's CoreWorker + Python Worker pair
 (reference: src/ray/core_worker/core_worker.h:166 and
-python/ray/_private/worker.py:426): owns the memory store, the reference
-counter, id generation, and task submission; exposes get/put/wait.
+python/ray/_private/worker.py:426): owns the memory store, the shm-store
+client, the reference counter, id generation, and task submission; exposes
+get/put/wait. The transport behind submission is a pluggable backend:
 
-The JAX package's local mode, copied: the backend is ``LocalBackend``
-(core/local_backend.py), in-process thread execution — the reference's
-local_mode, used for unit tests and single-process ML library runs. The
-cluster runtime (head daemon, node daemons, leased worker processes,
-shared-memory data plane) is not part of this package yet.
+ - LocalBackend  (core/local_backend.py): in-process thread execution —
+   the reference's local_mode, used for unit tests and single-process ML
+   library runs.
+ - ClusterBackend (runtime/cluster_backend.py): the real multiprocess
+   runtime — head daemon (GCS), per-node daemons, leased worker processes,
+   shared-memory data plane.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ray_tpu_torch.core import object_ref as object_ref_mod
+from ray_tpu_torch.core.config import GlobalConfig
 from ray_tpu_torch.core.ids import (ActorID, JobID, ObjectID, TaskID, WorkerID,
                               _Counter)
 from ray_tpu_torch.core.memory_store import MemoryStore
@@ -30,7 +33,11 @@ from ray_tpu_torch.core.task_spec import ActorCreationSpec, TaskArg, TaskSpec
 from ray_tpu_torch.exceptions import GetTimeoutError, RayTpuError, TaskError
 
 LOCAL_MODE = "local"
-#: how long shutdown() waits for each actor thread to finish its queue
+CLUSTER_MODE = "cluster"
+WORKER_MODE = "worker"
+
+#: how long shutdown() waits for each local-mode actor thread to finish
+#: its queue
 SHUTDOWN_JOIN_S = 60.0
 
 
@@ -43,6 +50,7 @@ class Worker:
         self.memory_store = MemoryStore()
         self.refcounter = ReferenceCounter()
         self.backend = None
+        self.shm = None  # ShmStore client in cluster mode
         self.node_id = None
         self._put_counter = _Counter()
         self._task_counter = _Counter()
@@ -66,6 +74,11 @@ class Worker:
         self.backend = LocalBackend(self, num_cpus=num_cpus, resources=resources)
         self._install_hooks()
 
+    def connect_cluster(self, backend) -> None:
+        self.mode = CLUSTER_MODE
+        self.backend = backend
+        self._install_hooks()
+
     def _install_hooks(self) -> None:
         object_ref_mod.install_refcount_hooks(
             add=lambda oid: self.refcounter.add_local(oid),
@@ -76,10 +89,12 @@ class Worker:
 
     def disconnect(self) -> None:
         if self.backend is not None:
-            # wait for the actor threads to finish what they run: a thread
-            # still inside torch code when the interpreter exits aborts
-            # the process
-            threads = [a.thread for a in self.backend.actors.values()]
+            # local mode: wait for the actor threads to finish what they
+            # run, since a thread still inside torch code when the
+            # interpreter exits aborts the process (cluster-mode actors
+            # are processes, ended by the node daemon)
+            threads = [a.thread for a in
+                       getattr(self.backend, "actors", {}).values()]
             try:
                 self.backend.shutdown()
             except Exception:
@@ -133,17 +148,40 @@ class Worker:
             values.append(self._get_one(r, remaining))
         return values[0] if single else values
 
-    def _get_one(self, ref: ObjectRef, timeout: Optional[float]) -> Any:
+    def _get_one(self, ref: ObjectRef, timeout: Optional[float],
+                 _reconstructed: bool = False) -> Any:
         oid = ref.id()
+        if self.backend is not None:
+            self.backend.poke_resolve(ref)
         deadline = None if timeout is None else time.monotonic() + timeout
+        # Primary signal: the memory store event. Fallback poll: the object
+        # may be sealed in shm without a local memory-store entry (borrowed
+        # ref in cluster mode) — periodically ask the backend.
         while not self.memory_store.wait_ready(oid, 0.05):
+            if self.backend is not None and self.backend.try_resolve(ref):
+                break
             if deadline is not None and time.monotonic() >= deadline:
                 raise GetTimeoutError(f"get() timed out on {ref}")
         entry = self.memory_store.get_if_ready(oid)
         if entry is None:
             from ray_tpu_torch.exceptions import ObjectLostError
             raise ObjectLostError(oid.hex(), "freed while being fetched")
-        value, is_error, _ = entry
+        value, is_error, in_shm = entry
+        if in_shm:
+            from ray_tpu_torch.exceptions import ObjectLostError
+            try:
+                value, is_error = self.backend.get_from_store(ref)
+            except ObjectLostError:
+                # lineage reconstruction (reference:
+                # ObjectRecoveryManager): re-execute the creating task
+                # once, then wait for the fresh value
+                if _reconstructed or not getattr(
+                        self.backend, "try_reconstruct",
+                        lambda r: False)(ref):
+                    raise
+                remaining = None if deadline is None else max(
+                    0.0, deadline - time.monotonic())
+                return self._get_one(ref, remaining, _reconstructed=True)
         if is_error:
             raise value
         return value
@@ -157,15 +195,34 @@ class Worker:
         deadline = None if timeout is None else time.monotonic() + timeout
         ready: List[ObjectRef] = []
         pending = list(refs)
-        # Readiness is the memory store's alone in local mode: one-lock
-        # bulk scan each wakeup, events fire as tasks store their results.
+        # Two-tier readiness probe. Fast tier: one-lock bulk scan of the
+        # memory store, run every wakeup (events fire on task replies).
+        # Slow tier: try_resolve per ref — a backend probe that can hit
+        # shm/RPC — throttled to the 50ms fallback cadence, because refs
+        # that become ready WITHOUT a local event (borrowed refs sealed
+        # remotely) are exactly the ones only the slow tier can see.
+        # Event wakes between sweeps then cost O(pending) dict lookups
+        # under one lock, not O(pending) backend probes.
+        sweep_due = 0.0
         while len(ready) < num_returns:
             ready_ids = self.memory_store.collect_ready(
                 (r.id() for r in pending), num_returns - len(ready))
+            # Probe the backend only when the fast tier came up dry: if
+            # events already handed us ready refs there is nothing a
+            # backend probe could add before we return them.
+            now = time.monotonic()
+            do_sweep = (not ready_ids and self.backend is not None
+                        and now >= sweep_due)
+            if do_sweep:
+                sweep_due = now + 0.045
+            progressed = False
             still = []
             for r in pending:
-                if len(ready) < num_returns and r.id() in ready_ids:
+                if len(ready) < num_returns and (
+                        r.id() in ready_ids or (
+                        do_sweep and self.backend.try_resolve(r))):
                     ready.append(r)
+                    progressed = True
                 else:
                     still.append(r)
             pending = still
@@ -173,7 +230,7 @@ class Worker:
                 break
             if deadline is not None and time.monotonic() >= deadline:
                 break
-            if not ready_ids:
+            if not progressed:
                 remaining_t = 0.05
                 if deadline is not None:
                     remaining_t = min(remaining_t,
@@ -204,6 +261,8 @@ class Worker:
                 fut.set_exception(e)
 
         self.memory_store.add_ready_callback(ref.id(), _resolve)
+        if self.backend is not None:
+            self.backend.poke_resolve(ref)
         return fut
 
     def as_asyncio_future(self, ref: ObjectRef) -> asyncio.Future:
@@ -227,6 +286,8 @@ class Worker:
             loop.call_soon_threadsafe(_set)
 
         self.memory_store.add_ready_callback(ref.id(), _resolve)
+        if self.backend is not None:
+            self.backend.poke_resolve(ref)
         return afut
 
     # ----------------------------------------------------------- submission
@@ -283,6 +344,5 @@ global_worker = Worker()
 def require_connected() -> Worker:
     if not global_worker.connected:
         raise RayTpuError(
-            "ray_tpu_torch is not initialized — call "
-            "ray_tpu_torch.init(local_mode=True) first")
+            "ray_tpu_torch is not initialized — call ray_tpu_torch.init() first")
     return global_worker

@@ -71,8 +71,9 @@ class LLMServer:
         cfg = model_config_from_dict(model_config)
         self.engine = InferenceEngine(cfg, **(engine_config or {}))
         self.engine.track_progress = True  # the serve loop drains it
-        # no runtime boots the port's processes: the server installs the
-        # process logger its request records go to
+        # the process logger its request records go to: a cluster worker
+        # has one already (worker_main installs it); elsewhere the server
+        # installs it
         log_plane.ensure_started(role="llm")
         self.tokenizer = tokenizer or ByteTokenizer()
         self.model_name = model_name

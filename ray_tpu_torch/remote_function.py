@@ -23,33 +23,6 @@ _VALID_OPTIONS = {
 }
 
 
-#: the runtime_env keys local mode applies (``local_backend.py``
-#: ``_applied_runtime_env``)
-RUNTIME_ENV_KEYS = {"env_vars"}
-
-
-def validate_runtime_env(runtime_env: Optional[dict]) -> Optional[dict]:
-    """Check a runtime_env when the function or class is decorated: a dict
-    whose keys local mode knows, ``env_vars`` a ``Dict[str, str]``. Raises
-    instead of ignoring what local mode cannot apply."""
-    if runtime_env is None:
-        return None
-    if not isinstance(runtime_env, dict):
-        raise ValueError(
-            f"runtime_env must be a dict, got {type(runtime_env).__name__}")
-    unknown = set(runtime_env) - RUNTIME_ENV_KEYS
-    if unknown:
-        raise NotImplementedError(
-            f"runtime_env keys {sorted(unknown)} are not supported in local "
-            f"mode (supported: {sorted(RUNTIME_ENV_KEYS)})")
-    env_vars = runtime_env.get("env_vars")
-    if env_vars is not None and (not isinstance(env_vars, dict) or not all(
-            isinstance(k, str) and isinstance(v, str)
-            for k, v in env_vars.items())):
-        raise ValueError("runtime_env['env_vars'] must be Dict[str, str]")
-    return {"env_vars": dict(env_vars)} if env_vars else None
-
-
 def _build_resources(opts: Dict[str, Any]) -> Dict[str, float]:
     resources: Dict[str, float] = dict(opts.get("resources") or {})
     if opts.get("num_cpus") is not None:
@@ -72,7 +45,11 @@ class RemoteFunction:
                 raise ValueError(f"invalid option {k!r} for @remote")
         # fail-fast on unsupported/malformed envs at decoration time —
         # never silently dropped (reference: runtime_env plugin validation)
-        self._options["runtime_env"] = validate_runtime_env(
+        # (env_vars and working_dir; local mode applies env_vars only and
+        # fails a call that asks for a working_dir, as the JAX package's
+        # local mode does)
+        from ray_tpu_torch.runtime import runtime_env as rtenv
+        self._options["runtime_env"] = rtenv.validate(
             self._options.get("runtime_env"))
         functools.update_wrapper(self, function)
         self._exported_key: Optional[bytes] = None
@@ -119,10 +96,10 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node (reference: ray.dag dag_node.py:32): not in this
-        package until ``dag.py`` is ported (ROADMAP Queue 1 item 11)."""
+        package until ``dag.py`` is ported (ROADMAP Queue 1 item 8)."""
         raise NotImplementedError(
             "bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 8)")
 
     @property
     def underlying_function(self):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,6 +39,8 @@ class PPOConfig:
     minibatches: int = 4
     hidden: tuple = (64, 64)
     seed: int = 0
+    # the env runners' device ("cpu", "cuda"); None: the learner's
+    runner_device: Optional[str] = None
 
     def build(self, device="cuda", mesh=None) -> "PPO":
         return PPO(self, device=device, mesh=mesh)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -91,6 +91,8 @@ class BCConfig:
     eval_rollout_length: int = 256
     hidden: tuple = (64, 64)
     seed: int = 0
+    # the env runners' device ("cpu", "cuda"); None: the learner's
+    runner_device: Optional[str] = None
 
     def build(self, device="cuda", mesh=None) -> "BC":
         if self.dataset is None:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +90,8 @@ class DQNConfig:
     epsilon_decay_iters: int = 30
     hidden: tuple = (64, 64)
     seed: int = 0
+    # the env runners' device ("cpu", "cuda"); None: the learner's
+    runner_device: Optional[str] = None
 
     def build(self, device="cuda", mesh=None) -> "DQN":
         return DQN(self, device=device, mesh=mesh)

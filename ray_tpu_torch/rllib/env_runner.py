@@ -18,7 +18,7 @@ import torch
 from ray_tpu_torch.models.llama import resolve_device
 from ray_tpu_torch.rllib.env import ENV_REGISTRY
 from ray_tpu_torch.rllib.module import (forward, sample_actions,
-                                        sample_squashed)
+                                        sample_squashed, tree_map)
 
 EXPLORATIONS = ("categorical", "epsilon_greedy", "squashed_gaussian")
 
@@ -68,7 +68,9 @@ class EnvRunner:
         return a.cpu().numpy(), logp.cpu().numpy(), v.cpu().numpy()
 
     def set_weights(self, params: Any, epsilon: float = None) -> bool:
-        self.params = params
+        # on this runner's device: a cluster worker gets CPU tensors, and
+        # a runner's device may differ from the learner's
+        self.params = tree_map(lambda t: t.to(self.device), params)
         if epsilon is not None:
             self.epsilon = float(epsilon)
         return True

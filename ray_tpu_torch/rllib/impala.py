@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -116,6 +116,8 @@ class IMPALAConfig:
     c_clip: float = 1.0
     hidden: tuple = (64, 64)
     seed: int = 0
+    # the env runners' device ("cpu", "cuda"); None: the learner's
+    runner_device: Optional[str] = None
 
     def build(self, device="cuda", mesh=None) -> "IMPALA":
         return IMPALA(self, device=device, mesh=mesh)

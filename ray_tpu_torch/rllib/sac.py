@@ -224,6 +224,8 @@ class SACConfig:
     target_entropy: float = None   # default: -action_dim
     hidden: tuple = (64, 64)
     seed: int = 0
+    # the env runners' device ("cpu", "cuda"); None: the learner's
+    runner_device: Optional[str] = None
 
     def build(self, device="cuda", mesh=None) -> "SAC":
         return SAC(self, device=device, mesh=mesh)

@@ -1,10 +1,13 @@
 """Shared trainer scaffold for the algorithm classes.
 
 The port of ``ray_tpu/rllib/trainer_base.py``: runner-pool construction,
-weight broadcast, the episode-return window and teardown. Runners and
-learner share one device. Weights go out as a detached snapshot: local
-mode stores values by reference, and torch tensors, unlike JAX arrays,
-can change under a runner that holds them."""
+weight broadcast, the episode-return window and teardown. The runners
+sample on the config's ``runner_device``, the learner's device unless it
+names another; in cluster mode a runner is a worker process, and weights
+reach it as CPU tensors (``core/serialization.py``) that it moves to its
+device. Weights go out as a detached snapshot: local mode stores values
+by reference, and torch tensors, unlike JAX arrays, can change under a
+runner that holds them."""
 
 from __future__ import annotations
 
@@ -37,14 +40,17 @@ class TrainerBase:
     runners: List[Any]
     params: Any
     device: torch.device
+    config: Any
 
     def _make_runners(self, env: str, num_runners: int, num_envs: int,
                       rollout_len: int, seed: int,
                       exploration: str = "categorical") -> None:
         runner_cls = ray_tpu_torch.remote(num_cpus=1)(EnvRunner)
+        device = self.device if self.config.runner_device is None \
+            else resolve_device(self.config.runner_device)
         self.runners = [
             runner_cls.remote(env, num_envs, rollout_len, seed=seed + i,
-                              exploration=exploration, device=self.device)
+                              exploration=exploration, device=device)
             for i in range(num_runners)]
         self.iteration = 0
         self._return_window: List[float] = []

@@ -1,9 +1,13 @@
 """Application metrics: Counter / Gauge / Histogram — the port's own copy
-of ``ray_tpu/util/metrics.py``: the per-process registry, the three metric
-types, and the factories the port calls (the train step gauges, the log
-plane's counters, the LLM engine's gauges, the flight recorder's
-histograms and Tune's running-trials gauge). Metrics register in this process's registry; ``snapshot()``
-reads it in the JAX package's wire form.
+of ``ray_tpu/util/metrics.py``.
+
+Role-equivalent to the reference's metrics API (reference:
+python/ray/util/metrics.py over the C++ OpenCensus registry,
+src/ray/stats/metric.h:103): metrics register in a per-process registry;
+``snapshot()`` reads it in wire form. In cluster mode the backend's
+telemetry thread ships snapshots to the head, which aggregates across
+workers (``aggregate``: sum for counters/histograms, last-write for
+gauges) — queryable through the head's ``metrics`` RPC.
 """
 
 from __future__ import annotations
@@ -164,32 +168,139 @@ class Histogram(Metric):
                                for k, c in self._counts.items()}}
 
 
-# -- built-in metrics the port emits (constructed on first use; the
-# registry shares state across repeat constructions, so call sites just
-# call these)
+# -- built-in runtime metrics (constructed on first use; the registry
+# shares state across repeat constructions, so call sites just call these)
+
+def submit_to_start_histogram() -> Histogram:
+    """Seconds from task submit (driver/worker stamped submit_ts) to
+    execution start at the worker — scheduler + queueing + transport,
+    observed worker-side (reference: ray scheduler placement-time
+    metrics). The companion scheduler-phase span carries the same value
+    per task; this is the aggregate view."""
+    return Histogram(
+        "submit_to_start",
+        description="seconds from task submit to worker execution start")
+
+
+def queue_depth_gauge() -> Gauge:
+    """Tasks waiting for a lease slot in this process's submitters
+    (driver-side view of scheduler backlog)."""
+    return Gauge("queue_depth",
+                 description="tasks pending without an assigned lease")
+
+
+def serve_request_latency_histogram() -> Histogram:
+    """Per-deployment request latency, submit at the router to reply
+    landed (reference: serve_deployment_processing_latency_ms — here in
+    seconds, observed caller-side so it includes queueing + transport).
+    Tagged with the request outcome (ok/timeout/retry/error) so p99
+    stops silently excluding the worst cases: timed-out and retried
+    requests observe too — and with the retry attempt number (""
+    for first tries), so a backoff storm is visible as an attempt
+    distribution rather than a mush of retry latencies."""
+    return Histogram(
+        "serve_request_latency_s",
+        description="seconds from router submit to replica reply",
+        tag_keys=("deployment", "outcome", "attempt"))
+
+
+def serve_inflight_gauge() -> Gauge:
+    """Requests this process has routed to a deployment and not yet seen
+    complete (the router's own pow-2 in-flight estimate, summed across
+    replicas)."""
+    return Gauge("serve_inflight_requests",
+                 description="in-flight requests per deployment",
+                 tag_keys=("deployment",))
+
+
+def serve_overload_shed_total_counter() -> Counter:
+    """Requests re-routed to the cheaper shed model by the overload
+    degradation ladder (serve/controller.py 'slo' policy at max level).
+    A non-zero rate is the signature of a storm survived by degrading
+    instead of queue collapse."""
+    return Counter("serve_overload_shed_total",
+                   description="requests shed to the overload fallback "
+                               "model",
+                   tag_keys=("deployment",))
+
+
+def serve_slo_attainment_gauge() -> Gauge:
+    """Windowed SLO attainment the serving control loop last acted on
+    (fraction of finished requests in serve_slo_window_s meeting both
+    TTFT and TPOT targets) — the controller-side view, distinct from the
+    engine-lifetime llm_slo_*_attainment gauges."""
+    return Gauge("serve_slo_attainment",
+                 description="windowed fraction of requests meeting both "
+                             "latency SLOs (0..1)",
+                 tag_keys=("deployment",))
 
 
 def train_step_time_gauge() -> Gauge:
-    """Seconds per train step (rank 0; here set by the step profiler) —
-    the step clock every throughput/MFU number derives from."""
+    """Wall seconds between consecutive train.report calls on rank 0 —
+    the step clock every throughput/MFU number derives from (reference:
+    TorchTitan's built-in step-time telemetry as production table
+    stakes)."""
     return Gauge("train_step_time_s",
                  description="seconds per training step (rank 0)")
+
+
+def train_throughput_gauge() -> Gauge:
+    """Steps per second (rank 0); multiply by the run's tokens-per-step
+    for token throughput."""
+    return Gauge("train_steps_per_s",
+                 description="training steps per second (rank 0)")
+
+
+def train_mfu_gauge() -> Gauge:
+    """Model FLOPs utilization in [0, 1]: reported flops-per-step over
+    step_time x peak hardware FLOPs. Only emitted when the loop reports
+    a `flops_per_step` metric and peak FLOPs is known (RTPT_PEAK_FLOPS
+    env or a `peak_flops` metric)."""
+    return Gauge("train_mfu",
+                 description="model FLOPs utilization (0..1, rank 0)")
 
 
 def train_phase_time_gauge() -> Gauge:
     """Per-phase share of the train step (rank 0), tagged
     phase=forward|backward|optimizer|collective_wait — the attribution
-    that makes the MFU plateau diagnosable (train.step_profiler)."""
+    that makes the MFU plateau diagnosable (train.step_profiler, or a
+    loop reporting a `phases` dict through train.report)."""
     return Gauge("train_phase_time_s",
                  description="seconds per step spent in each train phase "
                              "(rank 0)",
                  tag_keys=("phase",))
 
 
-def tune_running_trials_gauge() -> Gauge:
-    """Trials currently holding an actor in this tuner process."""
-    return Gauge("tune_running_trials",
-                 description="trials currently running")
+def train_phase_skew_gauge() -> Gauge:
+    """Cross-host straggler attribution (rank 0): how many seconds each
+    host's train phase ran BEHIND the fastest host that step, tagged
+    {phase, host}. A host whose factor over the fastest exceeds
+    `train_straggler_factor` also lands a `train_straggler` event in the
+    cluster journal naming it (the 'which host is dragging the gang'
+    question TorchTitan-scale multi-slice runs ask first)."""
+    return Gauge("train_phase_skew_s",
+                 description="seconds each host's train phase lags the "
+                             "fastest host (rank 0 comparison)",
+                 tag_keys=("phase", "host"))
+
+
+def profile_samples_total_counter() -> Counter:
+    """Thread-stack samples folded by this process's continuous
+    wall-clock profiler (util/stack_profiler.py) — the denominator every
+    collapsed-stack count is a share of."""
+    return Counter("profile_samples_total",
+                   description="stack samples folded by the continuous "
+                               "profiler")
+
+
+def profile_dropped_samples_total_counter() -> Counter:
+    """Samples dropped because the bounded collapsed-stack table was
+    full (profile_table_size distinct stacks). Non-zero means the
+    profile under-reports cold stacks — raise the table size or flush
+    more often; hot frames are unaffected."""
+    return Counter("profile_dropped_samples_total",
+                   description="profiler samples dropped on stack-table "
+                               "overflow")
 
 
 def log_records_total_counter() -> Counter:
@@ -202,10 +313,121 @@ def log_records_total_counter() -> Counter:
 
 
 def log_dropped_records_total_counter() -> Counter:
-    """Records dropped on ring overflow (log_plane.RING_RECORDS) before a drain
-    exported them — by exactly this much (emitted == stored + dropped)."""
+    """Records dropped on ring overflow (log_ring_records) before the
+    telemetry flush shipped them. The file sink still has them; only the
+    head-side queryable ring under-reports — and by exactly this much
+    (emitted == stored + dropped)."""
     return Counter("log_dropped_records_total",
                    description="log records dropped on ring overflow")
+
+
+def log_errors_total_counter() -> Counter:
+    """Error-severity records by message fingerprint (digits/ids
+    normalized out, so one bug is one fingerprint across a thousand
+    instances; the per-process tag space is capped, long tail folds into
+    'other')."""
+    return Counter("log_errors_total",
+                   description="error log records by message fingerprint",
+                   tag_keys=("fingerprint",))
+
+
+def xla_compile_seconds_histogram() -> Histogram:
+    """Seconds spent in one XLA compile, as measured by the tracker
+    (util/compile_tracker.py): the summed /jax/core/compile/* phase
+    durations jax.monitoring attributed to the call when available,
+    else the wall time of the call that compiled. The distribution's
+    tail is the 'first step after a shape change' stall users feel."""
+    return Histogram(
+        "xla_compile_seconds",
+        description="seconds per XLA compile (monitoring-attributed "
+                    "phases, else compiling-call wall time)",
+        boundaries=(0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0,
+                    120.0))
+
+
+def xla_compiles_total_counter() -> Counter:
+    """XLA compiles observed by this process's tracker, by process role
+    and kind — 'jit' for compiles caught at the wrap seam (named, with
+    signatures), monitoring phase names (backend_compile, jaxpr_trace,
+    jaxpr_to_mlir_module) for unattributed activity. A growing
+    backend_compile count with a flat jit count means compiles are
+    happening outside any wrapped callable — wrap it."""
+    return Counter("xla_compiles_total",
+                   description="XLA compiles by process role and kind",
+                   tag_keys=("process", "kind"))
+
+
+def xla_recompiles_total_counter() -> Counter:
+    """Compiles of a callable that ALREADY had a compiled signature —
+    i.e. cache misses caused by shape/dtype churn, the compiles the
+    ragged/padded designs exist to avoid. Non-zero in steady state is
+    the bug; the per-record signature diff in 'compiles' names the
+    argument that moved."""
+    return Counter("xla_recompiles_total",
+                   description="XLA recompiles (same callable, new arg "
+                               "signature)")
+
+
+def train_checkpoint_write_seconds_histogram() -> Histogram:
+    """Wall seconds of one host's checkpoint shard write (serialize +
+    upload, measured on the background writer thread — the time the
+    TRAINING thread does NOT pay when async saves overlap compute)."""
+    return Histogram(
+        "train_checkpoint_write_seconds",
+        description="seconds to serialize and upload one host's "
+                    "checkpoint shard (background writer)")
+
+
+def train_checkpoint_write_bytes_counter() -> Counter:
+    """Bytes of checkpoint shard data this host uploaded. Per-host by
+    construction — comparing it against the full tree size is the proof
+    that no single host serialized everything."""
+    return Counter(
+        "train_checkpoint_write_bytes",
+        description="checkpoint shard bytes written by this host")
+
+
+def train_checkpoint_queue_depth_count() -> Gauge:
+    """In-flight async checkpoint saves queued behind the writer thread
+    (bounded at 1: a save arriving while one is in flight blocks the
+    training thread until the slot frees)."""
+    return Gauge(
+        "train_checkpoint_queue_depth_count",
+        description="async checkpoint saves in flight (bounded queue)")
+
+
+def train_checkpoint_step_hiccup_seconds_gauge() -> Gauge:
+    """Max step time observed while an async save was in flight MINUS
+    the median steady-state step time — the direct 'does checkpointing
+    hiccup training' number (TorchTitan's flat-step-time criterion)."""
+    return Gauge(
+        "train_checkpoint_step_hiccup_seconds",
+        description="max in-flight-save step time minus steady-state "
+                    "median (rank 0)")
+
+
+def storage_retry_total_counter() -> Counter:
+    """Transient-error retries inside the storage seam, tagged by op —
+    a rising rate is the early-warning for a degrading store."""
+    return Counter("storage_retry_total",
+                   description="storage-seam transient-error retries",
+                   tag_keys=("op",))
+
+
+def storage_op_seconds_histogram() -> Histogram:
+    """End-to-end storage-seam op latency (including retries/backoff),
+    tagged by op."""
+    return Histogram("storage_op_seconds",
+                     description="storage filesystem op seconds "
+                                 "(including retries)",
+                     tag_keys=("op",))
+
+
+def storage_put_bytes_counter() -> Counter:
+    """Bytes published through the storage seam (checkpoint shards,
+    workflow state, spill files)."""
+    return Counter("storage_put_bytes",
+                   description="bytes written through the storage seam")
 
 
 def llm_kv_page_utilization_gauge() -> Gauge:
@@ -342,3 +564,116 @@ def llm_preemptions_gauge() -> Gauge:
     return Gauge("llm_preemptions_total",
                  description="cumulative decode preemptions (recompute "
                              "re-queues)")
+
+
+def tune_running_trials_gauge() -> Gauge:
+    """Trials currently holding an actor in this tuner process."""
+    return Gauge("tune_running_trials",
+                 description="trials currently running")
+
+
+# -- object-plane accounting (reference: object store / object manager
+# stats feeding `ray memory` and the object-store dashboard panels).
+# Every series here follows <subsystem>_<noun>_<unit> with the unit in
+# {bytes, seconds, total, count} — tests/test_state_cli.py lints the set.
+
+def object_store_spill_write_total_counter() -> Counter:
+    """Objects spilled to disk because the shm arena was full at seal
+    (primaries are pinned, so eviction can't make room for them)."""
+    return Counter("object_store_spill_write_total",
+                   description="objects spilled to disk (arena full at "
+                               "seal)")
+
+
+def object_store_spill_write_bytes_counter() -> Counter:
+    return Counter("object_store_spill_write_bytes",
+                   description="serialized bytes written to spill files")
+
+
+def object_store_spill_restore_total_counter() -> Counter:
+    """Spilled objects read back (local get fallback or served to a
+    remote puller)."""
+    return Counter("object_store_spill_restore_total",
+                   description="spill files read back to satisfy a get "
+                               "or a remote pull")
+
+
+def object_store_spill_restore_bytes_counter() -> Counter:
+    return Counter("object_store_spill_restore_bytes",
+                   description="bytes read back from spill files")
+
+
+def object_store_pull_in_bytes_counter() -> Counter:
+    """Object bytes fetched INTO this process from remote holders
+    (whole-object reads + chunked pulls)."""
+    return Counter("object_store_pull_in_bytes",
+                   description="object bytes pulled in from remote nodes")
+
+
+def object_store_pull_out_bytes_counter() -> Counter:
+    """Object bytes this node daemon served OUT to remote pullers."""
+    return Counter("object_store_pull_out_bytes",
+                   description="object bytes served to remote pullers")
+
+
+def object_store_pull_seconds_histogram() -> Histogram:
+    """Whole-object pull latency (resolve reply to local availability),
+    one observation per pulled object regardless of chunk count."""
+    return Histogram("object_store_pull_seconds",
+                     description="seconds to pull one object to the "
+                                 "local node")
+
+
+def object_store_fetch_inflight_count_gauge() -> Gauge:
+    """Owner-resolve fetch loops currently running in this process."""
+    return Gauge("object_store_fetch_inflight_count",
+                 description="active object fetch loops")
+
+
+def object_store_primary_count_gauge() -> Gauge:
+    """Primary (pinned) copies this process sealed and still accounts."""
+    return Gauge("object_store_primary_count",
+                 description="live primary copies in this process's "
+                             "directory")
+
+
+def object_store_secondary_count_gauge() -> Gauge:
+    """Secondary (pull-cache, LRU-evictable) copies still resident."""
+    return Gauge("object_store_secondary_count",
+                 description="live secondary (cache) copies in this "
+                             "process's directory")
+
+
+def object_store_spilled_count_gauge() -> Gauge:
+    """Objects currently living only in spill files."""
+    return Gauge("object_store_spilled_count",
+                 description="objects currently resident only on disk")
+
+
+def aggregate(per_worker: Dict[str, Dict[str, dict]]) -> Dict[str, dict]:
+    """Merge worker snapshots: counters/histograms sum, gauges last-write.
+    (head-side; reference: metrics agent → Prometheus aggregation)."""
+    out: Dict[str, dict] = {}
+    for worker, snap in sorted(per_worker.items()):
+        for name, m in snap.items():
+            cur = out.get(name)
+            if cur is None:
+                import copy
+                out[name] = copy.deepcopy(m)
+                continue
+            if m["type"] == "counter":
+                for k, v in m["values"].items():
+                    cur["values"][k] = cur["values"].get(k, 0.0) + v
+            elif m["type"] == "gauge":
+                cur["values"].update(m["values"])
+            elif m["type"] == "histogram":
+                for k, v in m["values"].items():
+                    tgt = cur["values"].get(k)
+                    if tgt is None:
+                        cur["values"][k] = v
+                    else:
+                        tgt["counts"] = [a + b for a, b in
+                                         zip(tgt["counts"], v["counts"])]
+                        tgt["sum"] += v["sum"]
+                        tgt["n"] += v["n"]
+    return out

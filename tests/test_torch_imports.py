@@ -67,7 +67,28 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.tune.searcher", "ray_tpu_torch.tune.trial",
                 "ray_tpu_torch.tune.schedulers",
                 "ray_tpu_torch.tune.tune_controller",
-                "ray_tpu_torch.tune.tuner"):
+                "ray_tpu_torch.tune.tuner", "ray_tpu_torch.core.config",
+                "ray_tpu_torch.core._native",
+                "ray_tpu_torch.core.serialization",
+                "ray_tpu_torch._native.build",
+                "ray_tpu_torch.accelerators.gpu",
+                "ray_tpu_torch.runtime.spawn", "ray_tpu_torch.runtime.wire",
+                "ray_tpu_torch.runtime.protocol",
+                "ray_tpu_torch.runtime.protocol_native",
+                "ray_tpu_torch.runtime.object_plane",
+                "ray_tpu_torch.runtime.pubsub", "ray_tpu_torch.runtime.events",
+                "ray_tpu_torch.runtime.event_journal",
+                "ray_tpu_torch.runtime.runtime_env",
+                "ray_tpu_torch.runtime.hw_sampler",
+                "ray_tpu_torch.runtime.cgroup", "ray_tpu_torch.runtime.node",
+                "ray_tpu_torch.runtime.head",
+                "ray_tpu_torch.runtime.cluster_backend",
+                "ray_tpu_torch.runtime.worker_main",
+                "ray_tpu_torch.util.filesystem",
+                "ray_tpu_torch.util.timeseries",
+                "ray_tpu_torch.util.stack_profiler",
+                "ray_tpu_torch.util.fault_injector",
+                "ray_tpu_torch.util.compile_tracker"):
         assert new in mods, new
     code = (
         "import importlib\n"
@@ -113,3 +134,93 @@ def test_script_imports_without_jax_or_ray_tpu(script):
     """Scripts at the repo's root that drive the port on the card."""
     assert (ROOT / f"{script}.py").is_file()
     assert _run(f"import {script}\n") == "[]"
+
+
+def test_cluster_worker_imports_without_jax_or_ray_tpu():
+    """In cluster mode a task's worker process holds nothing of JAX or of
+    the JAX package, and the runtime brings in no torch either."""
+    code = (
+        "import ray_tpu_torch as rt\n"
+        "rt.init(num_cpus=1, _system_config={\n"
+        "    'object_store_memory_bytes': 64 << 20})\n"
+        "@rt.remote\n"
+        "def modules():\n"
+        "    import sys\n"
+        "    return sorted(sys.modules)\n"
+        "names = rt.get(modules.remote(), timeout=120)\n"
+        "rt.shutdown()\n"
+        "assert 'ray_tpu_torch.runtime.cluster_backend' in names, names\n"
+        "assert 'torch' not in names, 'torch in the worker'\n"
+        "print(sorted(m for m in names if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ray_tpu')))\n")
+    out = _run(code).splitlines()
+    assert out[-2:] == ["[]", "[]"], out
+
+
+# runs a daemon's module as __main__ and rewrites the file named by its
+# first argument with the names in sys.modules every 0.2 s
+_DAEMON_WRAPPER = (
+    "import os, runpy, sys, threading, time\n"
+    "out, mod = sys.argv[1], sys.argv[2]\n"
+    "sys.argv = [mod] + sys.argv[3:]\n"
+    "def dump():\n"
+    "    while True:\n"
+    "        time.sleep(0.2)\n"
+    "        with open(out + '.tmp', 'w') as f:\n"
+    "            f.write('\\n'.join(sorted(sys.modules)))\n"
+    "        os.replace(out + '.tmp', out)\n"
+    "threading.Thread(target=dump, daemon=True).start()\n"
+    "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n")
+
+
+def test_daemons_import_neither_torch_nor_jax(tmp_path):
+    """The head and the node daemon, booted as ``init()`` boots them,
+    import no torch, no JAX and nothing of the JAX package."""
+    import json
+    import os
+    import socket
+    import time
+
+    from ray_tpu_torch.core.config import GlobalConfig
+    from ray_tpu_torch.runtime.spawn import child_env
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    session = os.urandom(4).hex()
+    cfg = json.loads(GlobalConfig.to_json())
+    procs = []
+    try:
+        head = subprocess.Popen(
+            [sys.executable, "-c", _DAEMON_WRAPPER, str(tmp_path / "head"),
+             "ray_tpu_torch.runtime.head", str(port), session,
+             json.dumps(cfg)],
+            env=child_env(), cwd=ROOT, stdout=subprocess.PIPE, text=True)
+        procs.append(head)
+        assert head.stdout.readline().startswith("RTPT_HEAD_READY")
+        node = subprocess.Popen(
+            [sys.executable, "-c", _DAEMON_WRAPPER, str(tmp_path / "node"),
+             "ray_tpu_torch.runtime.node", f"127.0.0.1:{port}", session,
+             json.dumps({"resources": {"CPU": 1.0},
+                         "object_store_bytes": 32 << 20,
+                         "config": cfg})],
+            env=child_env(), cwd=ROOT, stdout=subprocess.PIPE, text=True)
+        procs.append(node)
+        assert node.stdout.readline().startswith("RTPT_NODE_READY")
+        # the node's first hardware sample and telemetry push (2 s period)
+        # import what the daemons import lazily
+        time.sleep(3.0)
+        for name in ("head", "node"):
+            mods = (tmp_path / name).read_text().split()
+            assert "ray_tpu_torch.runtime.protocol" in mods
+            bad = [m for m in mods if m.split(".")[0] in
+                   ("torch", "jax", "jaxlib", "ray_tpu")]
+            assert bad == [], (name, bad)
+    finally:
+        for p in reversed(procs):
+            p.terminate()
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()

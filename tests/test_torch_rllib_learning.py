@@ -8,6 +8,7 @@ tests/test_torch_rllib.py; these are kept apart so that each file stays
 short under ``--dist loadfile``.
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -53,3 +54,32 @@ def test_algorithm_learns(algo, torch_rt):
         assert first is not None and first < FIRST_MEAN_BOUND[algo], \
             f"env suspiciously easy from the start: {first}"
     assert best >= gate, f"{algo} failed to learn: first={first}, best={best}"
+
+
+@pytest.mark.parametrize("runner_device", [None, "cpu", "cuda"])
+def test_runners_sample_on_the_configs_runner_device(runner_device,
+                                                      torch_rt):
+    """The env runners' device is the config's ``runner_device`` (None:
+    the learner's), whatever the runtime's mode; a card asked for where
+    there is none fails the build instead of sampling on the CPU."""
+    from ray_tpu_torch.core.worker import global_worker
+    config, _, _ = chip_smoke.rl_cases()["PPO"]
+    config = dataclasses.replace(config, runner_device=runner_device)
+    want = torch.device(runner_device or "cpu")
+    if want.type == "cuda" and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda.is_available"):
+            config.build(device="cpu")
+        return
+    trainer = config.build(device="cpu")
+    try:
+        trainer.train()
+        actors = global_worker.backend.actors
+        devices = {actors[r.actor_id].instance.device
+                   for r in trainer.runners}
+        params = [t for r in trainer.runners
+                  for t in actors[r.actor_id].instance.params.values()]
+    finally:
+        trainer.stop()
+    assert devices == {want}
+    assert params and all(t.device.type == want.type for t in params)
+

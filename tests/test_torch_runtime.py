@@ -8,6 +8,7 @@ a ``threading.Event`` (local mode passes values by reference), so the
 
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -238,12 +239,6 @@ def test_port_runtime_matches_ray_tpu_local_mode(program, jax_rt, torch_rt):
     assert None not in (want if isinstance(want, tuple) else (want,))
 
 
-def test_cluster_init_raises():
-    with pytest.raises(NotImplementedError, match="local mode only"):
-        ray_tpu_torch.init()
-    assert not ray_tpu_torch.is_initialized()
-
-
 def test_init_twice_raises_unless_tolerated(torch_rt):
     with pytest.raises(RuntimeError, match="called twice"):
         torch_rt.init(local_mode=True)
@@ -274,20 +269,62 @@ def test_bind_raises(torch_rt):
 
 
 @pytest.mark.parametrize("env, error", [
-    ({"working_dir": "."}, NotImplementedError),
+    ({"working_dir": "."}, ray_tpu_torch.exceptions.TaskError),
     ({"pip": ["x"]}, NotImplementedError),
     ("env_vars", ValueError),
     ({"env_vars": {"A": 1}}, ValueError),
 ])
 def test_runtime_env_local_mode_cannot_apply_raises(env, error):
-    with pytest.raises(error):
-        ray_tpu_torch.remote(runtime_env=env)(lambda: None)
-
+    """Malformed envs and keys of neither mode raise at decoration; a
+    working_dir is a cluster-mode key, which local mode, like the JAX
+    package's, fails at the call (tests/test_runtime_env.py)."""
     class C:
-        pass
+        def m(self):
+            return 1
 
-    with pytest.raises(error):
-        ray_tpu_torch.remote(runtime_env=env)(C)
+    if "working_dir" not in env:
+        with pytest.raises(error):
+            ray_tpu_torch.remote(runtime_env=env)(lambda: None)
+        with pytest.raises(error):
+            ray_tpu_torch.remote(runtime_env=env)(C)
+        return
+    f = ray_tpu_torch.remote(runtime_env=env)(lambda: None)
+    actor_cls = ray_tpu_torch.remote(runtime_env=env)(C)
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
+    try:
+        with pytest.raises(error, match="working_dir"):
+            ray_tpu_torch.get(f.remote(), timeout=30)
+        with pytest.raises(ray_tpu_torch.exceptions.ActorDiedError,
+                           match="working_dir"):
+            ray_tpu_torch.get(actor_cls.remote().m.remote(), timeout=30)
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_killed_local_actor_lets_its_instance_go(torch_rt):
+    """A killed local-mode actor's instance dies once its thread has
+    joined, not at shutdown (the thread drops it at the kill tombstone)."""
+    import gc
+    import weakref
+
+    @torch_rt.remote
+    class Holder:
+        def ping(self):
+            return "pong"
+
+    h = Holder.remote()
+    assert torch_rt.get(h.ping.remote(), timeout=30) == "pong"
+    backend = ray_tpu_torch.core.worker.global_worker.backend
+    entry = backend.actors[h.actor_id]
+    alive = weakref.ref(entry.instance)
+    torch_rt.kill(h)
+    entry.thread.join(timeout=30)
+    assert not entry.thread.is_alive()
+    gc.collect()
+    assert alive() is None
+    assert h.actor_id in backend.actors   # the tombstone stays for calls
+    with pytest.raises(torch_rt.exceptions.ActorDiedError):
+        torch_rt.get(h.ping.remote(), timeout=10)
 
 
 def test_runtime_context(torch_rt):
@@ -398,3 +435,25 @@ def test_memory_store_frees_inside_its_own_lock():
     t.join(10)
     assert done.is_set(), "the store deadlocked on its own lock"
     assert not store.contains(held) and store.get_if_ready(fresh)[0] == 1
+
+
+def test_stack_sampler_runs_only_when_asked():
+    """The continuous stack sampler is off unless ``profile_enabled`` is
+    set; once set, it samples this process's threads."""
+    from ray_tpu_torch.core import config
+    from ray_tpu_torch.util import stack_profiler
+    config.reset_to_defaults()
+    assert stack_profiler.ensure_started() is None
+    config.GlobalConfig.apply({"profile_enabled": True, "profile_hz": 200})
+    try:
+        assert stack_profiler.ensure_started().running
+        deadline = time.monotonic() + 10
+        export = None
+        while export is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+            export = stack_profiler.drain_export()
+        assert export is not None and export["samples"] > 0
+        assert export["stacks"]
+    finally:
+        stack_profiler.stop_global()
+        config.reset_to_defaults()
