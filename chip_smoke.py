@@ -195,6 +195,27 @@ result line is printed):
      process and return the card's free memory. The deployment time, the
      lease, each request's wall time beside phase 4's and the phase's
      time printed.
+ 16. the device mesh and distributed training: 16a. the three flash
+     kernels at one rank's shard of phase 7's shape (dp 2: B 4 x 24
+     heads; tp 2: 12 q heads over 6 kv; tp 4: 6 over 3; L 2048, D 128,
+     bf16, causal), each against its plain version with phase 6's limits,
+     a planted causal fault failing on every query tile, and their times
+     beside phase 6's; 16b. a fresh ``init(num_cpus=4)`` and
+     ``TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True,
+     mesh=MeshSpec(fsdp=-1)))``: the worker leases the card, joins an NCCL
+     group of world size 1 and runs phase 7 (its widths, seeds, batch,
+     Adafactor and steps) on parameters sharded by ``param_specs``; each
+     loss must equal phase 7's (rel 1e-5), the worker's flash launches
+     (reported through ``train.report``) the path's count with none of the
+     plain versions; step time, tokens/s, MFU and peak memory beside phase
+     7's; 16c. the same widths at 2 layers, a checkpoint (parameters and
+     Adafactor state) every step, the worker's ``os._exit`` after step 3,
+     ``FailureConfig(max_failures=1)``: the restarted worker restores the
+     last checkpoint and its losses must equal an uninterrupted run's
+     (rel 1e-6), and the card's free memory must be back to the byte
+     (this process's view before and after the run; each worker's
+     view at its start is printed only);
+     the checkpoint's files, bytes and seconds to write and to read.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1495,6 +1516,9 @@ TRAIN_CONFIG = dict(vocab_size=32000, dim=3072, n_layers=8, n_heads=24,
                     remat_policy="selective")
 TRAIN_BATCH = (8, 2048)             # B, L
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+#: phase 7's losses, step time, tokens/s, MFU and peak memory by
+#: optimizer, for phase 16b's comparison
+TRAIN_RUNS = {}
 
 
 def make_optimizer(name):
@@ -1568,6 +1592,8 @@ def phase_train(device, config=None, batch=TRAIN_BATCH,
         f"{peak} bytes (torch.cuda.max_memory_allocated), optimizer state "
         f"{state_bytes} bytes on the card")
     log(f"training: launches {launches} over {TRAIN_WARMUP + steps} steps")
+    TRAIN_RUNS[opt_name] = {"losses": losses, "step_s": step_s,
+                            "tok_s": tok_s, "mfu": mfu, "peak": peak}
     if profile:
         bd = profile_train_step(loss, optimizer, params, opt, tokens,
                                 steps=3, warmup=1, emit=True)
@@ -3539,6 +3565,341 @@ def phase_serve(model_config=None, engine_config=None, main_streams=None,
 # ------------------------------------------------------------------ main
 
 
+# ------------------------- phase 16: the mesh and distributed training
+
+#: the flash kernels' shard shapes on the bench config (B 8, 24 q / 12 kv
+#: heads, L 2048, D 128): name -> (B, q heads, kv heads) of one rank
+FLASH_SHARDS = {"dp 2": (4, 24, 12), "tp 2": (8, 12, 6), "tp 4": (8, 6, 3)}
+#: the cluster phase 16 boots (no large object crosses its store)
+TRAINER_CPUS = 4
+TRAINER_STORE_BYTES = 256 << 20
+#: 16c: phase 7's widths at 2 of its 8 layers, a checkpoint every step,
+#: the worker's exit after this many steps, and the steps in all
+RESTART_CONFIG = dict(TRAIN_CONFIG, n_layers=2)
+RESTART_KILL_AT, RESTART_STEPS = 3, 5
+TRAINER_LOSS_RTOL = 1e-5
+RESTART_LOSS_RTOL = 1e-6
+
+
+def phase_flash_shards(device, full=None, shards=None, L=2048, D=128):
+    """16a: the three flash kernels at one rank's shard of the bench
+    config (``FLASH_SHARDS``: batch over dp, heads over tp, GQA's kv heads
+    repeated to the shard's q heads as the model does), each against its
+    plain version with phase 6's limits, a planted causal fault that must
+    fail on every query tile, and the kernels' times beside phase 6's at
+    the whole shape (``full``: phase 6's record)."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    out = {}
+    for name, (B, Hq, Hkv) in (shards or FLASH_SHARDS).items():
+        g = torch.Generator(device=device).manual_seed(16)
+        q, do = (torch.randn(B, L, Hq, D, generator=g, device=device)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(B, L, Hkv, D, generator=g, device=device)
+                .bfloat16().repeat_interleave(Hq // Hkv, dim=2)
+                for _ in range(2))
+        tfa.check_shard_geometry(q, k, v)
+        qb, kb, vb, dob = (tfa._bhl(t) for t in (q, k, v, do))
+        BH, scale = B * Hq, D ** -0.5
+        o, lse = tfa._fwd_call(qb, kb, vb, True, scale)
+        o_ref, lse_ref = tfa._fwd_reference(qb, kb, vb, True, scale)
+        delta = (dob.float() * o_ref.float()).sum(-1)
+        grads = tfa._bwd_call(qb, kb, vb, o_ref, lse_ref, dob, True, scale)
+        grads_ref = tfa._bwd_reference(qb, kb, vb, lse_ref, dob, delta,
+                                       True, scale)
+        ratios = {}
+        for label, got, want in zip(("o", "dq", "dk", "dv"),
+                                    (o, *grads), (o_ref, *grads_ref)):
+            assert torch.isfinite(got).all(), f"{name}: {label} not finite"
+            ratios[label] = flash_ratios(got, want).max().item()
+            assert ratios[label] <= 1, f"{name}: {label} at {ratios[label]}"
+        lse_err = (lse - lse_ref).abs().max().item()
+        assert lse_err <= LSE_ATOL, f"{name}: lse off by {lse_err}"
+        caught = tiles_caught(causal_off_by_one(qb, kb, vb, scale)[0], o_ref)
+        assert bool((caught > 1).all()), f"{name}: fault not caught {caught}"
+        code = tfa._DTYPE_CODES[qb.dtype]
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        dq, dk, dv = (torch.empty_like(qb) for _ in range(3))
+        ms = {"flash_attention_fwd": time_ms(
+                  lambda: tfa._fwd_cuda(qb, kb, vb, True, scale),
+                  flush=flush),
+              "flash_attention_dq": time_ms(lambda: tfa._launch(
+                  "flash_attention_bwd", "flash_attention_dq", device, code,
+                  qb, kb, vb, dob, lse_ref, delta, dq, BH, L, L, D, 1,
+                  scale), flush=flush),
+              "flash_attention_dkv": time_ms(lambda: tfa._launch(
+                  "flash_attention_bwd", "flash_attention_dkv", device,
+                  code, qb, kb, vb, dob, lse_ref, delta, dk, dv, BH, L, L, D,
+                  1, scale), flush=flush)}
+        del flush
+        out[name] = {"ratios": ratios, "ms": ms}
+        whole = "" if full is None else ", phase 6's whole shape (B 8 H 24) " \
+            + ", ".join(f"{full[k]['ms']:.4f}" for k in ms)
+        log(f"flash per shard, {name} (B {B}, {Hq} q heads over {Hkv} kv, "
+            f"L {L}, D {D}, bf16, causal): worst ratio to the limit "
+            + ", ".join(f"{k} {r:.3f}" for k, r in ratios.items())
+            + f"; planted fault fails on all {caught.numel()} query tiles "
+            f"(weakest {caught.min().item():.1f} x); kernel ms fwd, dq, dkv "
+            + ", ".join(f"{x:.4f}" for x in ms.values()) + whole)
+    return out
+
+
+def trainer_loop(cfg):
+    """The rank program of 16b and 16c, run by ``TorchTrainer`` in a
+    GPU-leased worker: phase 7's model and batch from its seeds, sharded
+    by ``param_specs`` on the run's mesh, Adafactor, ``cfg["steps"]``
+    steps; with ``cfg["marker"]`` a checkpoint (parameters and optimizer
+    state) at every step, a restore when the run restarts, and the
+    worker's exit after ``cfg["kill_at"]`` steps the first time."""
+    import functools
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.train import Adafactor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg.get("threads"):
+        # on the CPU the sums' order follows the thread count: take the
+        # calling process's, so that the two runs sum alike
+        torch.set_num_threads(cfg["threads"])
+    ctx = train.get_context()
+    device = torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+    free_at_start = torch.cuda.mem_get_info()[0] if cuda else 0
+    mesh = ctx.global_mesh()
+    mcfg = tl.LlamaConfig(**cfg["model"])
+    params = train.shard_params(tl.init_params(mcfg, seed=0, device=device),
+                                mesh, tl.param_specs(mcfg))
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = train.shard_batch(torch.randint(
+        0, mcfg.vocab_size, tuple(cfg["batch"]), generator=g, device=device),
+        mesh)
+    init_fn, step_fn = train.make_train_step(
+        functools.partial(tl.loss_fn, cfg=mcfg, mesh=mesh),
+        functools.partial(Adafactor, lr=cfg["lr"]))
+    opt = init_fn(params)
+    load_s = None
+    if ctx.get_checkpoint() is not None:
+        t0 = time.monotonic()
+        state = ctx.get_checkpoint().load(target={"params": params,
+                                                  "opt": None})
+        with torch.no_grad():
+            for dst, src in zip(train.param_leaves(params),
+                                train.param_leaves(state["params"])):
+                dst.to_local().copy_(src.to_local())
+        opt.load_state_dict(state["opt"])     # this rank's slices
+        load_s = time.monotonic() - t0
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    save_s = []
+    while ctx.step < cfg["steps"]:
+        if cfg.get("marker") and ctx.step == cfg["kill_at"] \
+                and not os.path.exists(cfg["marker"]):
+            with open(cfg["marker"], "w") as f:
+                f.write(str(free_at_start))
+            os._exit(1)
+        t0 = time.monotonic()
+        params, opt, m = step_fn(params, opt, tokens)
+        loss = float(m["loss"])            # waits for the card
+        step_s = time.monotonic() - t0
+        ckpt = {"params": params, "opt": opt.state_dict()} \
+            if cfg.get("marker") else None
+        t0 = time.monotonic()
+        train.report({"loss": loss, "step_s": step_s,
+                      "launches": dict(tfa.launch_counts),
+                      "peak": torch.cuda.max_memory_allocated() if cuda
+                      else 0, "free_at_start": free_at_start,
+                      "pid": os.getpid(), "load_s": load_s,
+                      "save_s": list(save_s),
+                      "world": mesh.size(), "backend":
+                      torch.distributed.get_backend()},
+                     checkpoint_tree=ckpt)
+        if ckpt is not None:
+            save_s.append(time.monotonic() - t0)
+
+
+def run_trainer(device, model, batch, steps, storage, name, marker=None,
+                kill_at=None, lr=1e-3):
+    """``TorchTrainer`` over one GPU-leased worker (a CPU worker on the
+    CPU), ``MeshSpec(fsdp=-1)``: -> the Result."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    cuda = device.type == "cuda"
+    run = train.RunConfig(
+        name=name, storage_path=str(storage),
+        failure_config=train.FailureConfig(max_failures=1 if marker else 0),
+        checkpoint_config=train.CheckpointConfig(num_to_keep=2))
+    return train.TorchTrainer(
+        trainer_loop,
+        train_loop_config={"device": device.type, "model": model,
+                           "batch": batch, "steps": steps, "lr": lr,
+                           "marker": marker, "kill_at": kill_at,
+                           "threads": None if cuda else
+                           torch.get_num_threads()},
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=cuda, mesh=MeshSpec(fsdp=-1)),
+        run_config=run).fit()
+
+
+def uninterrupted_losses(device, model, batch, steps, lr=1e-3):
+    """The same steps as ``trainer_loop`` run in this process without a
+    mesh: the uninterrupted run."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.train import Adafactor, make_train_step
+    cfg = LlamaConfig(**model)
+    params = init_params(cfg, seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, tuple(batch), generator=g,
+                           device=device)
+    init_fn, step_fn = make_train_step(
+        functools.partial(loss_fn, cfg=cfg),
+        functools.partial(Adafactor, lr=lr))
+    opt = init_fn(params)
+    losses = []
+    for _ in range(steps):
+        params, opt, m = step_fn(params, opt, tokens)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def phase_trainer(device, config=None, batch=TRAIN_BATCH,
+                  steps=TRAIN_WARMUP + TRAIN_STEPS, restart_config=None,
+                  restart_batch=TRAIN_BATCH, card="the CPU"):
+    """16b and 16c on a fresh cluster: ``TorchTrainer`` with one worker
+    that leases the card and joins an NCCL group of world size 1 (gloo on
+    the CPU). 16b: phase 7's run through the trainer; its losses must
+    equal phase 7's (``TRAIN_RUNS``, rel ``TRAINER_LOSS_RTOL``) and its
+    flash launches the path's count. 16c: 2 layers, a checkpoint each
+    step, the worker's exit after ``RESTART_KILL_AT`` steps, the restart
+    from the last checkpoint; the losses after it must equal an
+    uninterrupted run's (rel ``RESTART_LOSS_RTOL``) and the card's free
+    memory must come back to the byte. Returns 16b's worker launches."""
+    import os
+    import tempfile
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import LlamaConfig, flops_per_token
+    config = config or TRAIN_CONFIG
+    restart_config = restart_config or RESTART_CONFIG
+    cuda = device.type == "cuda"
+    t_phase = time.monotonic()
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    storage = Path(tempfile.mkdtemp(prefix="phase16-"))
+    rt.init(num_cpus=TRAINER_CPUS, num_gpus=1 if cuda else None,
+            _system_config={"object_store_memory_bytes":
+                            TRAINER_STORE_BYTES})
+    try:
+        # 16b: phase 7 through the trainer
+        t0 = time.monotonic()
+        result = run_trainer(device, config, batch, steps, storage, "16b")
+        fit_s = time.monotonic() - t0
+        hist = result.metrics_history
+        last = hist[-1]
+        losses = [m["loss"] for m in hist]
+        assert last["backend"] == ("nccl" if cuda else "gloo") \
+            and last["world"] == 1, last
+        ref = TRAIN_RUNS.get("adafactor")
+        gap = None
+        if ref is not None:
+            assert len(ref["losses"]) == len(losses), (ref, losses)
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, ref["losses"]))
+            assert gap <= TRAINER_LOSS_RTOL, (losses, ref["losses"])
+        launches = last["launches"]
+        cfg = LlamaConfig(**config)
+        expected = expected_flash_launches(cfg.n_layers, steps) if cuda \
+            else dict.fromkeys(expected_flash_launches(0, 0), 0)
+        assert launches == expected, (launches, expected)
+        B, L = batch
+        timed = [m["step_s"] for m in hist[TRAIN_WARMUP:]] or \
+            [m["step_s"] for m in hist]
+        step_s = sum(timed) / len(timed)
+        tok_s = B * L / step_s
+        mfu = tok_s * flops_per_token(cfg, L) / BF16_FLOPS
+        if cuda:
+            wait_gone(last["pid"])
+        log(f"trainer: TorchTrainer, 1 worker (pid {last['pid']}), "
+            f"{last['backend']} group of {last['world']}, fit {fit_s:.1f} s; "
+            f"losses {[round(x, 4) for x in losses]}"
+            + ("" if gap is None else
+               f", largest gap to phase 7's {gap:.2e} of itself")
+            + f"; flash launches {launches} (expected {expected})")
+        line = (f"trainer: step {step_s * 1e3:.1f} ms (mean of "
+                f"{len(timed)} after {len(hist) - len(timed)} warm-up), "
+                f"{tok_s:.0f} tokens/s, MFU {mfu:.1%}, peak memory "
+                f"{last['peak']} bytes")
+        if ref is not None:
+            line += (f"; phase 7 in this process: step "
+                     f"{ref['step_s'] * 1e3:.1f} ms, {ref['tok_s']:.0f} "
+                     f"tokens/s, MFU {ref['mfu']:.1%}, peak memory "
+                     f"{ref['peak']} bytes")
+        log(line + f"; {card}")
+
+        # 16c: restart from a sharded checkpoint
+        want = uninterrupted_losses(device, restart_config, restart_batch,
+                             RESTART_STEPS)
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            free_before = torch.cuda.mem_get_info()[0]
+        marker = storage / "16c-exited"
+        t0 = time.monotonic()
+        result = run_trainer(device, restart_config, restart_batch,
+                             RESTART_STEPS, storage, "16c",
+                             marker=str(marker), kill_at=RESTART_KILL_AT)
+        fit_s = time.monotonic() - t0
+        assert marker.exists(), "the worker never exited"
+        hist = result.metrics_history
+        got = [m["loss"] for m in hist]
+        assert [m["_step"] for m in hist] == list(
+            range(RESTART_KILL_AT + 1, RESTART_STEPS + 1)), hist
+        gaps = [abs(a - b) / abs(b)
+                for a, b in zip(got, want[RESTART_KILL_AT:])]
+        assert max(gaps) <= RESTART_LOSS_RTOL, (got, want)
+        last = hist[-1]
+        first_free = int(marker.read_text())
+        ckpt = Path(result.checkpoint.path)
+        files = sorted(f.name for f in ckpt.iterdir())
+        nbytes = sum((ckpt / f).stat().st_size for f in files)
+        mem = ""
+        if cuda:
+            wait_gone(last["pid"])
+            free_after = torch.cuda.mem_get_info()[0]
+            # the exited worker's memory came back: the card's free
+            # memory after the run is, to the byte, this process's view
+            # before it (each worker's view at its start is printed only:
+            # a context's own footprint may differ between two starts)
+            assert free_after == free_before, (free_before, free_after)
+            mem = (f"; free device memory in this process's view "
+                   f"{free_before} bytes before the run and {free_after} "
+                   f"after; at each worker's start (printed only) "
+                   f"{first_free} and {last['free_at_start']}")
+        log(f"trainer restart: {restart_config['n_layers']} layers, the "
+            f"worker exited after step {RESTART_KILL_AT}, the run resumed "
+            f"from checkpoint_{RESTART_KILL_AT:08d} and finished in "
+            f"{fit_s:.1f} s; losses after the restart {got} against the "
+            f"uninterrupted run's {want[RESTART_KILL_AT:]} (largest gap "
+            f"{max(gaps):.1e} of itself); the last checkpoint's files "
+            f"{files}, {nbytes} bytes; the restarted worker read its "
+            f"checkpoint in {last['load_s']:.2f} s and wrote step "
+            f"{RESTART_KILL_AT + 1}'s in {last['save_s'][0]:.2f} s "
+            f"(report with the checkpoint, sync save)" + mem)
+    finally:
+        rt.shutdown()
+    log(f"phase 16b, 16c: {time.monotonic() - t_phase:.1f} s; {card}")
+    return launches
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -3646,6 +4007,13 @@ def main():
     phase_cluster(main_streams=main_streams, card=card)
     # Serve: phase 4's server as a deployment in a replica holding the card
     phase_serve(main_streams=main_streams, card=card)
+    # the mesh and distributed training: the flash kernels per shard, then
+    # TorchTrainer with the card in a leased worker
+    t_mesh = time.monotonic()
+    torch.cuda.empty_cache()
+    phase_flash_shards(device, flash)
+    trainer_launches = phase_trainer(device, card=card)
+    log(f"phase 16: {time.monotonic() - t_mesh:.1f} s")
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -3671,7 +4039,8 @@ def main():
         "name": name, "route": "cuda",
         "source": f"ray_tpu_torch/ops/csrc/{src}",
         "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-        "launches": flash_launches[name], **flash[name]}
+        "launches": flash_launches[name] + trainer_launches[name],
+        **flash[name]}
         for name, src, line in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 91),
             ("flash_attention_dq", "flash_attention_bwd.cu", 139),

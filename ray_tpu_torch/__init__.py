@@ -24,7 +24,11 @@ attention forward and backward (hand-written CUDA C++ kernels for Hopper
 under ``ops/csrc/``, each with a plain PyTorch version beside it); the
 continuous-batching ``InferenceEngine`` with its flight recorder and
 gauges, the ``LLMServer`` front end and ``LLMBatchPredictor``; the train
-step, the ``Adafactor`` optimizer and the step profiler; the jax-free
+step, the ``Adafactor`` optimizer and the step profiler; distributed
+training (``train/``: ``TorchTrainer`` over worker processes joined in
+one torch.distributed group, NCCL on the card and gloo on the CPU; the
+device mesh, collectives and fsdp gathers of ``parallel/``; sharded
+checkpoints in the JAX package's format); the jax-free
 metrics, trace-context and log planes under ``util/``. Module names match the JAX package
 (``ray_tpu``) so each counterpart is easy to find; this package imports
 neither ``jax`` nor anything of ``ray_tpu``.

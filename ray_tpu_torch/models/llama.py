@@ -9,9 +9,14 @@ accumulates and returns fp32 logits. Attention is "full" (plain torch) or
 "flash" (``ops.flash_attention``: the CUDA kernels on the card). Remat is
 ``torch.utils.checkpoint`` per layer, its policies saving what the JAX
 policies save ("selective": the tensors tagged by ``checkpoint_name``).
-The attention block is shared with ``models/mixtral.py``. Not in this
-port yet: the pipeline, ring and Ulysses paths and the fsdp-overlap loss
-(they need a device mesh).
+The attention block is shared with ``models/mixtral.py``.
+
+On a device mesh (``forward``/``loss_fn`` with ``mesh=``) each rank runs
+the layers on its shards of the ``param_specs`` layout: fsdp dims
+gathered layer by layer (or prefetched, ``fsdp_overlap``), heads and the
+ffn hidden dim split over tp with one sum over tp after each row-split
+product, the embedding gathered whole. Not in this port yet: the pipeline
+(pp > 1) and the ring and Ulysses paths (sp > 1).
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
+
+from ray_tpu_torch.parallel.mesh import P
 
 Params = Dict[str, object]
 
@@ -58,6 +65,7 @@ class LlamaConfig:
     remat: bool = True
     remat_policy: str = "full"     # full | dots | dots_no_batch | selective
     int8_mlp: bool = False         # dynamic-W8A8 MLP matmuls (ops.int8)
+    fsdp_overlap: bool = False     # prefetch-scheduled fsdp gathers
 
     @property
     def head_dim(self) -> int:
@@ -285,10 +293,13 @@ def remat_policy_fn(name: str):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _attention(lp: Params, x, cfg, positions, attn_fn):
+def _attention(lp: Params, x, cfg, positions, attn_fn, tp_sum=None):
     """x + the attention block of rmsnorm(x): the half of a layer that
-    Llama and Mixtral share (leaves attn_norm, wq, wk, wv, wo)."""
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Llama and Mixtral share (leaves attn_norm, wq, wk, wv, wo). The head
+    counts come from the projections' widths, so a tensor-parallel shard
+    (its heads' columns of wq/wk/wv and rows of wo) runs the same code;
+    ``tp_sum`` then sums the row-split output product over tp."""
+    hd = cfg.head_dim
     B, L, _ = x.shape
     cd = cfg.dtype
 
@@ -296,19 +307,23 @@ def _attention(lp: Params, x, cfg, positions, attn_fn):
     q = _projection(h, lp["wq"].to(cd), "attn_q")
     k = _projection(h, lp["wk"].to(cd), "attn_k")
     v = _projection(h, lp["wv"].to(cd), "attn_v")
-    q = _rope(q.reshape(B, L, hq, hd), positions, cfg.rope_theta)
-    k = _rope(k.reshape(B, L, hkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, L, hkv, hd)
-    if hkv != hq:  # GQA: repeat KV groups to full head count
-        rep = hq // hkv
+    q = _rope(q.reshape(B, L, -1, hd), positions, cfg.rope_theta)
+    k = _rope(k.reshape(B, L, -1, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, L, -1, hd)
+    rep = q.shape[2] // k.shape[2]
+    if rep != 1:  # GQA: repeat KV groups to full head count
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    o = attn_fn(q, k, v).reshape(B, L, hq * hd)
-    return x + _projection(o, lp["wo"].to(cd), "attn_o")
+    o = attn_fn(q, k, v).reshape(B, L, -1)
+    out = _projection(o, lp["wo"].to(cd), "attn_o")
+    return x + (out if tp_sum is None else tp_sum(out))
 
 
-def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn):
-    """One transformer block; lp leaves have the layer axis removed."""
+def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn,
+           tp_sum=None):
+    """One transformer block; lp leaves have the layer axis removed.
+    ``tp_sum`` (tensor parallelism) sums each row-split product (wo,
+    w_down) over tp."""
     cd = cfg.dtype
 
     if cfg.int8_mlp:
@@ -320,22 +335,27 @@ def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn):
         def mlp_mm(a, w, name):
             return _projection(a, w.to(cd), name)
 
-    x = _attention(lp, x, cfg, positions, attn_fn)
+    x = _attention(lp, x, cfg, positions, attn_fn, tp_sum)
     h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(mlp_mm(h, lp["w_gate"], "mlp_gate"))
     up = mlp_mm(h, lp["w_up"], "mlp_up")
-    return x + mlp_mm(gate * up, lp["w_down"], "mlp_down")
+    down = mlp_mm(gate * up, lp["w_down"], "mlp_down")
+    return x + (down if tp_sum is None else tp_sum(down))
 
 
-def _make_attn_fn(cfg: LlamaConfig):
+def _make_attn_fn(cfg: LlamaConfig, mesh=None):
     if cfg.attention == "full":
         return _full_attention
     if cfg.attention == "flash":
-        from ray_tpu_torch.ops.flash_attention import flash_attention
+        from ray_tpu_torch.ops.flash_attention import (
+            flash_attention, flash_attention_sharded)
+        if mesh is not None:
+            return functools.partial(flash_attention_sharded, mesh=mesh)
         return flash_attention
     if cfg.attention in ("ring", "ulysses"):
-        raise ValueError(f"attention={cfg.attention!r} needs a device mesh, "
-                         f"which this port does not have yet")
+        raise ValueError(f"attention={cfg.attention!r} shards the sequence "
+                         f"over the mesh's sp axis, and this port has no "
+                         f"sequence parallelism (ring, Ulysses) yet")
     raise ValueError(f"unknown attention {cfg.attention!r}")
 
 
@@ -360,10 +380,33 @@ def unstack_layers(layers: Params, n_layers: int):
             for i in range(n_layers)]
 
 
-def _scan_layers(layers: Params, x, cfg: LlamaConfig, positions, attn_fn):
-    """Apply the stacked layers in order, each under ``remat_layer``."""
-    body = remat_layer(functools.partial(
-        _layer, cfg=cfg, positions=positions, attn_fn=attn_fn), cfg)
+def _scan_layers(layers: Params, x, cfg: LlamaConfig, positions, attn_fn,
+                 mesh=None):
+    """Apply the stacked layers in order, each under ``remat_layer``. On
+    a ``mesh`` the layers are this rank's shards: each layer's fsdp dims
+    gathered inside the remat body (the backward's recompute gathers
+    again; with ``cfg.fsdp_overlap`` and fsdp > 1, ``overlap_scan``
+    prefetches them instead), heads and the ffn hidden dim local to the
+    tp shard, each row-split product summed over tp. Without a mesh the
+    gathers and sums are identities."""
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel.fsdp_overlap import (drop_leading_dim,
+                                                     gather_params,
+                                                     overlap_scan)
+    from ray_tpu_torch.parallel.mesh import axis_size
+    lspecs = drop_leading_dim(param_specs(cfg)["layers"])
+    tp_sum = functools.partial(collectives.allreduce, mesh=mesh,
+                               axis_name="tp")
+    layer = functools.partial(_layer, cfg=cfg, positions=positions,
+                              attn_fn=attn_fn, tp_sum=tp_sum)
+    if cfg.fsdp_overlap and axis_size(mesh, "fsdp") > 1:
+        return overlap_scan(layers, lspecs, x, remat_layer(layer, cfg),
+                            cfg.n_layers, mesh, axis_name="fsdp")
+
+    def body(lp, x):
+        return layer(gather_params(lp, lspecs, mesh, "fsdp"), x)
+
+    body = remat_layer(body, cfg)
     for lp in unstack_layers(layers, cfg.n_layers):
         x = body(lp, x)
     return x
@@ -374,16 +417,78 @@ def layer_params(params: Params, i: int) -> Params:
     return {name: leaf[i] for name, leaf in params["layers"].items()}
 
 
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The sharding of each leaf of ``init_params``' tree, as the JAX
+    package's ``param_specs``: the stacked layer dim over pp, the matmul
+    input dims over fsdp, heads and the ffn hidden dim over tp."""
+    return {
+        "embed": P("tp", "fsdp"),
+        "layers": {
+            "attn_norm": P("pp", None),
+            "wq": P("pp", "fsdp", "tp"),
+            "wk": P("pp", "fsdp", "tp"),
+            "wv": P("pp", "fsdp", "tp"),
+            "wo": P("pp", "tp", "fsdp"),
+            "mlp_norm": P("pp", None),
+            "w_gate": P("pp", "fsdp", "tp"),
+            "w_up": P("pp", "fsdp", "tp"),
+            "w_down": P("pp", "tp", "fsdp"),
+        },
+        "final_norm": P(None),
+    }
+
+
 def forward(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+            cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """tokens [B, L] int -> logits [B, L, vocab] (fp32). Differentiable;
-    inference callers disable grad themselves."""
-    B, L = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(L, device=tokens.device)
-    x = _scan_layers(params["layers"], x, cfg, positions, _make_attn_fn(cfg))
+    inference callers disable grad themselves.
+
+    With a ``mesh`` (``parallel.mesh.build_mesh``) this rank's shards:
+    ``params`` sharded by ``param_specs`` and ``tokens`` over (dp, fsdp),
+    as DTensors or their local tensors; returns this rank's logits
+    [B / (dp * fsdp), L, vocab]. The embedding is gathered whole (over
+    tp and fsdp) for the lookup and the tied head."""
+    embed = params["embed"]
+    if mesh is not None:
+        from ray_tpu_torch.parallel.fsdp_overlap import (gather_params,
+                                                         tree_map)
+        _check_mesh(cfg, mesh)
+        params = tree_map(_local, params)
+        tokens = _local(tokens)
+        embed = params["embed"]
+        for axis in ("tp", "fsdp"):
+            embed = gather_params(embed, param_specs(cfg)["embed"], mesh,
+                                  axis)
+    x = embed[tokens].to(cfg.dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _scan_layers(params["layers"], x, cfg, positions,
+                     _make_attn_fn(cfg, mesh), mesh)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return head_logits(x, params["embed"])
+    return head_logits(x, embed)
+
+
+def _local(x):
+    """A DTensor's local shard (differentiably), any other tensor as is."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _check_mesh(cfg: LlamaConfig, mesh) -> None:
+    from ray_tpu_torch.parallel.mesh import axis_size
+    if axis_size(mesh, "pp") > 1:
+        raise ValueError("pp > 1 runs the pipeline (pipeline_apply), which "
+                         "this port does not have yet")
+    if axis_size(mesh, "sp") > 1:
+        raise ValueError("sp > 1 shards the sequence (ring, Ulysses), "
+                         "which this port does not have yet")
+    tp, fsdp = axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
+    for name, n, by in (("n_heads", cfg.n_heads, tp),
+                        ("n_kv_heads", cfg.n_kv_heads, tp),
+                        ("ffn_dim", cfg.ffn_dim, tp),
+                        ("vocab_size", cfg.vocab_size, tp),
+                        ("dim", cfg.dim, fsdp)):
+        if n % by:
+            raise ValueError(f"{name} {n} does not split over {by} ranks")
 
 
 def _nll_mean(logits, tokens):
@@ -394,11 +499,21 @@ def _nll_mean(logits, tokens):
 
 
 def loss_fn(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+            cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy (mean over B×(L-1) positions), fp32. The
     full sequence goes through forward; the shift happens on the
-    logits."""
-    return _nll_mean(forward(params, tokens, cfg), tokens)
+    logits.
+
+    With a ``mesh``: each rank's mean over its batch shard, averaged over
+    (dp, fsdp) (equal shards, so the mean of the shard means is the
+    global mean), as ``_loss_overlap``'s ``pmean`` in the JAX package:
+    one loss, held by every rank (``collectives.loss_mean``).
+    ``cfg.fsdp_overlap`` prefetches each layer's fsdp gather
+    (``overlap_scan``) instead of gathering inside the layer."""
+    from ray_tpu_torch.parallel.collectives import loss_mean
+    logits = forward(params, tokens, cfg, mesh)
+    local = _nll_mean(logits, tokens if mesh is None else _local(tokens))
+    return loss_mean(local, mesh, ("dp", "fsdp"))
 
 
 def num_params(cfg: LlamaConfig) -> int:

@@ -382,3 +382,41 @@ def flash_attention(q, k, v, causal: bool = True,
     cotangent. ``blk_q``/``blk_k`` block the plain versions; the JAX
     package's autotuned blocks (``blk=None``) have no counterpart."""
     return flash_attention_block(q, k, v, causal, sm_scale, blk_q, blk_k)[0]
+
+
+def check_shard_geometry(q, k, v) -> None:
+    """Raise unless q, k and v are one rank's plain [B, L, H, D] shards of
+    one shape that the kernels take on the card (a head dim in
+    ``KERNEL_HEAD_DIMS``, fp32 or bf16): a shard the kernels cannot take
+    fails here, before any launch, and never falls back to the plain
+    version."""
+    from torch.distributed.tensor import DTensor
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor: flash_attention_sharded "
+                            f"takes this rank's local shard")
+        if t.dim() != 4 or t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)}: the shards must be "
+                             f"[B, L, H, D] of q's shape {tuple(q.shape)}")
+    if q.is_cuda:
+        if q.shape[-1] not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"head dim {q.shape[-1]}: the kernels are "
+                             f"built for {KERNEL_HEAD_DIMS}")
+        if q.dtype not in _DTYPE_CODES:
+            raise TypeError(f"dtype {q.dtype}: the kernels take fp32 or "
+                            f"bf16")
+
+
+def flash_attention_sharded(q, k, v, mesh, *, causal: bool = True):
+    """Flash attention on this rank's shard of a mesh: q, k and v are the
+    local [B / (dp * fsdp), L, H / tp, D] tensors (batch over dp and
+    fsdp, heads over tp, the sequence whole), and each rank runs the
+    kernels on its own, as the JAX package's ``shard_map`` runs them per
+    shard. Raises when sp > 1 (the sequence is sharded: ring attention's
+    case). No collective runs here."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+    if axis_size(mesh, "sp") > 1:
+        raise ValueError("flash_attention_sharded cannot shard the sequence "
+                         "axis; sp > 1 needs ring attention")
+    check_shard_geometry(q, k, v)
+    return flash_attention(q, k, v, causal)

@@ -26,10 +26,10 @@ RETURN_WINDOW = 100
 
 def check_build(device, mesh) -> torch.device:
     """The device an algorithm's ``build`` runs on; a mesh raises, since
-    this package has no device mesh yet."""
+    the learners have no sharded (mesh) path in this port yet."""
     if mesh is not None:
-        raise ValueError("a mesh argument needs a device mesh, which this "
-                         "port does not have yet")
+        raise ValueError("build(mesh=...): the RL learners' sharded path "
+                         "over a device mesh is not in this port yet")
     return resolve_device(device)
 
 

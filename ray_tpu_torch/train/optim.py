@@ -20,6 +20,13 @@ as optax does):
 
 No momentum and no weight decay (optax's defaults). Plain torch ops: optax
 computes it outside any Pallas kernel.
+
+A parameter that is one rank's shard of a leaf on a device mesh (it
+carries ``shard_info``: ``train_step.local_shard``) is updated as the
+global leaf would be: the factored dims are chosen on the global shape,
+and the row and column means and the RMS of the update and of the
+parameter are reduced over the mesh axes that shard the dims they run
+over (the shards are equal).
 """
 
 from __future__ import annotations
@@ -48,8 +55,39 @@ def factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(x) / x.numel() ** 0.5
+def _group(p, axes_of):
+    """The process group over the mesh axes ``axes_of(shard_info)`` of a
+    sharded parameter, or None (a whole tensor, or axes of one rank)."""
+    info = getattr(p, "shard_info", None)
+    if info is None:
+        return None
+    from ray_tpu_torch.parallel.mesh import axis_group
+    return axis_group(info.mesh, axes_of(info))
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _mean(x: torch.Tensor, dim: int, group, keepdim=False) -> torch.Tensor:
+    """Mean over ``dim``, whose shards (equal) lie on ``group``."""
+    m = x.mean(dim=dim, keepdim=keepdim)
+    if group is None:
+        return m
+    import torch.distributed as dist
+    return _all_reduce(m, group).div_(dist.get_world_size(group))
+
+
+def _rms(x: torch.Tensor, group=None, numel=None) -> torch.Tensor:
+    """RMS of the whole leaf of ``numel`` values, ``x`` its shard on
+    ``group`` (None: ``x`` is the whole leaf)."""
+    if group is None:
+        return torch.linalg.vector_norm(x) / (numel or x.numel()) ** 0.5
+    sq = _all_reduce(torch.linalg.vector_norm(x) ** 2, group)
+    return sq.sqrt() / numel ** 0.5
 
 
 class Adafactor(torch.optim.Optimizer):
@@ -62,9 +100,26 @@ class Adafactor(torch.optim.Optimizer):
             raise ValueError(f"invalid learning rate {lr}")
         super().__init__(params, {"lr": lr})
 
+    @staticmethod
+    def _global_shape(p: torch.Tensor):
+        info = getattr(p, "shard_info", None)
+        return tuple(info.global_shape if info else p.shape)
+
+    def state_dims(self, p: torch.Tensor, name: str) -> Tuple[int, ...]:
+        """The dims of ``p`` that its state ``name`` keeps, in order: none
+        for ``step``, all for ``v``, all but the largest (``v_row``) or
+        the second largest (``v_col``) of the factored dims
+        (``train_step`` lays the state of a sharded ``p`` out by them)."""
+        if name == "step":
+            return ()
+        dims = factored_dims(self._global_shape(p))
+        drop = {"v": None, "v_row": dims and dims[1],
+                "v_col": dims and dims[0]}[name]
+        return tuple(d for d in range(p.dim()) if d != drop)
+
     def _init_state(self, p: torch.Tensor) -> dict:
         state = {"step": torch.tensor(0.0)}
-        dims = factored_dims(tuple(p.shape))
+        dims = factored_dims(self._global_shape(p))
         if dims is None:
             state["v"] = torch.zeros_like(p)
         else:
@@ -94,15 +149,17 @@ class Adafactor(torch.optim.Optimizer):
         rho = float(1.0 - (state["step"] + 1.0) ** -DECAY_RATE)
         grad_sqr = g * g
         grad_sqr.add_(EPS)
-        dims = factored_dims(tuple(p.shape))
+        dims = factored_dims(self._global_shape(p))
         if dims is not None:
             d1, d0 = dims
+            g0 = _group(p, lambda i: i.dim_axes(d0))
+            g1 = _group(p, lambda i: i.dim_axes(d1))
             v_row, v_col = state["v_row"], state["v_col"]
-            v_row.mul_(rho).add_(grad_sqr.mean(dim=d0), alpha=1.0 - rho)
-            v_col.mul_(rho).add_(grad_sqr.mean(dim=d1), alpha=1.0 - rho)
+            v_row.mul_(rho).add_(_mean(grad_sqr, d0, g0), alpha=1.0 - rho)
+            v_col.mul_(rho).add_(_mean(grad_sqr, d1, g1), alpha=1.0 - rho)
             del grad_sqr
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)
+            row_factor = (v_row / _mean(v_row, reduced_d1, g1, keepdim=True)
                           ).pow_(-0.5)
             update = g * row_factor.unsqueeze(d0)
             update.mul_(v_col.pow(-0.5).unsqueeze(d1))
@@ -113,8 +170,11 @@ class Adafactor(torch.optim.Optimizer):
             update = g * v.pow(-0.5)
         # block-RMS clip, the learning rate, the parameter's RMS scale and
         # the descent sign, as one factor on the update
-        denom = torch.clamp(_rms(update) / CLIPPING_THRESHOLD, min=1.0)
-        scale = torch.clamp(_rms(p), min=MIN_PARAM_SCALE)
+        whole = _group(p, lambda i: i.sharded_axes)
+        numel = int(np.prod(self._global_shape(p)))
+        denom = torch.clamp(_rms(update, whole, numel) / CLIPPING_THRESHOLD,
+                            min=1.0)
+        scale = torch.clamp(_rms(p, whole, numel), min=MIN_PARAM_SCALE)
         update.mul_(lr * scale / denom)
         p.sub_(update)
         state["step"] += 1.0

@@ -18,6 +18,9 @@ _FOREIGN = (
     "print(bad)\n")
 
 
+PARALLEL_MODULES = ("mesh", "collectives", "fsdp_overlap")
+TRAIN_MODULES = ("backend", "config", "checkpoint", "session", "result",
+                 "scaling_policy", "worker_group", "controller", "trainer")
 SERVE_MODULES = ("batching", "controller", "grpc_proxy", "multiplex",
                  "proxy", "replica", "router", "schema")
 
@@ -94,7 +97,9 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.util.fault_injector",
                 "ray_tpu_torch.util.compile_tracker",
                 "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.tracing",
-                *(f"ray_tpu_torch.serve.{m}" for m in SERVE_MODULES)):
+                *(f"ray_tpu_torch.serve.{m}" for m in SERVE_MODULES),
+                *(f"ray_tpu_torch.parallel.{m}" for m in PARALLEL_MODULES),
+                *(f"ray_tpu_torch.train.{m}" for m in TRAIN_MODULES)):
         assert new in mods, new
     code = (
         "import importlib\n"

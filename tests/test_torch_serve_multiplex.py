@@ -189,19 +189,68 @@ def test_multiplex_routing_affinity(serve_rt):
     assert out["model_id"] == ""
 
 
-def test_multiplex_model_ids_in_stats(serve_rt):
-    rt, serve = serve_rt
-    # the deployment from the previous test is still running
-    st = serve.status()
-    assert "MuxServer" in st
-    handle = serve.get_app_handle("MuxServer")
-    ctrl = handle._controller
-    table = rt.get(ctrl.get_routing_table.remote("MuxServer"), timeout=30)
+def _replica_model_ids(rt, handle, app):
+    """The model ids every replica of ``app`` reports in its stats."""
+    table = rt.get(handle._controller.get_routing_table.remote(app),
+                   timeout=30)
     ids = set()
     for h in table["replicas"]:
         s = rt.get(h.stats.remote(), timeout=30)
         ids.update(s.get("multiplexed_model_ids", []))
-    assert {"m1", "m2"} <= ids
+    return ids
+
+
+def test_multiplex_model_ids_in_stats(serve_rt):
+    """Its own deployment and traffic: two models on replicas that hold
+    up to three each, so no eviction can drop an id from the stats."""
+    rt, serve = serve_rt
+
+    @serve.deployment(num_replicas=2)
+    class MuxStats:
+        @serve.multiplexed(max_num_models_per_replica=3)
+        def load(self, model_id: str):
+            return model_id
+
+        def __call__(self, body):
+            return self.load(serve.get_multiplexed_model_id())
+
+    handle = serve.run(MuxStats.bind())
+    for mid in ("m1", "m2"):
+        out = handle.options(multiplexed_model_id=mid).remote({}) \
+            .result(timeout=60)
+        assert out == mid
+    assert "MuxStats" in serve.status()
+    assert {"m1", "m2"} <= _replica_model_ids(rt, handle, "MuxStats")
+
+
+@pytest.mark.parametrize("serve_rt", ["ray_tpu_torch"], indirect=True)
+def test_new_models_home_on_the_replica_holding_fewest(serve_rt):
+    """The port's router homes a new model on a replica holding the
+    fewest: m1 and m2 land on different replicas, and an untagged
+    request's model ("") then fills one of them to its two models
+    without evicting m1 or m2, whose ids stay in the stats. (The JAX
+    router homes by load alone: all three may meet on one replica.)"""
+    rt, serve = serve_rt
+
+    @serve.deployment(num_replicas=2)
+    class MuxHoming:
+        def __init__(self):
+            self.replica_tag = rt.get_runtime_context().worker_id.hex()[:8]
+
+        @serve.multiplexed(max_num_models_per_replica=2)
+        def load(self, model_id: str):
+            return model_id
+
+        def __call__(self, body):
+            self.load(serve.get_multiplexed_model_id())
+            return self.replica_tag
+
+    handle = serve.run(MuxHoming.bind())
+    homes = {mid: handle.options(multiplexed_model_id=mid).remote({})
+             .result(timeout=60) for mid in ("m1", "m2")}
+    assert homes["m1"] != homes["m2"], homes
+    handle.remote({}).result(timeout=60)
+    assert {"m1", "m2", ""} <= _replica_model_ids(rt, handle, "MuxHoming")
 
 
 # --------------------------------------------- batching x multiplexing
