@@ -216,6 +216,26 @@ result line is printed):
      (this process's view before and after the run; each worker's
      view at its start is printed only);
      the checkpoint's files, bytes and seconds to write and to read.
+ 17. the parallel axes left: 17a. phase 4's server with a tp=2 engine,
+     both shards on the card (``TP_DEVICES``: one engine process drives
+     every shard, as the JAX package's does), phase 4's requests (the wave
+     admitted at one step, the prefix hit twice): each stream equal to
+     phase 4's, or, where it parts, its first divergent step named with
+     the tp=1 model's top-2 margin there under the logits' bf16 noise;
+     the ragged launches 2 x phase 4's (one call per shard per layer);
+     set-up, wave and hit times and peak memory beside phase 4's; then
+     the ragged kernel against its plain version at a tp 2 and a tp 4
+     shard's geometry (Hq 16 / Hkv 4 and Hq 8 / Hkv 2, phase 3's checks
+     and times); 17b. a tp=4 engine at 8B widths (2 layers), each shard's
+     attention in every call held against the plain version at the
+     shard's geometry; 17c. the ring's per-rotation work
+     (``ring_rotation``: a flash block + the lse merge) for every virtual
+     rank of rings of 2 and 4 ranks (B 1, H 24, blocks of 2048, D 128,
+     bf16, causal), the blocks in the ring's order: output and gradients
+     against one whole-sequence ``flash_attention`` within phase 6's
+     limits, the flash launches of the pass (10 of each kernel at 4
+     ranks), and the diagonal and off-diagonal rotation timed beside the
+     whole-sequence call.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -943,7 +963,7 @@ def admit_together(engine, n, timeout=60.0):
             time.sleep(0.0005)
         with engine._lock:
             engine.waiting.sort(key=lambda seq: -len(seq.prompt))
-        engine.step = step
+        del engine.step         # the class's method again, and no cycle
         return step(*args, **kwargs)
 
     engine.step = held
@@ -1130,7 +1150,8 @@ def phase_main_path(model_config=None, engine_config=None,
             assert [r["trace_id"] for r in logs
                     if r["request_id"] == other] == ["", ""], j
     streams = {"wave": results, "hit": hit,
-               "e2e_s": {i: t[3] for i, t in timers.items()}}
+               "e2e_s": {i: t[3] for i, t in timers.items()},
+               "wave_s": wave_s, "hit_ms": hit_ms}
     return stats, launches, expected, (programs_before, programs), streams
 
 
@@ -2043,14 +2064,26 @@ def phase_mixtral_oracle(device, config=None, batch=MIXTRAL_ORACLE_BATCH):
     assert abs(ad - ac) <= MIXTRAL_ORACLE_RTOL * abs(ac), (ad, ac)
     for a, b in zip(idd, ic):
         assert torch.equal(a.sort(-1).values, b.sort(-1).values)
-    worst = max(((a - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(gd, gc))
+    rel = {name: ((a - b).abs().max() / b.abs().max()).item()
+           for name, a, b in zip(leaf_names(init), gd, gc)}
+    worst = max(rel, key=rel.get)
     log(f"Mixtral oracle (dim {cfg.dim}, {cfg.n_experts} experts top-"
         f"{cfg.top_k}, {cfg.n_layers} layers, fp32, B {batch[0]} L "
         f"{batch[1]}): loss {ld:.7f} on the card vs {lc:.7f} on the CPU, "
         f"aux {ad:.7f} vs {ac:.7f}, routing equal, {len(gd)} gradients, "
-        f"worst {worst:.2e} of the leaf's largest value")
-    assert worst <= MIXTRAL_ORACLE_RTOL, worst
+        f"worst {rel[worst]:.2e} of the leaf's largest value ({worst}); "
+        f"the CPU's sums on {torch.get_num_threads()} threads, "
+        f"{torch.backends.cpu.get_cpu_capability()}")
+    assert rel[worst] <= MIXTRAL_ORACLE_RTOL, \
+        {k: f"{v:.2e}" for k, v in rel.items()}
+
+
+def leaf_names(params, prefix=""):
+    """The dotted key of each leaf, in ``param_leaves``' order."""
+    if isinstance(params, torch.Tensor):
+        return [prefix]
+    return [name for key in sorted(params) for name in
+            leaf_names(params[key], f"{prefix}.{key}" if prefix else key)]
 
 
 # ------------------------------------------------- phase 11: RL on the card
@@ -3900,6 +3933,433 @@ def phase_trainer(device, config=None, batch=TRAIN_BATCH,
     return launches
 
 
+
+# ------------------------------- phase 17: the parallel axes left
+
+#: 17a: the tensor-parallel engine's shards, both on the one card
+TP_DEVICES = ("cuda:0", "cuda:0")
+#: the ragged kernel's per-shard geometry at 8B widths: tp -> (Hq, Hkv)
+TP_SHARD_GEOMETRY = {2: {"Hq": 16, "Hkv": 4, "D": 128, "ps": 16},
+                     4: {"Hq": 8, "Hkv": 2, "D": 128, "ps": 16}}
+#: 17b: 8B widths at 2 of their 32 layers, over 4 shards
+TP4_MODEL = dict(MAIN_MODEL, n_layers=2)
+#: below this top-2 logit margin a bf16 stream may part from phase 4's
+#: (the split sums round each shard's partial product before adding);
+#: besides it, a margin under twice the logits' bf16 noise at that step
+#: (the bf16 forward's largest distance from the fp32 forward)
+TP_MARGIN_FLOOR = 2.0 ** -5
+#: 17a: the peak over what the tp engine holds (every shard's weights and
+#: pool), at most: the steps' activations and one matrix drawn at set-up
+#: (phase 4 peaked 0.16 GB over its weights and pool, PERF.md)
+TP_PEAK_SLACK = 1 << 30
+#: 17c: one rank's block (B, heads, block length, head dim) and the ring
+#: sizes; phase 6's limits (FLASH_RTOL per row, LSE_ATOL)
+RING_SHARD = (1, 24, 2048, 128)
+RING_DEGREES = (2, 4)
+
+
+def ring_blocks(sp):
+    """Flash blocks one causal ring pass over ``sp`` ranks runs: rank idx
+    attends its diagonal block and the idx earlier ones."""
+    return sp * (sp + 1) // 2
+
+
+def held_bytes(*trees):
+    """The bytes of the distinct storages under ``trees`` (nested dicts
+    and lists of tensors): a tensor shared by shards counts once."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        else:
+            for v in x:
+                walk(v)
+    for t in trees:
+        walk(t)
+    return sum(seen.values())
+
+
+def free_card():
+    """Collect what cycles still hold (a server whose frames the profiler
+    kept, through its records), then give the allocator's cache back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def memory_baseline():
+    """Collect what cycles still hold (a shut-down server's engine), empty
+    the allocator's cache, reset the peak: -> the bytes still allocated,
+    from which a phase's peak is counted."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def margin_and_noise(params, cfg, tokens):
+    """(top-2 margin of the last position's logits, the largest distance
+    of those logits from the fp32 forward's) of the plain forward on the
+    whole ``params`` (cfg.dtype), at the context ``tokens``."""
+    from ray_tpu_torch.models.llama import forward
+    dev = params["embed"].device
+    t = torch.tensor([tokens], device=dev)
+    with torch.no_grad():
+        lo = forward(params, t, cfg)[0, -1]
+        hi = forward(params, t, dataclasses.replace(
+            cfg, dtype=torch.float32))[0, -1]
+    top = lo.topk(2).values
+    return (top[0] - top[1]).item(), (lo - hi).abs().max().item()
+
+
+def phase_tp_serving(model_config=None, engine_config=None,
+                     main_streams=None, main_launches=None, main_peak=None,
+                     devices=TP_DEVICES, card=""):
+    """17a: phase 4's server with a tp=2 engine (both shards on the card),
+    phase 4's requests (the wave admitted at one step, then the prefix
+    hit twice, the second under the profiler, as phase 4 sends it; the
+    device's busy share printed): each stream equal to phase 4's, or,
+    where it parts, the first divergent step named with the tp=1 model's
+    top-2 margin there under the bf16 noise (``margin_and_noise``); the
+    ragged launches tp x phase 4's; peak memory (over what was allocated
+    before the phase, ``main_peak``: phase 4's (before, peak)) and wall
+    times beside phase 4's."""
+    from ray_tpu_torch.llm.serve_llm import LLMServer
+    from ray_tpu_torch.ops import paged_attention as tpa
+    tp = len(devices)
+    engine_config = dict(engine_config or MAIN_ENGINE, tp=tp,
+                         devices=list(devices))
+    on_card = engine_config.get("device", "cuda") == "cuda"
+    base = memory_baseline() if on_card else None
+    t0 = time.monotonic()
+    srv = LLMServer(model_config or MAIN_MODEL, engine_config)
+    eng = srv.engine
+    cfg = eng.cfg
+    setup_s = time.monotonic() - t0
+    held = held_bytes(eng.params, eng.kv)
+    reqs, hit_req = main_requests(cfg.vocab_size, eng.prefill_chunk)
+    results = [None] * len(reqs)
+
+    def run(i, kind, prompt, max_tokens):
+        body = {"prompt_ids": prompt, "max_tokens": max_tokens}
+        if kind == "call":
+            results[i] = srv(body)["token_ids"]
+            return
+        toks = []
+        for item in srv.stream(body):
+            if item.get("done"):
+                break
+            toks += item["token_ids"]
+        results[i] = toks
+
+    for name in tpa.launch_counts:
+        tpa.launch_counts[name] = 0
+    try:
+        t_wave = time.monotonic()
+        admit_together(eng, len(reqs))
+        threads = [threading.Thread(target=run, args=(i, *r))
+                   for i, r in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            assert not t.is_alive(), "request thread hung"
+        wave_s = time.monotonic() - t_wave
+        t_hit = time.monotonic()
+        hit = srv(hit_req)["token_ids"]
+        hit_ms = (time.monotonic() - t_hit) * 1e3
+        again, busy = profile_device(lambda: srv(hit_req), eng.device,
+                                     hit_ms, focus=("ragged",))
+        assert again["token_ids"] == hit
+        srv.check_health()
+    finally:
+        srv.shutdown()
+    launches = dict(tpa.launch_counts)
+    stats = srv.stats()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    if peak is not None:
+        assert peak - base - held <= TP_PEAK_SLACK, \
+            f"tp serving peaked {peak - base} bytes over {held} held"
+    expected = tp * cfg.n_layers * (stats["ragged_dispatches"]
+                                    + eng.decode_chunk
+                                    * stats["decode_dispatches"])
+    assert launches["ragged_paged_attention"] == expected, \
+        (launches, expected)
+    assert launches["ragged_paged_attention_reference_cuda"] == 0
+    if main_launches is not None:
+        assert launches["ragged_paged_attention"] == tp * main_launches, \
+            (launches, main_launches)
+    assert eng.compiled_step_programs() <= 3
+    parted = []
+    if main_streams is not None:
+        pairs = [(p, got, want) for (_, p, _), got, want in zip(
+            reqs, results, main_streams["wave"])]
+        pairs.append((hit_req["prompt_ids"], hit, main_streams["hit"]))
+        full = None
+        for j, (prompt, got, want) in enumerate(pairs):
+            assert len(got) == len(want), (j, got, want)
+            if got == want:
+                continue
+            step = next(i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b)
+            if full is None:    # the tp=1 weights, from the shards
+                full = eng._fns.gather_params(eng.params)
+            margin, noise = margin_and_noise(full, cfg, prompt + want[:step])
+            log(f"tp serving: request {j} parts from phase 4's stream at "
+                f"step {step} of {len(want)}: tp=1 top-2 margin {margin:.5f}"
+                f", bf16 noise of the logits {noise:.5f}")
+            assert margin < max(TP_MARGIN_FLOOR, 2 * noise), \
+                f"request {j} parts at a clear margin {margin}"
+            parted.append((j, step, margin, noise))
+        del full
+    n_tok = sum(len(t) for t in results)
+    ref = "" if "wave_s" not in (main_streams or {}) else (
+        f"; phase 4: wave {main_streams['wave_s']:.2f} s, hit "
+        f"{main_streams['hit_ms']:.1f} ms")
+    mem = "" if peak is None else (
+        f", peak memory {peak - base} bytes over the {base} held before "
+        f"it, the shards' weights and pools {held}" + (
+            "" if main_peak is None else
+            f" (phase 4: {main_peak[1] - main_peak[0]} over "
+            f"{main_peak[0]})"))
+    log(f"tp serving: tp={tp} on {list(devices)}, {cfg.n_layers} layers dim "
+        f"{cfg.dim}: set-up {setup_s:.1f} s, wave {n_tok} tokens in "
+        f"{wave_s:.2f} s, prefix hit alone {hit_ms:.1f} ms{ref}{mem}; "
+        f"ragged launches {launches['ragged_paged_attention']} = {tp} x "
+        f"{launches['ragged_paged_attention'] // tp} (phase 4: "
+        f"{main_launches}); streams equal to phase 4's: "
+        f"{len(reqs) + 1 - len(parted)} of {len(reqs) + 1}; {card}")
+    log(f"tp serving: the prefix-hit request under the profiler: {busy}")
+    return {"launches": launches["ragged_paged_attention"],
+            "setup_s": setup_s, "wave_s": wave_s, "hit_ms": hit_ms,
+            "peak_bytes": None if peak is None else peak - base,
+            "held_bytes": held,
+            "parted": parted, "streams": results + [hit]}
+
+
+def phase_tp_shards(device, model_config=None, engine_config=None, tp=4,
+                    prompt_lens=(300, 20), new_tokens=16):
+    """17b: a tp=4 engine at 8B widths (``TP4_MODEL``: 2 layers), all its
+    shards on ``device``: every call of the ragged op (each shard's
+    attention in each layer) held against the plain version on the same
+    inputs, at the shard's geometry; the launches tp x the engine's
+    ragged calls of one shard."""
+    from ray_tpu_torch.llm import model as M
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    from ray_tpu_torch.ops import paged_attention as tpa
+    cfg = model_config_from_dict(model_config or TP4_MODEL)
+    kw = dict(engine_config or MAIN_ENGINE)
+    kw.pop("device", None)
+    eng = InferenceEngine(cfg, tp=tp, devices=[device] * tp, **kw)
+    seen = {"calls": 0, "worst": 0.0, "geometry": set()}
+    orig = M.ragged_paged_attention
+
+    def checked(q, k_pages, v_pages, *desc, impl=None, **hints):
+        out = orig(q, k_pages, v_pages, *desc, impl=impl, **hints)
+        ref = tpa.ragged_paged_attention_reference(q, k_pages, v_pages,
+                                                   *desc, **hints)
+        assert torch.isfinite(out).all()
+        seen["worst"] = max(seen["worst"],
+                            tolerance_ratios(out, ref).max().item())
+        seen["geometry"].add((q.shape[1], k_pages.shape[1]))
+        seen["calls"] += 1
+        return out
+
+    for name in tpa.launch_counts:
+        tpa.launch_counts[name] = 0
+    M.ragged_paged_attention = checked
+    try:
+        rids = [eng.add_request(_prompt(40 + i, n, cfg.vocab_size),
+                                new_tokens)
+                for i, n in enumerate(prompt_lens)]
+        done = {}
+        while len(done) < len(rids):
+            done.update(eng.step())
+    finally:
+        M.ragged_paged_attention = orig
+    launches = tpa.launch_counts["ragged_paged_attention"]
+    calls = tp * cfg.n_layers * (eng.stats["ragged_dispatches"]
+                                 + eng.decode_chunk
+                                 * eng.stats["decode_dispatches"])
+    assert seen["calls"] == calls, (seen, calls)
+    if device.type == "cuda":
+        assert launches == calls, (launches, calls)
+    assert seen["geometry"] == {(cfg.n_heads // tp, cfg.n_kv_heads // tp)}
+    assert seen["worst"] <= 1, f"a shard at {seen['worst']} x the limit"
+    assert all(len(done[r]) == new_tokens for r in rids)
+    log(f"tp shards: tp={tp}, {cfg.n_layers} layers at dim {cfg.dim}, shard "
+        f"geometry Hq {cfg.n_heads // tp} Hkv {cfg.n_kv_heads // tp}: "
+        f"{seen['calls']} ragged calls each against the plain version, "
+        f"worst {seen['worst']:.3f} x the limit; launches {launches}")
+    return {"launches": launches, "worst": seen["worst"]}
+
+
+def flash_kernel_ms(q, k, v, do, causal, scale):
+    """Times of the three flash kernels on [BH, L, D] tensors: the
+    forward, and dq and dk/dv each alone (the plain backward on CPU
+    tensors, both under "dq")."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    o, lse = tfa._fwd_call(q, k, v, causal, scale)
+    ms = {"fwd": time_ms(lambda: tfa._fwd_call(q, k, v, causal, scale))}
+    if not q.is_cuda:
+        ms["dq"] = time_ms(lambda: tfa._bwd_call(q, k, v, o, lse, do, causal,
+                                                 scale))
+        ms["dkv"] = 0.0
+        return ms
+    BH, Lq, D = q.shape
+    Lk = k.shape[1]
+    delta = (do.float() * o.float()).sum(-1)
+    pad = -Lq % tfa.LSE_PAD
+    lse_p, delta_p = (torch.nn.functional.pad(t, (0, pad))
+                      for t in (lse, delta))
+    code = tfa._DTYPE_CODES[q.dtype]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ms["dq"] = time_ms(lambda: tfa._launch(
+        "flash_attention_bwd", "flash_attention_dq", q.device, code, q, k,
+        v, do, lse_p, delta_p, dq, BH, Lq, Lk, D, int(causal), scale))
+    ms["dkv"] = time_ms(lambda: tfa._launch(
+        "flash_attention_bwd", "flash_attention_dkv", q.device, code, q, k,
+        v, do, lse_p, delta_p, dk, dv, BH, Lq, Lk, D, int(causal), scale))
+    return ms
+
+
+def ring_block_against_plain(device, shard=RING_SHARD,
+                             dtype=torch.bfloat16):
+    """17c: the flash block of an off-diagonal rotation (non-causal, one
+    rank's block of queries against another's keys, the lse given a
+    cotangent as the merge gives it) against the plain versions on the
+    same inputs, within phase 6's limits: -> the worst ratio to the limit
+    of o, dq, dk and dv, and the lse's largest difference."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    B, H, n, D = shard
+    scale = D ** -0.5
+    g = torch.Generator(device=device).manual_seed(18)
+    q, k, v, do = (torch.randn(B * H, n, D, generator=g, device=device)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn(B * H, n, generator=g, device=device)
+    o, lse = tfa._fwd_call(q, k, v, False, scale)
+    o_ref, lse_ref = tfa._fwd_reference(q, k, v, False, scale)
+    grads = tfa._bwd_call(q, k, v, o_ref, lse_ref, do, False, scale,
+                          dlse=dlse)
+    delta = (do.float() * o_ref.float()).sum(-1) - dlse
+    grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, False,
+                                   scale)
+    lse_err = (lse - lse_ref).abs().max().item()
+    assert lse_err <= LSE_ATOL, f"off-diagonal block: lse off by {lse_err}"
+    ratios = {}
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                               (o_ref, *grads_ref)):
+        assert torch.isfinite(got).all(), f"off-diagonal block: {name}"
+        ratios[name] = flash_ratios(got, want).max().item()
+        assert ratios[name] <= 1, \
+            f"off-diagonal block: {name} at {ratios[name]} x the limit"
+    log(f"ring blocks: an off-diagonal block ({B * H} x {n} x {n}, D {D}, "
+        f"{dtype}, non-causal, an lse cotangent) against the plain "
+        f"versions: worst ratio to the limit " + ", ".join(
+            f"{k} {r:.3f}" for k, r in ratios.items())
+        + f", lse off by {lse_err:.2e}")
+    return ratios, lse_err
+
+
+def phase_ring_blocks(device, shard=RING_SHARD, degrees=RING_DEGREES,
+                      dtype=torch.bfloat16, card=""):
+    """17c: the ring's per-rotation work (``ring_rotation``: one
+    ``flash_attention_block`` + the lse merge) for every virtual rank of
+    rings of ``degrees`` ranks, each rank given the KV blocks in the
+    order the ring delivers them; the ranks' outputs concatenated and
+    the gradients (dq; dk and dv summed over the ranks) against
+    ``flash_attention`` over the whole sequence, within phase 6's limits;
+    the flash launches of the pass (``ring_blocks`` of each kernel); the
+    diagonal and off-diagonal rotation beside one whole-sequence call."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.parallel.ring_attention import ring_rotation
+    B, H, n, D = shard
+    scale = D ** -0.5
+    out = {}
+    for sp in degrees:
+        L = sp * n
+        g = torch.Generator(device=device).manual_seed(17)
+        q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=device)
+                       .to(dtype) for _ in range(4))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        for name in tfa.launch_counts:
+            tfa.launch_counts[name] = 0
+        outs, lses = [], []
+        for idx in range(sp):
+            o = torch.zeros(B, n, H, D, dtype=torch.float32, device=device)
+            lse = torch.full((B, H, n), float("-inf"), device=device)
+            for t in range(sp):
+                src = (idx - t) % sp     # the block held at rotation t
+                blk = slice(src * n, (src + 1) * n)
+                o, lse = ring_rotation(q[:, idx * n:(idx + 1) * n],
+                                       k[:, blk], v[:, blk], o, lse, src,
+                                       idx, True, scale)
+            outs.append(o.to(dtype))
+            lses.append(lse)
+        o_ring = torch.cat(outs, 1)
+        (o_ring.float() * do.float()).sum().backward()
+        launches = {name: tfa.launch_counts[name] for name in (
+            "flash_attention_fwd", "flash_attention_dq",
+            "flash_attention_dkv")}
+        if device.type == "cuda":
+            assert all(x == ring_blocks(sp) for x in launches.values()), \
+                (sp, launches)
+            assert tfa.launch_counts["flash_attention_fwd_reference_cuda"] \
+                == tfa.launch_counts["flash_attention_bwd_reference_cuda"] \
+                == 0
+        qw, kw, vw = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ow, lw = tfa.flash_attention_block(qw, kw, vw, True, scale)
+        (ow.float() * do.float()).sum().backward()
+        ratios = {}
+        for label, got, want in (("o", o_ring, ow), ("dq", q.grad, qw.grad),
+                                 ("dk", k.grad, kw.grad),
+                                 ("dv", v.grad, vw.grad)):
+            assert torch.isfinite(got).all(), f"sp {sp}: {label}"
+            ratios[label] = flash_ratios(tfa._bhl(got.detach()),
+                                         tfa._bhl(want)).max().item()
+            assert ratios[label] <= 1, f"sp {sp}: {label} at {ratios[label]}"
+        lse_err = (torch.cat(lses, 2) - lw).abs().max().item()
+        assert lse_err <= LSE_ATOL, f"sp {sp}: lse off by {lse_err}"
+        # per-rotation and whole-sequence times, forward and backward
+        with torch.no_grad():
+            qb, kb, vb, dob = (tfa._bhl(t.detach()[:, :n])
+                               for t in (q, k, v, do))
+            qa, ka, va, doa = (tfa._bhl(t.detach()) for t in (q, k, v, do))
+            o0 = torch.zeros(B, n, H, D, dtype=torch.float32, device=device)
+            l0 = torch.full((B, H, n), float("-inf"), device=device)
+            blk = (q.detach()[:, :n], k.detach()[:, :n], v.detach()[:, :n])
+            ms = {}
+            for label, causal in (("diagonal", True), ("off-diagonal", False)):
+                ms[label] = {"rotation": time_ms(
+                    lambda c=causal: ring_rotation(*blk, o0, l0, 0,
+                                                   0 if c else 1, True,
+                                                   scale)),
+                    **flash_kernel_ms(qb, kb, vb, dob, causal, scale)}
+            ms["whole"] = flash_kernel_ms(qa, ka, va, doa, True, scale)
+        pass_ms = {k: sp * ms["diagonal"][k] + (ring_blocks(sp) - sp)
+                   * ms["off-diagonal"][k] for k in ms["whole"]}
+        out[sp] = {"launches": launches, "ratios": ratios,
+                   "lse_err": lse_err, "ms": ms, "pass_ms": pass_ms}
+        log(f"ring blocks: sp {sp} (B {B}, H {H}, block {n}, D {D}, "
+            f"{dtype}, causal, L {L}): flash launches {launches}; worst "
+            f"ratio to the limit " + ", ".join(
+                f"{k} {r:.3f}" for k, r in ratios.items())
+            + f", lse off by {lse_err:.2e}; ms per rotation: diagonal "
+            + ", ".join(f"{k} {x:.4f}" for k, x in ms["diagonal"].items())
+            + "; off-diagonal " + ", ".join(
+                f"{k} {x:.4f}" for k, x in ms["off-diagonal"].items())
+            + f"; the pass's {ring_blocks(sp)} blocks: " + ", ".join(
+                f"{k} {x:.4f}" for k, x in pass_ms.items())
+            + "; one whole-sequence call: " + ", ".join(
+                f"{k} {x:.4f}" for k, x in ms["whole"].items())
+            + f"; {card}")
+    return out
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -3931,16 +4391,18 @@ def main():
 
     kern = phase_kernel(device)
     decode = phase_decode(device)
-    torch.cuda.empty_cache()
+    free_card()
     # the main path is the first engine of the process, so the step
     # programs it dispatched are all the process holds
+    main_base = memory_baseline()
     stats, launches, expected, programs, main_streams = phase_main_path()
+    main_peak = (main_base, torch.cuda.max_memory_allocated())
     assert launches["ragged_paged_attention"] == expected, \
         (launches, expected)
     assert launches["ragged_paged_attention_reference_cuda"] == 0, \
         "the plain attention ran on CUDA tensors in the main path"
     assert programs[0] == 0 and programs[1] <= 3, programs
-    torch.cuda.empty_cache()
+    free_card()
     decode_launches = phase_decode_engine()
     phase_oracle(device)
     # bench_llm.py's widths: the kernels at head dim 64 and pages of 32,
@@ -3965,24 +4427,24 @@ def main():
     flash_launches, steps, n_layers = phase_train(device)
     assert flash_launches == expected_flash_launches(n_layers, steps), \
         flash_launches
-    torch.cuda.empty_cache()
+    free_card()
     # the earlier optimizer on the same configuration, for comparison
     adamw_launches, adamw_steps, _ = phase_train(
         device, optimizer="adamw", steps=3, profile=False)
     assert adamw_launches == expected_flash_launches(n_layers, adamw_steps), \
         adamw_launches
-    torch.cuda.empty_cache()
+    free_card()
     phase_train_oracle(device)
     phase_optimizer(device)
-    torch.cuda.empty_cache()
+    free_card()
     mixtral_params, mixtral_cfg = phase_mixtral(device, card=card)
     phase_mixtral_routing(device, mixtral_params, mixtral_cfg)
     del mixtral_params
-    torch.cuda.empty_cache()
+    free_card()
     phase_mixtral_oracle(device)
-    torch.cuda.empty_cache()
+    free_card()
     phase_rl(device, card)
-    torch.cuda.empty_cache()
+    free_card()
 
     t_data = time.monotonic()
     data_launches, data_expected = phase_batch_inference()
@@ -3990,30 +4452,48 @@ def main():
         (data_launches, data_expected)
     assert data_launches["ragged_paged_attention_reference_cuda"] == 0, \
         "the plain attention ran on CUDA tensors in batch_inference"
-    torch.cuda.empty_cache()
+    free_card()
     rows_launches, rows_expected = phase_batch_rows()
     assert rows_launches["ragged_paged_attention"] == rows_expected, \
         (rows_launches, rows_expected)
     assert rows_launches["ragged_paged_attention_reference_cuda"] == 0
-    torch.cuda.empty_cache()
+    free_card()
     phase_bc(device, card=card)
     log(f"phase 12: {time.monotonic() - t_data:.1f} s")
-    torch.cuda.empty_cache()
+    free_card()
     t_tune = time.monotonic()
     phase_tune(device)
     log(f"phase 13: {time.monotonic() - t_tune:.1f} s")
     # the cluster runtime: phase 4's server in a GPU-leased worker process
-    torch.cuda.empty_cache()
+    free_card()
     phase_cluster(main_streams=main_streams, card=card)
     # Serve: phase 4's server as a deployment in a replica holding the card
     phase_serve(main_streams=main_streams, card=card)
     # the mesh and distributed training: the flash kernels per shard, then
     # TorchTrainer with the card in a leased worker
     t_mesh = time.monotonic()
-    torch.cuda.empty_cache()
+    free_card()
     phase_flash_shards(device, flash)
     trainer_launches = phase_trainer(device, card=card)
     log(f"phase 16: {time.monotonic() - t_mesh:.1f} s")
+    # the parallel axes left: tensor-parallel serving with the ragged
+    # kernel per shard, the ragged kernel at the shards' geometry, and the
+    # ring's flash blocks
+    t_axes = time.monotonic()
+    tp_serving = phase_tp_serving(
+        main_streams=main_streams,
+        main_launches=launches["ragged_paged_attention"],
+        main_peak=main_peak, card=card)
+    free_card()
+    kern_shards = []
+    for tp, geometry in TP_SHARD_GEOMETRY.items():
+        log(f"the ragged kernel at a tp {tp} shard's geometry:")
+        kern_shards += phase_kernel(device, geometry).values()
+    tp4 = phase_tp_shards(device)
+    free_card()
+    ring_block_against_plain(device)
+    ring = phase_ring_blocks(device, card=card)
+    log(f"phase 17: {time.monotonic() - t_axes:.1f} s")
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -4022,9 +4502,10 @@ def main():
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:340",
-        "launches": launches["ragged_paged_attention"],
+        "launches": launches["ragged_paged_attention"]
+        + tp_serving["launches"] + tp4["launches"],
         "max_abs_err": max(k["max_abs_err"] for k in [
-            *kern.values(), *kern_bench.values()]),
+            *kern.values(), *kern_bench.values(), *kern_shards]),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"]}, {
@@ -4039,7 +4520,8 @@ def main():
         "name": name, "route": "cuda",
         "source": f"ray_tpu_torch/ops/csrc/{src}",
         "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-        "launches": flash_launches[name] + trainer_launches[name],
+        "launches": flash_launches[name] + trainer_launches[name]
+        + sum(r["launches"][name] for r in ring.values()),
         **flash[name]}
         for name, src, line in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 91),

@@ -206,19 +206,31 @@ class PrefixCache:
 
 def make_kv_cache(cfg: LlamaConfig, total_pages: int, page_size: int,
                   dtype=None, kv_dtype: Optional[str] = None,
-                  device="cuda"):
+                  device="cuda", devices=None):
     """Paged KV pool as a dict of stacked tensors on ``device``.
 
     {"k", "v"}: [n_layers, total_pages, Hkv, page_size, D]; with
     ``kv_dtype="int8"`` the pools are int8 and {"k_scale", "v_scale"}
     [n_layers, total_pages, Hkv, page_size] bf16 dequant scales ride
     alongside. ``kv_dtype`` in {None/"model" (cfg dtype), "int8"}.
+
+    With ``devices`` (a tensor-parallel engine's shards, ``llm/tp.py``)
+    a list of such dicts, one per shard on its device, each holding
+    Hkv / len(devices) heads of every page in tensors of its own.
     """
     if kv_dtype not in (None, "model", "int8"):
         raise ValueError(f"kv_dtype must be 'model' or 'int8', "
                          f"got {kv_dtype!r}")
-    shape = (cfg.n_layers, total_pages, cfg.n_kv_heads, page_size,
-             cfg.head_dim)
+    if devices is not None:
+        heads = cfg.n_kv_heads // len(devices)
+        return [_pool(cfg, total_pages, page_size, heads, dtype, kv_dtype,
+                      d) for d in devices]
+    return _pool(cfg, total_pages, page_size, cfg.n_kv_heads, dtype,
+                 kv_dtype, device)
+
+
+def _pool(cfg, total_pages, page_size, heads, dtype, kv_dtype, device):
+    shape = (cfg.n_layers, total_pages, heads, page_size, cfg.head_dim)
     if kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),

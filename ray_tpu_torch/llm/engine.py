@@ -1,5 +1,5 @@
 """InferenceEngine — continuous batching over the paged KV cache, the
-PyTorch port of ``ray_tpu/llm/engine.py`` (tp=1).
+PyTorch port of ``ray_tpu/llm/engine.py``.
 
 The scheduler is the JAX engine's, unchanged:
   - RAGGED SINGLE-LAUNCH STEP: every scheduler step packs the decode
@@ -26,8 +26,13 @@ throttled to ~1/s), and ``compiled_step_programs()``: the distinct step
 programs dispatched in this process, each step function per signature of
 its arguments (the counterpart of the JAX engine's jit cache entries).
 
-Not ported yet: tensor parallelism and the compile tracker (its journal
-events need the runtime).
+Tensor parallelism (``tp`` > 1): ``llm/tp.py``'s ``TPEngineFns`` behind
+the same ``_fns`` seam, the parameters and the pool split into one shard
+per device (``devices``); the scheduler, the page allocator, the prefix
+cache and the telemetry do not change.
+
+Not ported yet: the compile tracker (its journal events need the
+runtime).
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ from ray_tpu_torch.llm.cache import (SCRATCH_PAGE, PageAllocator,
                                      PrefixCache, SequenceState,
                                      kv_cache_tag, make_kv_cache)
 from ray_tpu_torch.llm.request_log import FlightRecorder
-from ray_tpu_torch.models.llama import (LlamaConfig, init_params,
-                                        resolve_device)
+from ray_tpu_torch.models.llama import (LlamaConfig, init_leaves,
+                                        init_params, resolve_device,
+                                        tree_leaves)
 from ray_tpu_torch.ops.paged_attention import check_kernel_geometry
 from ray_tpu_torch.util import metrics as metrics_mod
 
@@ -62,19 +68,26 @@ _step_programs_lock = threading.Lock()
 
 
 def _signature(x):
-    """Shapes, dtypes and device of a (nested dict of) tensor(s); the
-    type of anything else (page indices are plain ints)."""
+    """Shapes, dtypes and device of a (nested dict or list of)
+    tensor(s); the type of anything else (page indices are plain ints)."""
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), x.dtype, x.device.type)
     if isinstance(x, dict):
         return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, list):
+        return tuple(_signature(v) for v in x)
     return type(x).__name__
 
 
 class _SingleChipFns:
-    """Single-device step functions behind the engine's ``_fns`` seam
-    (the JAX engine swaps a tensor-parallel set in at the same seam).
+    """The step functions behind the engine's ``_fns`` seam, single
+    device: the engine's params and pool handed to ``llm/model.py``'s
+    shard-list step functions as lists of one shard (``llm/tp.py``'s
+    ``TPEngineFns`` swaps in at the same seam with lists of tp shards).
     The attention implementation follows the tensors' device."""
+
+    #: the step functions' sum over the shards' partial products
+    reduce = staticmethod(M.one_shard)
 
     def __init__(self, cfg: LlamaConfig, decode_chunk: int,
                  max_q_len: int, decode_rows: int):
@@ -82,12 +95,23 @@ class _SingleChipFns:
         self._chunk = decode_chunk
         self._max_q = max_q_len
         self._rows = decode_rows
+        # process-wide: the JAX engine's single-device step functions are
+        # module-level jits, whose caches every engine of a process shares
+        self._programs = _step_programs
+        self._programs_lock = _step_programs_lock
 
-    @staticmethod
-    def _note_program(fn, static, args) -> None:
+    def shards(self, tree):
+        """The engine's params or pool as the list of shards."""
+        return [tree]
+
+    def unshard(self, shards):
+        """The list of shards as the engine holds them."""
+        return shards[0]
+
+    def _note_program(self, fn, static, args) -> None:
         key = (fn.__name__, static, tuple(_signature(a) for a in args))
-        with _step_programs_lock:
-            _step_programs.add(key)
+        with self._programs_lock:
+            self._programs.add(key)
 
     def ragged_step(self, params, tokens, token_pos, token_page,
                     token_slot, page_table, q_start, q_len, kv_len, kv):
@@ -95,28 +119,36 @@ class _SingleChipFns:
                 page_table, q_start, q_len, kv_len, kv)
         self._note_program(M.ragged_step,
                            (self.cfg, self._max_q, self._rows), args)
-        return M.ragged_step(*args, self.cfg, max_q_len=self._max_q,
-                             decode_rows=self._rows)
+        nxt, pools = M.ragged_step(
+            self.shards(params), *args[1:-1], self.shards(kv), self.cfg,
+            max_q_len=self._max_q, decode_rows=self._rows,
+            reduce=self.reduce)
+        return nxt, self.unshard(pools)
 
     def decode_loop(self, params, tokens, positions, kv, page_table,
                     seq_lens):
         args = (params, tokens, positions, kv, page_table, seq_lens)
         self._note_program(M.ragged_decode_loop, (self.cfg, self._chunk),
                            args)
-        return M.ragged_decode_loop(*args, num_steps=self._chunk,
-                                    cfg=self.cfg)
+        out, pools, pos, lens = M.ragged_decode_loop(
+            self.shards(params), tokens, positions, self.shards(kv),
+            page_table, seq_lens, num_steps=self._chunk, cfg=self.cfg,
+            reduce=self.reduce)
+        return out, self.unshard(pools), pos, lens
 
     def copy_page(self, kv, src, dst):
         self._note_program(M.copy_page, (), (kv, src, dst))
-        return M.copy_page(kv, src, dst)
+        for pool in self.shards(kv):
+            M.copy_page(pool, src, dst)
+        return kv
 
     def compiled_step_programs(self) -> int:
-        """Distinct step programs dispatched, process-wide (engines with
-        equal shapes share them, as they share the JAX engine's jit
-        caches). In a fresh process running one engine this is exactly
-        that engine's program count."""
-        with _step_programs_lock:
-            return len(_step_programs)
+        """Distinct step programs dispatched: process-wide here (engines
+        with equal shapes share them, as they share the JAX engine's jit
+        caches; in a fresh process running one engine this is exactly
+        that engine's program count), the engine's own under tp."""
+        with self._programs_lock:
+            return len(self._programs)
 
 
 def _cast_params(tree, dtype, device):
@@ -142,23 +174,30 @@ class InferenceEngine:
                  kv_dtype: Optional[str] = None,
                  prefill_rows: Optional[int] = None,
                  request_log: Optional[bool] = None,
-                 device="cuda"):
+                 tp: int = 1, devices=None, device="cuda"):
         defaults = llm_defaults()
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.kv_dtype = defaults["llm_kv_dtype"] \
             if kv_dtype is None else kv_dtype
-        if self.device.type == "cuda":
-            # the attention kernels' geometry, checked before any work:
-            # a geometry they do not take raises here, not in the first
-            # step on a server's engine thread
+        # tensor parallelism: tp > 1 splits weights and kv heads into one
+        # shard per device (llm/tp.py); the devices are checked first, as
+        # the JAX engine builds its mesh before validating the split
+        self.tp = max(1, tp)
+        if self.tp > 1:
+            from ray_tpu_torch.llm.tp import build_tp_mesh, validate_tp
+            self.devices = build_tp_mesh(self.tp, devices, device)
+            validate_tp(cfg, self.tp)
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices):
+            # the attention kernels' geometry, on a shard's heads, checked
+            # before any work: a geometry they do not take raises here,
+            # not in the first step on a server's engine thread
             check_kernel_geometry(
-                cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, page_size,
-                cfg.dtype, torch.int8 if self.kv_dtype == "int8"
-                else cfg.dtype)
-        if params is None:
-            params = init_params(cfg, seed, self.device)
-        self.params = _cast_params(params, cfg.dtype, self.device)
+                cfg.n_heads // self.tp, cfg.n_kv_heads // self.tp,
+                cfg.head_dim, page_size, cfg.dtype,
+                torch.int8 if self.kv_dtype == "int8" else cfg.dtype)
         self.page_size = page_size
         self.max_batch = max_batch
         self.max_pages_per_seq = -(-max_seq_len // page_size)
@@ -185,10 +224,29 @@ class InferenceEngine:
         self.ragged_rows = max_batch + self.prefill_rows
         self.ragged_tokens = max_batch + self.prefill_rows \
             * self.prefill_chunk
-        self.kv = make_kv_cache(cfg, total_pages, page_size,
-                                kv_dtype=self.kv_dtype, device=self.device)
-        self._fns = _SingleChipFns(cfg, self.decode_chunk,
-                                   self.prefill_chunk, max_batch)
+        if self.tp > 1:
+            from ray_tpu_torch.llm.tp import TPEngineFns
+            self._fns = TPEngineFns(
+                cfg, self.devices, decode_chunk=self.decode_chunk,
+                max_q_len=self.prefill_chunk, decode_rows=max_batch)
+            # each shard cast and copied to its device a matrix at a time,
+            # from the given tree (left where it is) or from the draws:
+            # the whole model never sits on a device beside its shards
+            self.params = self._fns.shard_params(
+                tree_leaves(params) if params is not None
+                else init_leaves(cfg, seed, self.device), cfg.dtype)
+            self.kv = make_kv_cache(cfg, total_pages, page_size,
+                                    kv_dtype=self.kv_dtype,
+                                    devices=self.devices)
+        else:
+            self._fns = _SingleChipFns(cfg, self.decode_chunk,
+                                       self.prefill_chunk, max_batch)
+            if params is None:
+                params = init_params(cfg, seed, self.device)
+            self.params = _cast_params(params, cfg.dtype, self.device)
+            self.kv = make_kv_cache(cfg, total_pages, page_size,
+                                    kv_dtype=self.kv_dtype,
+                                    device=self.device)
         self.allocator = PageAllocator(total_pages)
         use_prefix = defaults["llm_prefix_cache"] \
             if prefix_cache is None else prefix_cache

@@ -1,5 +1,5 @@
 """Cache-aware Llama forward passes for inference — the PyTorch port of
-``ray_tpu/llm/model.py`` (tensor parallelism not yet ported).
+``ray_tpu/llm/model.py``.
 
 ONE step function for everything (``ragged_step``): the engine packs
 decode tokens and prefill-chunk tokens into a single RAGGED batch
@@ -13,12 +13,22 @@ readback.
 The KV pool is a dict {"k", "v"[, "k_scale", "v_scale"]} of tensors with
 the layers stacked on the leading axis. Where the JAX functions take the
 pool donated and return a new one, these update it IN PLACE and return
-the same dict.
+the same pools.
+
+The step functions take LISTS of shards: each one device's parameters
+and its pool. A single device is a list of one shard. Under tensor
+parallelism (``reduce``, the counterpart of ``tp_axis``) a shard holds
+wq/wk/wv/w_gate/w_up by columns, wo/w_down by rows (``llm/tp.py``) and
+a pool of Hkv/tp heads. Head counts come from the shard's weight widths,
+each shard attends over its own heads with no communication, and the two
+row-split products per layer (after wo and after w_down) go through
+``reduce``, which hands every shard the sum over shards (the JAX
+package's two psums per layer); one shard is its own sum.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,23 +52,32 @@ def _project_qkv(lp, h, cfg: LlamaConfig):
             v.reshape(B, L, -1, hd))
 
 
-def _mlp(lp, x, cfg: LlamaConfig):
+def _mlp_partial(lp, x, cfg: LlamaConfig):
+    """The MLP's output product of rmsnorm(x), before the residual add:
+    under tp a shard's partial product (its rows of w_down)."""
     cd = cfg.dtype
     h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(h @ lp["w_gate"].to(cd))
     up = h @ lp["w_up"].to(cd)
-    return x + (gate * up) @ lp["w_down"].to(cd)
+    return (gate * up) @ lp["w_down"].to(cd)
+
+
+def one_shard(parts):
+    """``reduce`` for a single shard: its partial product is the sum."""
+    return parts
 
 
 @torch.no_grad()
-def ragged_step(params: Params, tokens: torch.Tensor,
+def ragged_step(params: List[Params], tokens: torch.Tensor,
                 token_pos: torch.Tensor, token_page: torch.Tensor,
                 token_slot: torch.Tensor, page_table: torch.Tensor,
                 q_start: torch.Tensor, q_len: torch.Tensor,
-                kv_len: torch.Tensor, kv: KVCache, cfg: LlamaConfig,
+                kv_len: torch.Tensor, kv: List[KVCache], cfg: LlamaConfig,
                 paged_impl: Optional[str] = None,
                 max_q_len: Optional[int] = None,
-                decode_rows: int = 0) -> Tuple[torch.Tensor, KVCache]:
+                decode_rows: int = 0,
+                reduce: Callable = one_shard
+                ) -> Tuple[torch.Tensor, List[KVCache]]:
     """ONE forward over a ragged mixed prefill+decode batch.
 
     tokens/token_pos: [T] ragged token ids and absolute positions;
@@ -66,42 +85,60 @@ def ragged_step(params: Params, tokens: torch.Tensor,
     (padding tokens -> the scratch page); page_table [R, max_pages] +
     q_start/q_len/kv_len [R]: the per-row ragged descriptors (int32).
 
+    params, kv: the shards' parameters and pools, one each per shard;
+    the descriptors are copied to each shard's device (a no-op where
+    they are there already) and the argmax comes from the first shard's
+    device.
+
     Returns (next_tok [R] int32, kv): per row, the argmax of the logits
     at its LAST valid token. ``kv`` is updated in place.
     """
+    shards, pools = params, kv
+    desc = (tokens, token_pos, token_page, token_slot, page_table,
+            q_start, q_len, kv_len)
+    descs = [tuple(t.to(p["embed"].device) for t in desc) for p in shards]
     T = tokens.shape[0]
     cd = cfg.dtype
-    x = params["embed"][tokens.long()].to(cd)[None]        # [1, T, d]
-    quantized = "k_scale" in kv
+    quantized = "k_scale" in pools[0]
+    xs = [p["embed"][d[0].long()].to(cd)[None]              # [1, T, d]
+          for p, d in zip(shards, descs)]
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(lp, h, cfg)                  # [1, T, H, D]
-        q = _rope(q, token_pos, cfg.rope_theta)
-        k = _rope(k, token_pos, cfg.rope_theta)
-        kc, vc = kv["k"][i], kv["v"][i]
-        ksc = kv["k_scale"][i] if quantized else None
-        vsc = kv["v_scale"][i] if quantized else None
-        write_ragged_kv(kc, vc, k[0], v[0], token_page, token_slot,
-                        ksc, vsc)
-        o = ragged_paged_attention(
-            q[0], kc, vc, page_table, q_start, q_len, kv_len,
-            k_scale=ksc, v_scale=vsc, max_q_len=max_q_len,
-            decode_rows=decode_rows, impl=paged_impl)
-        x = x + o.reshape(1, T, -1).to(cd) @ lp["wo"].to(cd)
-        x = _mlp(lp, x, cfg)
-    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        parts = []
+        for p, d, pool, x in zip(shards, descs, pools, xs):
+            (_, pos, page, slot, ptab, qs, ql, kvl) = d
+            lp = layer_params(p, i)
+            h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k, v = _project_qkv(lp, h, cfg)              # [1, T, H, D]
+            q = _rope(q, pos, cfg.rope_theta)
+            k = _rope(k, pos, cfg.rope_theta)
+            kc, vc = pool["k"][i], pool["v"][i]
+            ksc = pool["k_scale"][i] if quantized else None
+            vsc = pool["v_scale"][i] if quantized else None
+            write_ragged_kv(kc, vc, k[0], v[0], page, slot, ksc, vsc)
+            o = ragged_paged_attention(
+                q[0], kc, vc, ptab, qs, ql, kvl,
+                k_scale=ksc, v_scale=vsc, max_q_len=max_q_len,
+                decode_rows=decode_rows, impl=paged_impl)
+            parts.append(o.reshape(1, T, -1).to(cd) @ lp["wo"].to(cd))
+        xs = [x + o for x, o in zip(xs, reduce(parts))]
+        parts = [_mlp_partial(layer_params(p, i), x, cfg)
+                 for p, x in zip(shards, xs)]
+        xs = [x + o for x, o in zip(xs, reduce(parts))]
+    x = _rmsnorm(xs[0], shards[0]["final_norm"], cfg.norm_eps)
+    q_start, q_len = descs[0][5], descs[0][6]
     last = (q_start + q_len - 1).clamp(0, T - 1).long()     # [R]
-    logits = head_logits(x[0][last], params["embed"])       # [R, V] fp32
-    return logits.argmax(dim=-1).to(torch.int32), kv
+    logits = head_logits(x[0][last], shards[0]["embed"])    # [R, V] fp32
+    nxt = logits.argmax(dim=-1).to(torch.int32)
+    return nxt.to(tokens.device), kv
 
 
 @torch.no_grad()
-def ragged_decode_loop(params: Params, tokens: torch.Tensor,
-                       positions: torch.Tensor, kv: KVCache,
+def ragged_decode_loop(params: List[Params], tokens: torch.Tensor,
+                       positions: torch.Tensor, kv: List[KVCache],
                        page_table: torch.Tensor, seq_lens: torch.Tensor,
                        num_steps: int, cfg: LlamaConfig,
-                       paged_impl: Optional[str] = None):
+                       paged_impl: Optional[str] = None,
+                       reduce: Callable = one_shard):
     """``num_steps`` greedy decode steps with one readback for the caller.
 
     Every batch slot is one ragged decode row (q_start = slot index,
@@ -109,13 +146,14 @@ def ragged_decode_loop(params: Params, tokens: torch.Tensor,
     Tokens, positions and lengths stay on the device between steps;
     inactive slots (page table all scratch, seq_lens 1) attend to the
     scratch page. Sequences that hit EOS mid-block keep decoding into
-    their OWN pages; the host truncates.
+    their OWN pages; the host truncates. ``params``, ``kv`` and
+    ``reduce``: as ``ragged_step``.
 
     Returns (tokens_out [num_steps, B], kv, final_positions,
     final_seq_lens).
     """
     R = tokens.shape[0]
-    ps = kv["k"].shape[3]
+    ps = kv[0]["k"].shape[3]
     max_pages = page_table.shape[1]
     ar = torch.arange(R, dtype=torch.int32, device=tokens.device)
     ones = torch.ones(R, dtype=torch.int32, device=tokens.device)
@@ -126,7 +164,8 @@ def ragged_decode_loop(params: Params, tokens: torch.Tensor,
         token_page = page_table[ar.long(), page_idx.long()]
         tok, kv = ragged_step(params, tok, pos, token_page, pos % ps,
                               page_table, ar, ones, lens, kv, cfg,
-                              paged_impl, max_q_len=1, decode_rows=R)
+                              paged_impl, max_q_len=1, decode_rows=R,
+                              reduce=reduce)
         out.append(tok)
         pos, lens = pos + 1, lens + 1
     return torch.stack(out), kv, pos, lens

@@ -18,8 +18,8 @@ ladder's hook on the step token budget.
 ``build_llm_app`` binds the server as a ``ray_tpu_torch.serve``
 deployment whose replica books ``{"GPU": tp·pp}`` when its engine runs on
 the card (``placement_for_engine``), so the replica runs in a worker of
-its own that sees only its card. Tensor-parallel serving is not ported
-yet: ``tp > 1`` raises.
+its own that sees only its card. At ``tp > 1`` that worker's one
+engine process drives the ``tp`` cards of its lease (``llm/tp.py``).
 """
 
 from __future__ import annotations
@@ -446,22 +446,25 @@ def build_llm_app(model_config: Optional[Dict[str, Any]] = None,
     as a gang needs its cards. ``use_gpu_resources=False`` skips the
     reservation.
 
-    Tensor-parallel serving is not ported yet: ``tp > 1`` raises
-    NotImplementedError.
+    At ``tp > 1`` the booking is one STRICT_PACK bundle of ``tp`` cards,
+    and the replica's one engine process drives the cards its lease
+    makes visible (the first ``tp``, ``llm/tp.py``). A tp group larger
+    than one host's cards needs one engine process per host and raises
+    NotImplementedError, as in the JAX package.
     """
     from ray_tpu_torch import serve as serve_mod
     engine_config = dict(engine_config or {})
     tp = int(engine_config.get("tp", 1))
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor-parallel serving is not ported to "
-            f"ray_tpu_torch yet; serve with tp=1")
-    engine_config.pop("tp", None)
     ray_actor_options: Dict[str, Any] = {}
     if use_gpu_resources is None:
         use_gpu_resources = engine_config.get("device", "cuda") == "cuda"
     if use_gpu_resources:
         bundles, _ = placement_for_engine(tp)
+        if len(bundles) > 1:
+            raise NotImplementedError(
+                "tp groups spanning hosts need one engine process per "
+                "host; shard within one host's cards or raise "
+                "gpus_per_host")
         ray_actor_options["resources"] = bundles[0]
     if runtime_env:
         ray_actor_options["runtime_env"] = runtime_env

@@ -15,8 +15,11 @@ On a device mesh (``forward``/``loss_fn`` with ``mesh=``) each rank runs
 the layers on its shards of the ``param_specs`` layout: fsdp dims
 gathered layer by layer (or prefetched, ``fsdp_overlap``), heads and the
 ffn hidden dim split over tp with one sum over tp after each row-split
-product, the embedding gathered whole. Not in this port yet: the pipeline
-(pp > 1) and the ring and Ulysses paths (sp > 1).
+product, the embedding gathered whole. With sp > 1 each rank runs the
+layers on its block of the sequence (rope positions offset by its
+block's start) and attention goes around the ring or through Ulysses'
+all-to-all; with pp > 1 each rank holds n_layers / pp layers and the
+microbatches go through ``parallel.pipeline.pipeline_apply``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import threading
 from typing import Dict
 
@@ -59,11 +63,12 @@ class LlamaConfig:
     ffn_dim: int = 14336
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
-    attention: str = "full"                    # full | flash
+    attention: str = "full"            # full | flash | ring | ulysses
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
     remat: bool = True
     remat_policy: str = "full"     # full | dots | dots_no_batch | selective
+    pp_microbatches: int = 4       # microbatch count when pp > 1
     int8_mlp: bool = False         # dynamic-W8A8 MLP matmuls (ops.int8)
     fsdp_overlap: bool = False     # prefetch-scheduled fsdp gathers
 
@@ -96,33 +101,78 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     differ from the JAX package's for the same seed; tests carry
     parameters across with ``ray_tpu_torch.convert``."""
     dev = resolve_device(device)
+    tree: Params = {}
+    for path, shape, parts in init_leaves(cfg, seed, dev):
+        leaf = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
+        for dst, part in zip(matrices(leaf), parts):
+            dst.copy_(part)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def matrices(leaf: torch.Tensor) -> torch.Tensor:
+    """``leaf`` as a stack of its trailing matrices (one layer's, or one
+    expert's); a vector as a stack of one."""
+    if leaf.dim() < 2:
+        return leaf[None]
+    return leaf.reshape(-1, *leaf.shape[-2:])
+
+
+def init_leaves(cfg: LlamaConfig, seed: int = 0, device="cuda"):
+    """``init_params``' leaves, drawn lazily: (path of keys, shape, an
+    iterator of the leaf's ``matrices`` in ``cfg.param_dtype``), in the
+    tree's order. The draws happen as the iterators are consumed, which
+    must be in that order; a caller can then place each matrix where it
+    goes (a tensor-parallel engine's shards) without the whole tree ever
+    existing on the device."""
+    dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d, L = cfg.dim, cfg.n_layers
     hq, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim
     pd = cfg.param_dtype
 
-    def norm_init(*shape):
-        return torch.ones(shape, dtype=pd, device=dev)
+    def norm(*shape):
+        for _ in range(math.prod(shape[:-2])):
+            yield torch.ones(shape[-2:], dtype=pd, device=dev)
 
     def dense(*shape, fan_in=None):
-        return dense_init(g, shape, pd,
-                          fan_in if fan_in is not None else shape[-2])
+        fan_in = fan_in if fan_in is not None else shape[-2]
+        for _ in range(math.prod(shape[:-2])):
+            yield (torch.randn(shape[-2:], generator=g, device=dev)
+                   * fan_in ** -0.5).to(pd)
 
-    return {
-        "embed": dense(cfg.vocab_size, d, fan_in=d),
-        "layers": {
-            "attn_norm": norm_init(L, d),
-            "wq": dense(L, d, hq * hd),
-            "wk": dense(L, d, hkv * hd),
-            "wv": dense(L, d, hkv * hd),
-            "wo": dense(L, hq * hd, d),
-            "mlp_norm": norm_init(L, d),
-            "w_gate": dense(L, d, f),
-            "w_up": dense(L, d, f),
-            "w_down": dense(L, f, d),
-        },
-        "final_norm": norm_init(d),
-    }
+    leaves = [
+        (("embed",), (cfg.vocab_size, d), dense, {"fan_in": d}),
+        (("layers", "attn_norm"), (L, d), norm, {}),
+        (("layers", "wq"), (L, d, hq * hd), dense, {}),
+        (("layers", "wk"), (L, d, hkv * hd), dense, {}),
+        (("layers", "wv"), (L, d, hkv * hd), dense, {}),
+        (("layers", "wo"), (L, hq * hd, d), dense, {}),
+        (("layers", "mlp_norm"), (L, d), norm, {}),
+        (("layers", "w_gate"), (L, d, f), dense, {}),
+        (("layers", "w_up"), (L, d, f), dense, {}),
+        (("layers", "w_down"), (L, f, d), dense, {}),
+        (("final_norm",), (d,), norm, {}),
+    ]
+    return [(path, shape, draw(*shape, **kw))
+            for path, shape, draw, kw in leaves]
+
+
+def tree_leaves(params: Params):
+    """A parameter tree's leaves as ``init_leaves`` gives them: (path,
+    shape, an iterator of the leaf's ``matrices``, views where the leaf
+    is contiguous)."""
+    out = []
+    for key, value in params.items():
+        if isinstance(value, dict):
+            out += [((key, *path), shape, parts)
+                    for path, shape, parts in tree_leaves(value)]
+        else:
+            out.append(((key,), tuple(value.shape), iter(matrices(value))))
+    return out
 
 
 def dense_init(g: torch.Generator, shape, dtype, fan_in) -> torch.Tensor:
@@ -157,21 +207,12 @@ def _rope(x, positions, theta):
 
 
 def _full_attention(q, k, v):
-    """Causal attention, q/k/v [B, L, H, D] -> [B, L, H, D] in q's dtype.
-
-    As ``ray_tpu.parallel.attention``: q is scaled IN ITS OWN DTYPE (the
-    scale itself rounded to that dtype) before the product; products
-    accumulate in fp32 (bf16 operands widened exactly to fp32), softmax
-    in fp32, probabilities rounded to v's dtype before the PV product."""
-    sm_scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype,
-                            device=q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", (q * sm_scale).float(), k.float())
-    Lq, Lk = q.shape[1], k.shape[1]
-    mask = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).tril()
-    s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return o.to(q.dtype)
+    """Causal attention, q/k/v [B, L, H, D] -> [B, L, H, D] in q's dtype:
+    ``parallel.attention.attention`` (q scaled in its own dtype, fp32
+    products and softmax, probabilities rounded to v's dtype), as
+    ``ray_tpu.parallel.attention``."""
+    from ray_tpu_torch.parallel.attention import attention
+    return attention(q, k, v).to(q.dtype)
 
 
 class _TiedHead(torch.autograd.Function):
@@ -344,6 +385,31 @@ def _layer(lp: Params, x, cfg: LlamaConfig, positions, attn_fn,
 
 
 def _make_attn_fn(cfg: LlamaConfig, mesh=None):
+    """The attention of ``cfg.attention`` on this rank's shards. At
+    sp > 1 the ranks hold blocks of the sequence, so attention spans the
+    sp ranks: "ring" and "ulysses" as named, "full" through the einsum
+    ring (the plain full attention over every block) and "flash" through
+    the fused ring (the flash kernels per block)."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+    sp = axis_size(mesh, "sp")
+    if cfg.attention in ("ring", "ulysses") and mesh is None:
+        raise ValueError(f"attention={cfg.attention!r} needs a mesh")
+    if cfg.attention == "ring" or (sp > 1 and cfg.attention in ("full",
+                                                                "flash")):
+        from ray_tpu_torch.parallel.ring_attention import (
+            ring_attention_sharded)
+        # "ring" follows the tensors' device, inside a pipeline too: the
+        # JAX package forces the einsum ring at pp > 1 only because a
+        # Pallas call cannot be auto-partitioned in the pipeline's
+        # partial-manual shard_map, and here each stage is plain per-rank
+        # code, so CUDA tensors run the fused ring's flash kernels
+        use_kernel = {"full": False, "flash": True}.get(cfg.attention)
+        return functools.partial(ring_attention_sharded, mesh=mesh,
+                                 use_kernel=use_kernel)
+    if cfg.attention == "ulysses":
+        from ray_tpu_torch.parallel.ulysses import (
+            ulysses_attention_sharded)
+        return functools.partial(ulysses_attention_sharded, mesh=mesh)
     if cfg.attention == "full":
         return _full_attention
     if cfg.attention == "flash":
@@ -352,10 +418,6 @@ def _make_attn_fn(cfg: LlamaConfig, mesh=None):
         if mesh is not None:
             return functools.partial(flash_attention_sharded, mesh=mesh)
         return flash_attention
-    if cfg.attention in ("ring", "ulysses"):
-        raise ValueError(f"attention={cfg.attention!r} shards the sequence "
-                         f"over the mesh's sp axis, and this port has no "
-                         f"sequence parallelism (ring, Ulysses) yet")
     raise ValueError(f"unknown attention {cfg.attention!r}")
 
 
@@ -399,15 +461,17 @@ def _scan_layers(layers: Params, x, cfg: LlamaConfig, positions, attn_fn,
                                axis_name="tp")
     layer = functools.partial(_layer, cfg=cfg, positions=positions,
                               attn_fn=attn_fn, tp_sum=tp_sum)
+    # the layers held: all of them, or a pipeline stage's n_layers / pp
+    n_layers = layers["wq"].shape[0]
     if cfg.fsdp_overlap and axis_size(mesh, "fsdp") > 1:
         return overlap_scan(layers, lspecs, x, remat_layer(layer, cfg),
-                            cfg.n_layers, mesh, axis_name="fsdp")
+                            n_layers, mesh, axis_name="fsdp")
 
     def body(lp, x):
         return layer(gather_params(lp, lspecs, mesh, "fsdp"), x)
 
     body = remat_layer(body, cfg)
-    for lp in unstack_layers(layers, cfg.n_layers):
+    for lp in unstack_layers(layers, n_layers):
         x = body(lp, x)
     return x
 
@@ -446,25 +510,69 @@ def forward(params: Params, tokens: torch.Tensor,
     With a ``mesh`` (``parallel.mesh.build_mesh``) this rank's shards:
     ``params`` sharded by ``param_specs`` and ``tokens`` over (dp, fsdp),
     as DTensors or their local tensors; returns this rank's logits
-    [B / (dp * fsdp), L, vocab]. The embedding is gathered whole (over
-    tp and fsdp) for the lookup and the tied head."""
+    [B / (dp * fsdp), L / sp, vocab], those of its block of the
+    sequence (rank r of sp: positions [r·L/sp, (r+1)·L/sp)). The
+    embedding is gathered whole (over tp and fsdp) for the lookup and
+    the tied head. pp > 1 runs the layers as a pipeline
+    (``_forward_pipelined``)."""
+    from ray_tpu_torch.parallel.mesh import axis_size
     embed = params["embed"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
     if mesh is not None:
         from ray_tpu_torch.parallel.fsdp_overlap import (gather_params,
                                                          tree_map)
         _check_mesh(cfg, mesh)
         params = tree_map(_local, params)
-        tokens = _local(tokens)
+        tokens, positions = _seq_block(_local(tokens), mesh)
         embed = params["embed"]
         for axis in ("tp", "fsdp"):
             embed = gather_params(embed, param_specs(cfg)["embed"], mesh,
                                   axis)
     x = embed[tokens].to(cfg.dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _scan_layers(params["layers"], x, cfg, positions,
-                     _make_attn_fn(cfg, mesh), mesh)
+    attn_fn = _make_attn_fn(cfg, mesh)
+    if axis_size(mesh, "pp") > 1:
+        x = _forward_pipelined(params["layers"], x, cfg, mesh, positions,
+                               attn_fn)
+    else:
+        x = _scan_layers(params["layers"], x, cfg, positions, attn_fn,
+                         mesh)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return head_logits(x, embed)
+
+
+def _seq_block(tokens, mesh):
+    """This rank's block of the sequence and its positions: the whole
+    sequence at sp 1, else the r-th of sp equal blocks."""
+    from ray_tpu_torch.parallel.mesh import axis_index, axis_size
+    sp, L = axis_size(mesh, "sp"), tokens.shape[1]
+    if L % sp:
+        raise ValueError(f"sequence length {L} does not split into {sp} "
+                         f"equal blocks over sp")
+    n = L // sp
+    start = axis_index(mesh, "sp") * n
+    positions = start + torch.arange(n, device=tokens.device)
+    return tokens[:, start:start + n], positions
+
+
+def _forward_pipelined(layers: Params, x, cfg: LlamaConfig, mesh,
+                       positions, attn_fn):
+    """pp > 1: the batch split into ``cfg.pp_microbatches`` microbatches
+    through ``pipeline_apply``, each rank's stage its n_layers / pp layers
+    (the layer axis sharded over pp by ``param_specs``). The embedding
+    and the head stay outside the pipeline, as in the JAX package."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+    B, L, D = x.shape
+    M = min(cfg.pp_microbatches, B)
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by pp_microbatches {M}")
+
+    def stage_fn(stage_layers, xb):
+        return _scan_layers(stage_layers, xb, cfg, positions, attn_fn,
+                            mesh)
+
+    out = pipeline_apply(stage_fn, layers, x.reshape(M, B // M, L, D),
+                         mesh, axis_name="pp")
+    return out.reshape(B, L, D)
 
 
 def _local(x):
@@ -475,18 +583,15 @@ def _local(x):
 
 def _check_mesh(cfg: LlamaConfig, mesh) -> None:
     from ray_tpu_torch.parallel.mesh import axis_size
-    if axis_size(mesh, "pp") > 1:
-        raise ValueError("pp > 1 runs the pipeline (pipeline_apply), which "
-                         "this port does not have yet")
-    if axis_size(mesh, "sp") > 1:
-        raise ValueError("sp > 1 shards the sequence (ring, Ulysses), "
-                         "which this port does not have yet")
-    tp, fsdp = axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
+    if axis_size(mesh, "pp") > 1 and cfg.attention not in ("full", "ring"):
+        raise ValueError("pp>1 supports attention in {'full','ring'}")
+    pp, tp, fsdp = (axis_size(mesh, a) for a in ("pp", "tp", "fsdp"))
     for name, n, by in (("n_heads", cfg.n_heads, tp),
                         ("n_kv_heads", cfg.n_kv_heads, tp),
                         ("ffn_dim", cfg.ffn_dim, tp),
                         ("vocab_size", cfg.vocab_size, tp),
-                        ("dim", cfg.dim, fsdp)):
+                        ("dim", cfg.dim, fsdp),
+                        ("n_layers", cfg.n_layers, pp)):
         if n % by:
             raise ValueError(f"{name} {n} does not split over {by} ranks")
 
@@ -504,16 +609,35 @@ def loss_fn(params: Params, tokens: torch.Tensor,
     full sequence goes through forward; the shift happens on the
     logits.
 
-    With a ``mesh``: each rank's mean over its batch shard, averaged over
-    (dp, fsdp) (equal shards, so the mean of the shard means is the
-    global mean), as ``_loss_overlap``'s ``pmean`` in the JAX package:
-    one loss, held by every rank (``collectives.loss_mean``).
-    ``cfg.fsdp_overlap`` prefetches each layer's fsdp gather
-    (``overlap_scan``) instead of gathering inside the layer."""
+    With a ``mesh``: one loss, held by every rank
+    (``collectives.loss_mean``): the sum of every rank's next-token terms
+    over (dp, fsdp, sp) divided by the global count B×(L-1). At sp 1
+    that is the mean of the ranks' shard means (equal shards), as
+    ``_loss_overlap``'s ``pmean`` in the JAX package. At sp > 1 a
+    block's last position is labelled by the next block's first token
+    (each rank holds the whole sequence of tokens), and the last block
+    has one term fewer per row. ``cfg.fsdp_overlap`` prefetches each
+    layer's fsdp gather (``overlap_scan``) instead of gathering inside
+    the layer."""
     from ray_tpu_torch.parallel.collectives import loss_mean
+    from ray_tpu_torch.parallel.mesh import axis_index, axis_size
     logits = forward(params, tokens, cfg, mesh)
-    local = _nll_mean(logits, tokens if mesh is None else _local(tokens))
-    return loss_mean(local, mesh, ("dp", "fsdp"))
+    if mesh is None:
+        return _nll_mean(logits, tokens)
+    tokens = _local(tokens)
+    sp = axis_size(mesh, "sp")
+    if sp == 1:    # the mean, as the single-device loss takes it
+        return loss_mean(_nll_mean(logits, tokens), mesh, ("dp", "fsdp"))
+    B, L = tokens.shape
+    start = axis_index(mesh, "sp") * (L // sp)
+    targets = tokens[:, start + 1:start + L // sp + 1].long()
+    logp = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
+    total = -logp.gather(-1, targets[..., None]).sum()
+    # loss_mean averages over its axes: scale each rank's sum so that the
+    # average is the sum over (dp, fsdp, sp) over the global count
+    axes = ("dp", "fsdp", "sp")
+    count = B * axis_size(mesh, ("dp", "fsdp")) * (L - 1)
+    return loss_mean(total * (axis_size(mesh, axes) / count), mesh, axes)
 
 
 def num_params(cfg: LlamaConfig) -> int:

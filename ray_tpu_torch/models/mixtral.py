@@ -10,8 +10,18 @@ SwiGLU experts of ``parallel/moe.py``, computed on the routed tokens
 only. The JAX layer routes twice, once inside ``moe_ffn`` and once for
 the aux term; this one routes once and uses the same numbers for both.
 
-Not in this port yet: ``param_specs`` and the fsdp-overlap loss, and the
-expert-parallel dispatch (they need a device mesh).
+On a device mesh (``forward``/``loss_fn`` with ``mesh=``, the leaves this
+rank's shards of ``param_specs``): the batch over (dp, fsdp), fsdp dims
+gathered layer by layer, heads over tp (Llama's attention block), and at
+ep > 1 the experts split over ep (``parallel.moe.moe_ffn_sharded``: each
+ep rank routes its 1/ep of the tokens, which are then gathered back).
+The ep axis lives on a mesh made by hand, as the JAX tests make theirs
+(``Mesh(devices, ("dp", "ep"))``; here ``init_device_mesh(...,
+mesh_dim_names=("dp", "ep"))``). The aux term's routed fractions and
+mean probabilities are taken over every rank's tokens, as the JAX
+package's single GSPMD program takes them; ``fsdp_overlap`` runs the
+JAX package's prefetching loss (``_loss_overlap``), whose aux term is
+each shard's, averaged. pp > 1 and sp > 1 raise.
 """
 
 from __future__ import annotations
@@ -24,11 +34,14 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.llama import (_attention, _full_attention,
-                                        _nll_mean, _rmsnorm,
+                                        _local, _nll_mean, _rmsnorm,
                                         checkpoint_name, dense_init,
                                         head_logits, remat_layer,
                                         resolve_device, unstack_layers)
-from ray_tpu_torch.parallel.moe import _router_probs, _routed_sum, _top_k
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import P, axis_index, axis_size
+from ray_tpu_torch.parallel.moe import (_router_probs, _routed_sum, _top_k,
+                                        moe_ffn_sharded)
 
 Params = Dict[str, object]
 
@@ -46,11 +59,12 @@ class MixtralConfig:
     rope_theta: float = 1000000.0
     norm_eps: float = 1e-5
     aux_loss_coef: float = 0.01
+    capacity_factor: float = 1.25  # ep dispatch buckets (overflow drops)
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
     remat: bool = True
     remat_policy: str = "full"     # full | dots | dots_no_batch | selective
-    fsdp_overlap: bool = False     # needs a device mesh: True raises
+    fsdp_overlap: bool = False     # prefetch-scheduled fsdp loss
 
     @property
     def head_dim(self) -> int:
@@ -110,55 +124,152 @@ def init_params(cfg: MixtralConfig, seed: int = 0,
     }
 
 
+def param_specs(cfg: MixtralConfig) -> Params:
+    """The stacked layer dim over pp; the attention products over fsdp/tp
+    as Llama's; the EXPERT dim over ep."""
+    return {
+        "embed": P("tp", "fsdp"),
+        "layers": {
+            "attn_norm": P("pp", None),
+            "wq": P("pp", "fsdp", "tp"),
+            "wk": P("pp", "fsdp", "tp"),
+            "wv": P("pp", "fsdp", "tp"),
+            "wo": P("pp", "tp", "fsdp"),
+            "moe_norm": P("pp", None),
+            "router": P("pp", None, None),
+            "w_gate": P("pp", "ep", "fsdp", None),
+            "w_in": P("pp", "ep", "fsdp", None),
+            "w_out": P("pp", "ep", None, "fsdp"),
+        },
+        "final_norm": P(None),
+    }
+
+
 def _aux_loss(router_probs: torch.Tensor, topk_idx: torch.Tensor,
-              n_experts: int) -> torch.Tensor:
+              n_experts: int, mesh=None) -> torch.Tensor:
     """Switch-transformer load-balance term: E · Σ_e f_e · P_e, f_e the
     fraction of routed assignments to expert e (no gradient) and P_e the
-    mean router probability."""
+    mean router probability. With a ``mesh`` both means run over the
+    tokens of every (dp, fsdp) rank."""
     f = F.one_hot(topk_idx, n_experts).float().mean(dim=(0, 1))
     p = router_probs.mean(dim=0)
+    if mesh is not None:
+        f = collectives.allreduce(f, mesh, ("dp", "fsdp"), op="mean")
+        p = collectives.allreduce(p, mesh, ("dp", "fsdp"), op="mean")
     return n_experts * (f * p).sum()
 
 
-def _layer(lp: Params, x, cfg: MixtralConfig, positions):
+def _moe(lp: Params, h, cfg: MixtralConfig, topk_idx, topk_w, mesh):
+    """The routed experts of h [N, d] -> [N, d] in h's dtype. At ep > 1
+    the ep rank r runs its block r of the N tokens through every rank's
+    experts (``moe_ffn_sharded``) and the blocks are gathered back."""
+    ep = axis_size(mesh, "ep")
+    if ep == 1:
+        acc = _routed_sum(lp, h, topk_idx, topk_w)
+        # the cast (a copy in fp32) is the op that "selective" saves as
+        # "moe_out"; the dispatch is recomputed in the backward, as in JAX
+        with checkpoint_name("moe_out"):
+            return acc.to(h.dtype, copy=True)
+    N = h.shape[0]
+    if N % ep:
+        raise ValueError(f"{N} tokens do not split over ep={ep}")
+    r = axis_index(mesh, "ep")
+    moe_p = {k: lp[k] for k in ("router", "w_gate", "w_in", "w_out")}
+    y = moe_ffn_sharded(moe_p, h[r * N // ep:(r + 1) * N // ep], mesh,
+                        top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor)
+    y = collectives.allgather(y, mesh, "ep", axis=0)
+    with checkpoint_name("moe_out"):
+        return y.clone()
+
+
+def _layer(lp: Params, x, cfg: MixtralConfig, positions, mesh=None,
+           tp_sum=None):
     """One block; lp leaves have the layer axis removed. Returns the new
-    x and the layer's aux term."""
+    x and the layer's aux term. ``tp_sum`` sums the attention's
+    row-split output product over tp."""
     B, L, d = x.shape
-    x = _attention(lp, x, cfg, positions, _full_attention)
+    x = _attention(lp, x, cfg, positions, _full_attention, tp_sum)
     h = _rmsnorm(x, lp["moe_norm"], cfg.norm_eps).reshape(B * L, d)
     probs = _router_probs(lp["router"], h)
     topk_idx, topk_w = _top_k(probs, cfg.top_k)
-    acc = _routed_sum(lp, h, topk_idx, topk_w)
-    # the cast (a copy in fp32) is the op that "selective" saves as
-    # "moe_out"; the dispatch is recomputed in the backward, as in JAX
-    with checkpoint_name("moe_out"):
-        y = acc.to(h.dtype, copy=True)
-    return x + y.view(B, L, d), _aux_loss(probs, topk_idx, cfg.n_experts)
+    y = _moe(lp, h, cfg, topk_idx, topk_w, mesh)
+    return x + y.view(B, L, d), _aux_loss(probs, topk_idx, cfg.n_experts,
+                                          mesh)
 
 
-def _check_no_mesh(cfg: MixtralConfig, mesh) -> None:
-    if mesh is not None or cfg.fsdp_overlap:
-        raise ValueError("a mesh argument and fsdp_overlap=True need a "
-                         "device mesh, which this port does not have yet")
+def _check_mesh(cfg: MixtralConfig, mesh) -> None:
+    for ax in ("pp", "sp"):
+        if axis_size(mesh, ax) > 1:
+            raise ValueError(f"the Mixtral mesh path shards dp, fsdp, tp "
+                             f"and ep; mesh axis {ax!r} has size "
+                             f"{axis_size(mesh, ax)} > 1")
+    if cfg.fsdp_overlap:
+        for ax in ("tp", "ep"):
+            if axis_size(mesh, ax) > 1:
+                raise ValueError(
+                    f"fsdp_overlap runs full-manual over (dp, fsdp); mesh "
+                    f"axis {ax!r} has size {axis_size(mesh, ax)} > 1")
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
             mesh=None, return_aux: bool = False):
     """tokens [B, L] int -> logits [B, L, vocab] fp32 (and the mean aux
     loss over layers with ``return_aux``). Differentiable; inference
-    callers disable grad themselves."""
-    _check_no_mesh(cfg, mesh)
+    callers disable grad themselves. With a ``mesh``: this rank's
+    shards (``param_specs``; tokens over (dp, fsdp)), its logits
+    [B / (dp·fsdp), L, vocab]."""
+    if mesh is None and cfg.fsdp_overlap:
+        raise ValueError("fsdp_overlap=True needs a mesh")
+    embed = params["embed"]
+    lspecs = tp_sum = None
+    if mesh is not None:
+        from ray_tpu_torch.parallel.fsdp_overlap import (drop_leading_dim,
+                                                         gather_params,
+                                                         tree_map)
+        _check_mesh(cfg, mesh)
+        params = tree_map(_local, params)
+        tokens = _local(tokens)
+        embed = params["embed"]
+        for axis in ("tp", "fsdp"):
+            embed = gather_params(embed, param_specs(cfg)["embed"], mesh,
+                                  axis)
+        lspecs = drop_leading_dim(param_specs(cfg)["layers"])
+        tp_sum = functools.partial(collectives.allreduce, mesh=mesh,
+                                   axis_name="tp")
     B, L = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = embed[tokens].to(cfg.dtype)
     positions = torch.arange(L, device=tokens.device)
-    body = remat_layer(functools.partial(_layer, cfg=cfg,
-                                         positions=positions), cfg)
     aux = []
-    for lp in unstack_layers(params["layers"], cfg.n_layers):
-        x, a = body(lp, x)
-        aux.append(a)
+    overlap = cfg.fsdp_overlap and axis_size(mesh, "fsdp") > 1
+    # the prefetching loss runs each shard's layers as one device's
+    # (the JAX _loss_overlap passes mesh=None into the layer)
+    layer = functools.partial(_layer, cfg=cfg, positions=positions,
+                              mesh=None if overlap else mesh,
+                              tp_sum=tp_sum)
+    if overlap:
+        from ray_tpu_torch.parallel.fsdp_overlap import overlap_scan
+        body = remat_layer(layer, cfg)
+
+        def apply(w, x):
+            x, a = body(w, x)
+            aux.append(a)
+            return x
+
+        x = overlap_scan(params["layers"], lspecs, x, apply, cfg.n_layers,
+                         mesh, axis_name="fsdp")
+    else:
+        def gathered(lp, x):
+            if mesh is not None:
+                lp = gather_params(lp, lspecs, mesh, "fsdp")
+            return layer(lp, x)
+
+        body = remat_layer(gathered, cfg)
+        for lp in unstack_layers(params["layers"], cfg.n_layers):
+            x, a = body(lp, x)
+            aux.append(a)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(x, params["embed"])
+    logits = head_logits(x, embed)
     if return_aux:
         return logits, torch.stack(aux).mean()
     return logits
@@ -167,9 +278,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
             mesh=None) -> torch.Tensor:
     """Next-token cross-entropy + aux load-balance term (Mixtral's
-    training objective), fp32."""
+    training objective), fp32. With a ``mesh`` one loss held by every
+    rank: the mean over (dp, fsdp) of each rank's (equal-shard) loss
+    (``collectives.loss_mean``)."""
     logits, aux = forward(params, tokens, cfg, mesh, return_aux=True)
-    return _nll_mean(logits, tokens) + cfg.aux_loss_coef * aux
+    local = _nll_mean(logits, _local(tokens)) + cfg.aux_loss_coef * aux
+    return collectives.loss_mean(local, mesh, ("dp", "fsdp"))
 
 
 def num_params(cfg: MixtralConfig) -> int:

@@ -1,5 +1,5 @@
 """Minimal MLP classifier — the PyTorch port of ``ray_tpu/models/mlp.py``
-(the Train MVP's model). ``mlp_specs`` waits for the device mesh."""
+(the Train MVP's model)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import dataclasses
 import torch
 
 from ray_tpu_torch.models.llama import dense_init, resolve_device
+from ray_tpu_torch.parallel.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,15 @@ def mlp_init(cfg: MLPConfig, seed: int = 0, device="cuda"):
     return [{"w": dense_init(g, (din, dout), cfg.dtype, din),
              "b": torch.zeros(dout, dtype=cfg.dtype, device=dev)}
             for din, dout in zip(dims[:-1], dims[1:])]
+
+
+def mlp_specs(cfg: MLPConfig):
+    """Hidden dims split over tp; the last layer replicated (dp/fsdp
+    split the data)."""
+    dims = [cfg.in_dim] + [cfg.hidden] * cfg.n_hidden + [cfg.out_dim]
+    specs = [{"w": P(None, "tp"), "b": P("tp")} for _ in dims[1:]]
+    specs[-1] = {"w": P(None, None), "b": P(None)}
+    return specs
 
 
 def mlp_apply(params, x):

@@ -208,6 +208,17 @@ def ppermute_shift(x, mesh, axis_name, shift: int = 1):
     return x if group is None else _Shift.apply(x, group, shift)
 
 
+def tie(x, t):
+    """``x`` plus 0 times one element of ``t``: the same values, with ``t``
+    on the path to ``x`` when ``t`` takes a gradient. A rank that leaves
+    the result of a shift unused would skip that shift's backward, which
+    its peers wait for; tying the unused result into a used value keeps
+    every shift's backward on every rank."""
+    if not (isinstance(t, torch.Tensor) and t.requires_grad):
+        return x
+    return x + t.flatten()[0].to(x.dtype) * 0
+
+
 class _LossMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, world):

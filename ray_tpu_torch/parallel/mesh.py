@@ -22,6 +22,9 @@ import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "sp", "tp")
+#: the expert axis: not a ``MeshSpec`` axis (the JAX package's is not
+#: either); it lives on meshes made by hand, and has size 1 elsewhere
+EXPERT_AXIS = "ep"
 
 
 class P(tuple):
@@ -207,20 +210,44 @@ def _combined_groups(mesh, layout) -> Dict[Tuple[str, ...], object]:
     return groups
 
 
-def _axes(axis) -> Tuple[str, ...]:
+def _axes(axis, mesh=None) -> Tuple[str, ...]:
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    names = _dim_names(mesh)
     for a in axes:
-        if a not in AXIS_ORDER:
+        if a not in AXIS_ORDER + (EXPERT_AXIS,) and a not in names:
             raise ValueError(f"unknown mesh axis {a!r}")
     return axes
 
 
+def _dim_names(mesh) -> Tuple[str, ...]:
+    """The mesh's axis names: ``AXIS_ORDER`` for a ``build_mesh`` mesh,
+    whatever a mesh made by hand names (the JAX tests' ``Mesh(devices,
+    ("dp", "ep"))`` counterpart: ``init_device_mesh(..., mesh_dim_names=
+    ("dp", "ep"))``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names else AXIS_ORDER
+
+
+def _size(mesh, a: str) -> int:
+    """Ranks along one axis; 1 for an axis the mesh does not have."""
+    names = _dim_names(mesh)
+    return mesh.size(names.index(a)) if a in names else 1
+
+
 def axis_size(mesh, axis) -> int:
     """Ranks along ``axis`` (a name or a tuple of names); 1 without a
-    mesh."""
+    mesh, and for a canonical axis a hand-made mesh does not have."""
     if mesh is None:
         return 1
-    return math.prod(mesh.size(AXIS_ORDER.index(a)) for a in _axes(axis))
+    return math.prod(_size(mesh, a) for a in _axes(axis, mesh))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along one axis (``lax.axis_index``'s
+    counterpart); 0 without a mesh or where the axis holds one rank."""
+    if mesh is None or _size(mesh, axis) == 1:
+        return 0
+    return mesh.get_local_rank(_dim_names(mesh).index(axis))
 
 
 def axis_group(mesh, axis):
@@ -230,8 +257,9 @@ def axis_group(mesh, axis):
     the identity)."""
     if mesh is None:
         return None
-    big = tuple(a for a in AXIS_ORDER if a in _axes(axis)
-                and mesh.size(AXIS_ORDER.index(a)) > 1)
+    wanted = _axes(axis, mesh)
+    big = tuple(a for a in _dim_names(mesh) if a in wanted
+                and _size(mesh, a) > 1)
     if not big:
         return None
     if len(big) == 1:

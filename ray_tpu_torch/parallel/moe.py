@@ -1,5 +1,5 @@
 """Top-k routed mixture-of-experts FFN — the PyTorch port of
-``ray_tpu/parallel/moe.py``'s single-device path.
+``ray_tpu/parallel/moe.py``.
 
 The routing is the JAX package's: router logits in the compute dtype,
 softmax in fp32, top-k, combine weights renormalized over the top-k
@@ -14,18 +14,24 @@ each ``index_add_`` writes distinct rows and stays deterministic on the
 card. The segment sizes are read on the host: one device-to-host read per
 call, counted in ``sync_counts``.
 
-``moe_param_specs``, ``_moe_shard`` and ``moe_ffn_sharded`` (capacity
-buckets and ``all_to_all`` over the ``ep`` axis) wait for the device mesh.
+Expert parallelism (``moe_ffn_sharded``, GShard/Switch routing as in the
+JAX package): experts split E/ep per rank of the ``ep`` axis, static
+capacity buckets per (rank, expert), tokens beyond a bucket dropped
+(weighted 0), dispatch and return through two ``all_to_all`` over ``ep``.
+Each rank passes its own tokens and its experts; ``ep == 1`` is the
+routed single-device path.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.llama import dense_init, resolve_device
+from ray_tpu_torch.parallel.mesh import P
 
 Params = Dict[str, torch.Tensor]
 
@@ -46,6 +52,13 @@ def init_moe_params(dim: int, ffn_dim: int, num_experts: int,
         "w_in": dense_init(g, (num_experts, dim, ffn_dim), dtype, dim),
         "w_out": dense_init(g, (num_experts, ffn_dim, dim), dtype, ffn_dim),
     }
+
+
+def moe_param_specs() -> Params:
+    """Spec of each leaf: the experts split over ep."""
+    return {"router": P(None, None),
+            "w_in": P("ep", None, None),
+            "w_out": P("ep", None, None)}
 
 
 def _router_probs(router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -106,3 +119,72 @@ def moe_ffn(params: Params, x: torch.Tensor, *, top_k: int = 2
     experts, no capacity (the JAX ``moe_ffn``'s function)."""
     topk_idx, topk_w = _routing(params, x, top_k)
     return _routed_sum(params, x, topk_idx, topk_w).to(x.dtype)
+
+
+def _moe_shard(params: Params, x: torch.Tensor, *, top_k: int,
+               capacity: int, mesh, axis_name: str) -> torch.Tensor:
+    """This rank's tokens x [t, d] through the experts of every rank:
+    params hold this rank's E/ep experts (the router whole)."""
+    from ray_tpu_torch.parallel.collectives import alltoall
+    from ray_tpu_torch.parallel.mesh import axis_size
+    t, d = x.shape
+    ep = axis_size(mesh, axis_name)
+    e_local = params["w_in"].shape[0]
+    E = e_local * ep
+    topk_idx, topk_w = _routing(params, x, top_k)
+    # each (token, k)'s slot in its expert's bucket, in token order
+    flat_e = topk_idx.reshape(-1)                          # [t*k]
+    onehot = F.one_hot(flat_e, E)
+    slot = ((onehot.cumsum(0) - 1) * onehot).sum(-1)       # [t*k]
+    keep = slot < capacity
+    w_flat = topk_w.reshape(-1) * keep                     # dropped -> 0
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
+    disp = torch.zeros(E, capacity, d, dtype=x.dtype, device=x.device)
+    disp = disp.index_put(
+        (flat_e, torch.where(keep, slot, capacity - 1)),
+        torch.where(keep[:, None], x[tok_idx], torch.zeros_like(x[tok_idx])),
+        accumulate=True)
+    # [E, c, d] = [ep, e_local, c, d]: each rank's buckets for the
+    # experts of rank j go to rank j -> [ep (source), e_local, c, d]
+    disp = alltoall(disp.reshape(ep, e_local, capacity, d), mesh,
+                    axis_name, split_axis=0, concat_axis=0)
+    disp = disp.transpose(0, 1).reshape(e_local, ep * capacity, d)
+    gated = "w_gate" in params
+    out = torch.stack([_expert_ffn(
+        params["w_in"][e].to(x.dtype), params["w_out"][e].to(x.dtype),
+        disp[e], params["w_gate"][e].to(x.dtype) if gated else None)
+        for e in range(e_local)])
+    # the return trip
+    out = out.reshape(e_local, ep, capacity, d).transpose(0, 1)
+    out = alltoall(out.contiguous(), mesh, axis_name, split_axis=0,
+                   concat_axis=0).reshape(E, capacity, d)
+    # combine: each (token, k)'s slot output, weighted, summed over k (a
+    # token's k entries are adjacent: one sum per token, in k order)
+    gathered = out[flat_e, slot.clamp(max=capacity - 1)]
+    contrib = gathered.float() * w_flat[:, None]
+    return contrib.view(t, top_k, d).sum(1).to(x.dtype)
+
+
+def moe_ffn_sharded(params: Params, x: torch.Tensor, mesh, *,
+                    top_k: int = 2, capacity_factor: float = 1.25,
+                    axis_name: str = "ep") -> torch.Tensor:
+    """This rank's tokens x [t, d] -> [t, d], the experts split over
+    ``axis_name`` (``params``: the router whole, this rank's E/ep experts).
+
+    Capacity per expert per rank: ceil(t * k / E * capacity_factor), t
+    this rank's tokens (the JAX package's T/ep); a (token, k) past its
+    bucket is dropped. Equal to ``moe_ffn`` when the capacity holds every
+    assignment. ``ep == 1`` runs ``moe_ffn``."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+    ep = axis_size(mesh, axis_name)
+    if ep == 1:
+        return moe_ffn(params, x, top_k=top_k)
+    E = params["router"].shape[1]
+    if E % ep:
+        raise ValueError(f"num_experts {E} not divisible by ep={ep}")
+    if params["w_in"].shape[0] != E // ep:
+        raise ValueError(f"{params['w_in'].shape[0]} experts held: a rank "
+                         f"of ep={ep} holds E/ep = {E // ep}")
+    capacity = max(1, math.ceil(x.shape[0] * top_k / E * capacity_factor))
+    return _moe_shard(params, x, top_k=top_k, capacity=capacity, mesh=mesh,
+                      axis_name=axis_name)

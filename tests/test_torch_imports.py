@@ -18,7 +18,8 @@ _FOREIGN = (
     "print(bad)\n")
 
 
-PARALLEL_MODULES = ("mesh", "collectives", "fsdp_overlap")
+PARALLEL_MODULES = ("mesh", "collectives", "fsdp_overlap", "attention",
+                    "ring_attention", "ulysses", "pipeline")
 TRAIN_MODULES = ("backend", "config", "checkpoint", "session", "result",
                  "scaling_policy", "worker_group", "controller", "trainer")
 SERVE_MODULES = ("batching", "controller", "grpc_proxy", "multiplex",
@@ -97,6 +98,7 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.util.fault_injector",
                 "ray_tpu_torch.util.compile_tracker",
                 "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.tracing",
+                "ray_tpu_torch.llm.tp",
                 *(f"ray_tpu_torch.serve.{m}" for m in SERVE_MODULES),
                 *(f"ray_tpu_torch.parallel.{m}" for m in PARALLEL_MODULES),
                 *(f"ray_tpu_torch.train.{m}" for m in TRAIN_MODULES)):
@@ -251,3 +253,12 @@ def test_daemons_import_neither_torch_nor_jax(tmp_path):
                 p.wait(timeout=10)
             except subprocess.TimeoutExpired:
                 p.kill()
+
+
+def test_parallel_axis_modules_import_without_jax_or_ray_tpu():
+    """Tensor-parallel serving and the sp, pp and ep paths on their own."""
+    assert _run("import ray_tpu_torch.llm.tp, "
+                "ray_tpu_torch.parallel.ring_attention, "
+                "ray_tpu_torch.parallel.ulysses, "
+                "ray_tpu_torch.parallel.pipeline, "
+                "ray_tpu_torch.parallel.attention\n") == "[]"

@@ -760,3 +760,120 @@ def test_batch_inference_launches_the_ragged_kernel(cuda):
     assert all(len(r["generated"]) == 6 for r in out)
     assert tpa.launch_counts["ragged_paged_attention"] > 0
     assert tpa.launch_counts["ragged_paged_attention_reference_cuda"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_tp4_engine_shards_match_plain_version(cuda, dtype):
+    """A tp=4 engine at 8B head geometry (32 q / 8 kv heads of 128: each
+    shard Hq 8, Hkv 2), all shards on the card: every ragged call (one
+    per shard per layer) against the plain version on its inputs, the
+    launches the engine's calls; in fp32 the stream equals tp=1's."""
+    from ray_tpu_torch.llm import model as tmodel
+    cfg = LlamaConfig.tiny(vocab_size=1024, dim=4096, n_heads=32,
+                           n_kv_heads=8, ffn_dim=1024, n_layers=2,
+                           dtype=dtype)
+    kw = dict(page_size=16, total_pages=64, max_batch=4, max_seq_len=512,
+              seed=0, device="cuda")
+    eng = InferenceEngine(cfg, tp=4, devices=[cuda] * 4, **kw)
+    worst, geometry = [0.0], set()
+    orig = tmodel.ragged_paged_attention
+
+    def checked(q, kp, vp, *desc, impl=None, **hints):
+        out = orig(q, kp, vp, *desc, impl=impl, **hints)
+        ref = tpa.ragged_paged_attention_reference(q, kp, vp, *desc,
+                                                   **hints)
+        worst[0] = max(worst[0], tolerance_ratio(out, ref))
+        geometry.add((q.shape[1], kp.shape[1]))
+        return out
+
+    tmodel.ragged_paged_attention = checked
+    tpa.launch_counts["ragged_paged_attention"] = 0
+    try:
+        prompt = list(range(3, 140))
+        got = eng.generate(prompt, max_new_tokens=8)
+    finally:
+        tmodel.ragged_paged_attention = orig
+    calls = 4 * cfg.n_layers * (eng.stats["ragged_dispatches"]
+                                + eng.decode_chunk
+                                * eng.stats["decode_dispatches"])
+    assert tpa.launch_counts["ragged_paged_attention"] == calls
+    assert geometry == {(8, 2)} and worst[0] <= 1, (geometry, worst)
+    if dtype == F32:
+        one = InferenceEngine(cfg, eng._fns.gather_params(eng.params), **kw)
+        assert one.generate(prompt, max_new_tokens=8) == got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_rotations_match_whole_sequence_flash(cuda, sp):
+    """The ring's per-rotation work for every virtual rank (the KV blocks
+    in the ring's order): output, lse and gradients against one
+    whole-sequence flash call, with the flash tolerance; sp(sp+1)/2
+    launches of each kernel."""
+    from ray_tpu_torch.parallel.ring_attention import ring_rotation
+    B, H, n, D = 1, 4, 256, 128
+    L, scale = sp * n, D ** -0.5
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=cuda)
+                   .to(BF16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    outs, lses = [], []
+    for idx in range(sp):
+        o = torch.zeros(B, n, H, D, device=cuda)
+        lse = torch.full((B, H, n), float("-inf"), device=cuda)
+        for t in range(sp):
+            src = (idx - t) % sp
+            o, lse = ring_rotation(q[:, idx * n:(idx + 1) * n],
+                                   k[:, src * n:(src + 1) * n],
+                                   v[:, src * n:(src + 1) * n], o, lse, src,
+                                   idx, True, scale)
+        outs.append(o.to(BF16))
+        lses.append(lse)
+    o_ring = torch.cat(outs, 1)
+    (o_ring.float() * do.float()).sum().backward()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert tfa.launch_counts[name] == sp * (sp + 1) // 2, name
+    qw, kw, vw = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ow, lw = tfa.flash_attention_block(qw, kw, vw, True, scale)
+    (ow.float() * do.float()).sum().backward()
+    for got, want in ((o_ring, ow), (q.grad, qw.grad), (k.grad, kw.grad),
+                      (v.grad, vw.grad)):
+        assert tolerance_ratio(got.detach(), want, FLASH_TOL) <= 1
+    assert (torch.cat(lses, 2) - lw).abs().max().item() <= 2.0 ** -12
+
+
+@pytest.mark.cuda
+def test_tp_engine_across_two_cards_matches_tp1(cuda):
+    """tp=2 with its shards on two cards (the row-split sums copied peer
+    to peer, each card adding in device order): fp32 streams equal to
+    tp=1's, batched and chunked; both cards hold the same sum."""
+    from ray_tpu_torch.llm import tp as ttp
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    cfg = LlamaConfig.tiny(vocab_size=1024, dim=1024, n_heads=8,
+                           n_kv_heads=4, ffn_dim=2048, n_layers=2,
+                           dtype=F32)
+    kw = dict(page_size=16, total_pages=64, max_batch=4, max_seq_len=512,
+              prefill_chunk=64, seed=0)
+    two = InferenceEngine(cfg, tp=2, devices=["cuda:0", "cuda:1"], **kw)
+    assert [s["embed"].device.index for s in two.params] == [0, 1]
+    assert [p["k"].device.index for p in two.kv] == [0, 1]
+    one = InferenceEngine(cfg, two._fns.gather_params(two.params),
+                          device="cuda:0", **kw)
+    prompts = [list(range(3, 140)), [5, 17, 42], list(range(200, 290))]
+    for eng in (one, two):
+        rids = [eng.add_request(p, 8) for p in prompts]
+        done = {}
+        while len(done) < len(rids):
+            done.update(eng.step())
+        eng.out = [done[r] for r in rids]
+    assert two.out == one.out
+    parts = [torch.full((4, 8), 1.0, device="cuda:0"),
+             torch.full((4, 8), 2.0, device="cuda:1")]
+    a, b = ttp.sum_shards(parts)
+    assert a.device.index == 0 and b.device.index == 1
+    assert torch.equal(a.cpu(), b.cpu()) and a[0, 0].item() == 3.0

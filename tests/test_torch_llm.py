@@ -130,9 +130,9 @@ def test_ragged_step_matches_jax(params, int8):
                                cfg=JCFG, paged_impl="reference",
                                max_q_len=6, decode_rows=3)
     tkv = _tkv(kv)
-    tnxt, tkv2 = tm.ragged_step(tp, *map(torch.from_numpy, args), tkv,
+    tnxt, tkv2 = tm.ragged_step([tp], *map(torch.from_numpy, args), [tkv],
                                 TCFG, max_q_len=6, decode_rows=3)
-    assert tkv2 is tkv                     # the pool is updated in place
+    assert tkv2[0] is tkv                  # the pool is updated in place
     assert tnxt.dtype == torch.int32
     np.testing.assert_array_equal(tnxt.numpy(), np.asarray(jnxt))
     _assert_pools_close(tkv, jkv)
@@ -153,7 +153,7 @@ def test_ragged_decode_loop_matches_jax(params):
         paged_impl="reference")
     tkv = _tkv(kv)
     tout, _, tpos, tlens = tm.ragged_decode_loop(
-        tp, *map(torch.from_numpy, args), tkv, torch.from_numpy(pt),
+        [tp], *map(torch.from_numpy, args), [tkv], torch.from_numpy(pt),
         torch.from_numpy(seq_lens), num_steps=3, cfg=TCFG)
     assert tuple(tout.shape) == (3, 4)
     np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))

@@ -6,8 +6,8 @@ weights, and ``placement_for_engine``/``build_llm_app`` with the TPU
 mapped to the GPU.
 
 The programs of ``tests/test_llm_serve.py`` (bar the tp=2 deployment,
-whose tensor-parallel engine is not ported) run once through each
-package's cluster runtime; the port's ``LLMServer`` gets
+in tests/test_torch_llm_serve_tp.py) run once through each package's
+cluster runtime; the port's ``LLMServer`` gets
 ``{"device": "cpu"}`` in its ``engine_config``. The port's cluster is told
 of one card (``init(num_gpus=1)``): no CUDA runs, the replica only reads
 its environment.
@@ -252,8 +252,9 @@ def leased_workers():
 def test_build_llm_app_books_the_card(serve_rt):
     """The port's ``build_llm_app`` books {"GPU": 1} for a tp=1 engine on
     the card (the replica gets the card's dedicated worker), nothing when
-    told not to, and refuses tp > 1; the JAX package's books chips only
-    for a tp > 1 gang, so its tp=1 replica books nothing."""
+    told not to, {"GPU": 2} for a tp=2 gang, and refuses a gang spanning
+    hosts; the JAX package's books chips only for a tp > 1 gang, so its
+    tp=1 replica books nothing."""
     rt, serve = serve_rt
     prompt = {"prompt_ids": [5, 17, 42, 9], "max_tokens": 4}
     if rt.__name__ == "ray_tpu":
@@ -291,5 +292,9 @@ def test_build_llm_app_books_the_card(serve_rt):
                         name="llm-unbooked", use_gpu_resources=False)
     assert app.deployment._config["resources"] == {"CPU": 0.1}
 
+    app = build_llm_app({"n_layers": 2}, engine_config(rt, tp=2),
+                        use_gpu_resources=True)
+    assert app.deployment._config["resources"] == {"GPU": 2.0}
     with pytest.raises(NotImplementedError):
-        build_llm_app({"n_layers": 2}, engine_config(rt, tp=2))
+        build_llm_app({"n_layers": 2}, engine_config(rt, tp=16),
+                      use_gpu_resources=True)

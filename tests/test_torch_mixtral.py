@@ -329,7 +329,8 @@ def test_counts_and_defaults_match_jax():
     defaults = dataclasses.asdict(tm.MixtralConfig())
     for field in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
                   "ffn_dim", "n_experts", "top_k", "rope_theta", "norm_eps",
-                  "aux_loss_coef", "remat", "remat_policy", "fsdp_overlap"):
+                  "aux_loss_coef", "remat", "remat_policy", "fsdp_overlap",
+                  "capacity_factor"):
         assert defaults[field] == getattr(jm.MixtralConfig(), field), field
 
 
@@ -369,8 +370,15 @@ def test_mesh_paths_and_unknown_policy_raise(setup):
     jparams, tokens = setup
     _, tcfg = _configs()
     params, batch = _torch_params(jparams), torch.from_numpy(tokens)
-    with pytest.raises(ValueError, match="mesh"):
-        tm.loss_fn(params, batch, tcfg, mesh=object())
+    class PipelineMesh:      # a mesh of 2 pp ranks: still not a path
+        mesh_dim_names = ("pp",)
+
+        @staticmethod
+        def size(dim):
+            return 2
+
+    with pytest.raises(ValueError, match="mesh axis 'pp'"):
+        tm.loss_fn(params, batch, tcfg, mesh=PipelineMesh())
     with pytest.raises(ValueError, match="mesh"):
         tm.forward(params, batch,
                    dataclasses.replace(tcfg, fsdp_overlap=True))
