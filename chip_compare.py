@@ -64,6 +64,15 @@
         forward kernel has), checked against the plain version, then
         timed twice each, in turns, at the training path's shape (B 8,
         H 24, L 2048, D 128, causal).
+    python3 chip_compare.py mixtral
+        chip_smoke.py's Mixtral oracle (phase 10's fp32 Mixtral on the card
+        against the CPU: every gradient's worst difference over its leaf's
+        largest value, limit 1e-5) five times in one process, then once
+        each in fresh processes with the CPU's sums on 1 thread, on all
+        the machine's threads, and with
+        ``torch.use_deterministic_algorithms(True)``; each run prints the
+        worst leaf and the digests of the card's and the CPU's gradients,
+        so a run that moves names the side that moved.
 
 Both print the card's name and power limit first. Each exits non-zero
 without a CUDA device.
@@ -608,6 +617,60 @@ def compare_ring() -> None:
         del q, kp, vp, pt, sl, ref, out, work
 
 
+MIXTRAL = """
+import json, os, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+{setup}
+for _ in range({runs}):
+    r = chip_smoke.mixtral_oracle_readings(torch.device('cuda'))
+    print("ORACLE " + json.dumps({{"label": {label!r},
+        "threads": torch.get_num_threads(), "worst": r["worst"],
+        "rel": r["rel"][r["worst"]], "card": r["card"], "cpu": r["cpu"]}}),
+        flush=True)
+"""
+
+MIXTRAL_SETTINGS = (
+    ("default threads", "", 5),
+    ("CPU on 1 thread", "torch.set_num_threads(1)", 1),
+    ("CPU on all threads", "torch.set_num_threads(os.cpu_count())", 1),
+    ("deterministic algorithms",
+     "os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'\n"
+     "torch.use_deterministic_algorithms(True)", 1))
+
+
+def compare_mixtral() -> None:
+    """The Mixtral oracle's readings under each of MIXTRAL_SETTINGS, each
+    setting in a process of its own; then whether the card's gradients
+    and the CPU's each came out equal to the bit across every run."""
+    from ray_tpu_torch.ops import _kernels
+    _kernels.build()
+    readings = []
+    for label, setup, runs in MIXTRAL_SETTINGS:
+        out = subprocess.run(
+            [sys.executable, "-c", MIXTRAL.format(setup=setup, runs=runs,
+                                                  label=label)],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+        lines = [json.loads(line[len("ORACLE "):])
+                 for line in out.stdout.splitlines()
+                 if line.startswith("ORACLE ")]
+        if out.returncode != 0 or len(lines) != runs:
+            print(f"{label}: rc {out.returncode}\n{out.stderr[-3000:]}",
+                  flush=True)
+        for r in lines:
+            print(f"mixtral oracle, {label} ({r['threads']} CPU threads): "
+                  f"worst {r['rel']:.3e} ({r['worst']}), card "
+                  f"{r['card']}, CPU {r['cpu']}", flush=True)
+        readings += lines
+    for side in ("card", "cpu"):
+        print(f"{side} gradients across the {len(readings)} runs: "
+              f"{len({r[side] for r in readings})} distinct digests "
+              f"{sorted({r[side] for r in readings})}", flush=True)
+    print("ORACLE_READINGS " + json.dumps(readings), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: torch.cuda.is_available() is False; this "
@@ -632,6 +695,8 @@ def main() -> int:
         _in_turns(Path(sys.argv[2]).resolve(), FLASH, "flash")
     elif sys.argv[1:2] == ["phase6"] and len(sys.argv) == 3:
         _in_turns(Path(sys.argv[2]).resolve(), PHASE6, "phase 6")
+    elif sys.argv[1:] == ["mixtral"]:
+        compare_mixtral()
     elif sys.argv[1:] == ["ring"]:
         compare_ring()
     elif sys.argv[1:] == ["dq"]:

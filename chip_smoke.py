@@ -236,6 +236,32 @@ result line is printed):
      limits, the flash launches of the pass (10 of each kernel at 4
      ranks), and the diagonal and off-diagonal rotation timed beside the
      whole-sequence call.
+ 18. the DAGs, the RL learners on a mesh and the compile tracker: 18a. a
+     compiled pure-function DAG (``dag.experimental_compile``) around one
+     flash forward at phase 6's shape: a projection of the input into k
+     and v (one bf16 matmul), the flash forward with the input as the
+     queries (it reads the input and the projection: a diamond), and an
+     output projection, captured once in a CUDA graph and replayed 50
+     times and more: the replay equal to the stages run eagerly to the
+     bit, the flash stage within phase 6's limits of the plain version, a
+     result kept from the first execute unchanged by the second, the
+     flash launches, counted from 0, equal to captures + replays; the
+     capture time and the replay and eager ms (calls back to back)
+     printed; 18b. the compiled actor DAG of
+     tests/test_jobs_dag_workflow.py on a fresh ``init(num_cpus=2)``: two
+     actors chained through shm channels, ordering over 20 executions,
+     an error through the channel, and the JAX test's criterion, compiled
+     >= 2x eager chained calls at N 200 (both rates printed), then
+     ``teardown``; 18c. PPO, IMPALA and BC (phase 11's and 12c's
+     settings) through ``build(mesh=)`` on a one-rank NCCL mesh in the
+     local mode: one update of each equal to the bit to
+     ``build(mesh=None)``'s on the same batch, then one ``train()`` on the
+     mesh; 18d. (run right after phase 4) the compile tracker's records
+     of the engine's step functions (``llm.*``) equal phase 4's step
+     programs (at most 3), no ``llm_compile_invariant_breach`` staged;
+     phase 4's first wave on phase 4's engine (prefix cache off) in turns
+     with the tracker's wraps on and off: equal streams, no new record,
+     the ragged launches the engine's count, both wall times printed.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2034,6 +2060,29 @@ def phase_mixtral_routing(device, params, cfg, batch=ROUTING_BATCH):
 def phase_mixtral_oracle(device, config=None, batch=MIXTRAL_ORACLE_BATCH):
     """A small fp32 Mixtral on ``device`` against the same parameters and
     tokens on the CPU: loss, aux, routing and every gradient."""
+    r = mixtral_oracle_readings(device, config, batch)
+    assert r["rel"][r["worst"]] <= MIXTRAL_ORACLE_RTOL, \
+        {k: f"{v:.2e}" for k, v in r["rel"].items()}
+    return r
+
+
+def grads_digest(grads):
+    """A short hash of a list of CPU tensors' bytes: equal digests, equal
+    tensors to the bit."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in grads:
+        h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def mixtral_oracle_readings(device, config=None,
+                            batch=MIXTRAL_ORACLE_BATCH):
+    """The oracle's computation (``phase_mixtral_oracle`` without its
+    limit on the gradients): -> {"rel": {leaf: |card - cpu| max over the
+    CPU's largest}, "worst": leaf, "card": digest, "cpu": digest} (the
+    digests of each side's gradients, to tell which side moved between
+    runs)."""
     from ray_tpu_torch.models import mixtral as tm
     from ray_tpu_torch.train import param_leaves
 
@@ -2073,9 +2122,10 @@ def phase_mixtral_oracle(device, config=None, batch=MIXTRAL_ORACLE_BATCH):
         f"aux {ad:.7f} vs {ac:.7f}, routing equal, {len(gd)} gradients, "
         f"worst {rel[worst]:.2e} of the leaf's largest value ({worst}); "
         f"the CPU's sums on {torch.get_num_threads()} threads, "
-        f"{torch.backends.cpu.get_cpu_capability()}")
-    assert rel[worst] <= MIXTRAL_ORACLE_RTOL, \
-        {k: f"{v:.2e}" for k, v in rel.items()}
+        f"{torch.backends.cpu.get_cpu_capability()}; gradient digests "
+        f"card {grads_digest(gd)}, CPU {grads_digest(gc)}")
+    return {"rel": rel, "worst": worst, "card": grads_digest(gd),
+            "cpu": grads_digest(gc)}
 
 
 def leaf_names(params, prefix=""):
@@ -4360,6 +4410,391 @@ def phase_ring_blocks(device, shard=RING_SHARD, degrees=RING_DEGREES,
     return out
 
 
+
+# ------------------------------- phase 18: DAGs, the RL mesh, the tracker
+
+DAG_REPLAYS = 50          # replays of 18a's captured graph, timed
+ACTOR_DAG_N = 200         # executions of 18b's A/B (the JAX test's N)
+ACTOR_DAG_SPEEDUP = 2.0   # compiled >= 2x eager (the JAX test's criterion)
+TRACKER_RUNS = ("on", "off", "off", "on") * 2   # 18d's A/B, in turns
+TRACKER_CALLS = 10_000    # calls of a no-op behind the tracker's wrap
+LLM_CALLABLES = ("llm.ragged_step", "llm.decode_loop", "llm.copy_page")
+
+
+def back_to_back_ms(fn, n):
+    """Mean ms of one fn() over n calls enqueued back to back between two
+    CUDA events (after one untimed call): the host's time to enqueue a
+    call shows wherever it exceeds the device's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def dag_stages(device, shape=FLASH_SHAPE, seed=5):
+    """18a's graph: ``project`` (x [B, L, H, D] through one bf16 matmul
+    into k and v), ``attend`` (the flash forward, causal, with x itself
+    as the queries: it reads the input and the projection, so the graph
+    is a diamond) and ``output`` (the output projection) as remote
+    functions bound under one InputNode; -> (the DAG node, the stages'
+    plain functions)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+
+    B, H, L, D = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    w_kv = (torch.randn(H * D, 2 * H * D, generator=g, device=device)
+            * (H * D) ** -0.5).bfloat16()
+    w_o = (torch.randn(H * D, H * D, generator=g, device=device)
+           * (H * D) ** -0.5).bfloat16()
+
+    @ray_tpu_torch.remote
+    def project(x, w):
+        kv = torch.matmul(x.reshape(B, L, H * D), w)
+        k, v = kv.reshape(B, L, 2, H, D).unbind(2)
+        return k.contiguous(), v.contiguous()
+
+    @ray_tpu_torch.remote
+    def attend(x, kv):
+        return flash_attention(x, *kv, causal=True)
+
+    @ray_tpu_torch.remote
+    def output(a, w):
+        return torch.matmul(a.reshape(B, L, H * D), w)
+
+    with InputNode() as inp:
+        dag = output.bind(attend.bind(inp, project.bind(inp, w_kv)), w_o)
+    return dag, (project, attend, output), (w_kv, w_o)
+
+
+def phase_compiled_dag(device, shape=FLASH_SHAPE, replays=DAG_REPLAYS):
+    """18a: a compiled pure-function DAG around one flash forward at phase
+    6's shape (bf16, causal), captured once in a CUDA graph and replayed;
+    the replay's output equal to the stages run eagerly on the card to
+    the bit, the flash stage within phase 6's limits of the plain
+    version, a result kept from the first ``execute`` unchanged by the
+    next, and the flash launches, counted from 0, equal to captures +
+    replays (the plain version never on CUDA). Prints the capture time
+    and the replay and eager ms; -> {"launches", "captures",
+    "replays"}."""
+    from ray_tpu_torch.dag import experimental_compile
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    B, H, L, D = shape
+    dag, (project, attend, output), (w_kv, w_o) = dag_stages(device, shape)
+    g = torch.Generator(device=device).manual_seed(6)
+    xs = [torch.randn(B, L, H, D, generator=g, device=device).bfloat16()
+          for _ in range(2)]
+    compiled = experimental_compile(dag)
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    first = compiled.execute(xs[0])
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    kept = first.clone()
+    second = compiled.execute(xs[1])
+    replay_ms = back_to_back_ms(lambda: compiled.execute(xs[1]), replays)
+    out = compiled.execute(xs[1])
+    executes = 4 + replays
+    launches = dict(tfa.launch_counts)
+    captures = compiled.captures()
+    assert captures == 1, captures
+    assert launches["flash_attention_fwd"] == captures + executes, \
+        (launches, captures, executes)
+    assert launches["flash_attention_fwd_reference_cuda"] == 0, launches
+    assert torch.equal(first, kept), \
+        "the second execute overwrote the first one's result"
+
+    def eager(x):
+        kv = project.underlying_function(x, w_kv)
+        a = attend.underlying_function(x, kv)
+        return output.underlying_function(a, w_o), kv, a
+
+    eager_ms = back_to_back_ms(lambda: eager(xs[1]), replays)
+    want, kv, a = eager(xs[1])
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for got in (second, out):
+        assert torch.equal(got, want), \
+            f"replay differs from eager: {(got - want).abs().max().item()}"
+
+    def bh(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, L, D)
+
+    plain, _ = tfa._fwd_reference(bh(xs[1]), bh(kv[0]), bh(kv[1]), True,
+                                  D ** -0.5)
+    ratio = flash_ratios(bh(a), plain).max().item()
+    assert ratio <= 1, f"the flash stage at {ratio} x phase 6's limit"
+    log(f"18a compiled DAG (project -> flash forward -> output, B {B} H "
+        f"{H} L {L} D {D} bf16, causal): captured in {capture_s:.2f} s "
+        f"(warm-up and capture), replay {replay_ms:.4f} ms a call over "
+        f"{replays} (input copy, graph, output clone), eager "
+        f"{eager_ms:.4f} ms; replay equal to eager to the bit; the flash "
+        f"stage {ratio:.3f} x the limit of the plain version; flash "
+        f"launches {launches['flash_attention_fwd']} = {captures} capture "
+        f"+ {executes} replays")
+    return {"launches": launches["flash_attention_fwd"],
+            "captures": captures, "replays": executes,
+            "capture_s": capture_s, "replay_ms": replay_ms,
+            "eager_ms": eager_ms}
+
+
+def phase_actor_dag(n=ACTOR_DAG_N, speedup=ACTOR_DAG_SPEEDUP):
+    """18b: tests/test_jobs_dag_workflow.py's compiled actor DAG on the
+    cluster runtime (a fresh ``init(num_cpus=2)``): two actors chained
+    through shm channels, ordering over 20 pipelined executions, an error
+    travelling the channel with the pipeline working after it, then the
+    JAX test's done criterion: compiled >= 2x eager chained calls at N
+    ``n`` (``speedup``); ``teardown`` and ``shutdown``. -> the two
+    rates."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode, experimental_compile
+
+    t0 = time.monotonic()
+    rt.init(num_cpus=2, _system_config={
+        "object_store_memory_bytes": 256 << 20})
+    try:
+        @rt.remote(num_cpus=0)
+        class Doubler:
+            def f(self, x):
+                if x == "boom":
+                    raise ValueError("boom-input")
+                return x * 2
+
+        @rt.remote(num_cpus=0)
+        class AddOne:
+            def g(self, x):
+                return x + 1
+
+        a, b = Doubler.remote(), AddOne.remote()
+        assert rt.get(b.g.remote(rt.get(a.f.remote(1), timeout=120)),
+                      timeout=120) == 3
+        with InputNode() as inp:
+            dag = b.g.bind(a.f.bind(inp))
+        compiled = experimental_compile(dag)
+        try:
+            refs = [compiled.execute(i) for i in range(20)]
+            assert [r.get() for r in refs] == [2 * i + 1 for i in range(20)]
+            bad, ok = compiled.execute("boom"), compiled.execute(5)
+            try:
+                bad.get()
+                raise AssertionError("the error did not travel the channel")
+            except ValueError as e:
+                assert "boom-input" in str(e), e
+            assert ok.get() == 11
+            t = time.perf_counter()
+            for i in range(n):
+                rt.get(b.g.remote(rt.get(a.f.remote(i))))
+            eager = n / (time.perf_counter() - t)
+            t = time.perf_counter()
+            refs = [compiled.execute(i) for i in range(n)]
+            out = [r.get() for r in refs]
+            rate = n / (time.perf_counter() - t)
+            assert out == [2 * i + 1 for i in range(n)]
+        finally:
+            compiled.teardown()
+    finally:
+        rt.shutdown()
+    log(f"18b compiled actor DAG (two actors, shm channels): ordering over "
+        f"20 and the error through the channel checked; N {n}: eager "
+        f"chained calls {eager:.0f}/s, compiled {rate:.0f}/s, "
+        f"{rate / eager:.2f}x (criterion {speedup}x); the phase "
+        f"{time.monotonic() - t0:.1f} s")
+    assert rate >= speedup * eager, (eager, rate)
+    return {"eager_per_s": eager, "compiled_per_s": rate}
+
+
+def rl_mesh_batch(name, algo):
+    """One update's input for ``name``: PPO's and IMPALA's from the
+    algorithm's own runners, BC's 512 rows from its dataset."""
+    if name == "BC":
+        return next(iter(algo.config.dataset.iter_batches(
+            batch_size=algo.config.batch_size, drop_last=True)))
+    return learner_batch(name, algo)
+
+
+def phase_rl_mesh(device):
+    """18c: PPO, IMPALA and BC through ``build(mesh=)`` on a mesh of one
+    rank (a process group of world size 1: NCCL on the card, gloo on the
+    CPU) in the local-mode runtime, phase 11's settings: one update of
+    each on a batch from its runners (BC: its dataset) equal to the bit
+    to the same update of ``build(mesh=None)``'s learner from the same
+    parameters (PPO with the same permutations); then one ``train()`` of
+    each mesh algorithm, through the first rank's sampling and
+    broadcasts."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import ray_tpu_torch
+    from ray_tpu_torch.data import from_numpy
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.rllib import BCConfig
+    from ray_tpu_torch.train import param_leaves
+
+    t0 = time.monotonic()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
+    algos = []
+    try:
+        mesh = build_mesh(MeshSpec(), device.type)
+        rng = np.random.default_rng(12)
+        rows = from_numpy({"obs": rng.normal(size=(1024, 4)).astype(
+            np.float32), "action": rng.integers(0, 2, 1024).astype(np.int32)})
+        configs = {name: rl_cases()[name][0] for name in ("PPO", "IMPALA")}
+        configs["BC"] = BCConfig(dataset=rows, **BC_CONFIG)
+        line = []
+        for name, cfg in configs.items():
+            sharded, plain = (cfg.build(device=device, mesh=m)
+                              for m in (mesh, None))
+            algos += [sharded, plain]
+            for x, y in zip(param_leaves(sharded.params),
+                            param_leaves(plain.params)):
+                assert torch.equal(x, y), f"{name}: built apart"
+            batch = rl_mesh_batch(name, plain)
+            kw = {}
+            if name == "PPO":
+                g = torch.Generator().manual_seed(11)
+                kw["perms"] = [torch.randperm(batch["rewards"].size,
+                                              generator=g).numpy()
+                               for _ in range(cfg.num_epochs)]
+            got = sharded.learner.update(sharded.params, batch, **kw)
+            want = plain.learner.update(plain.params, batch, **kw)
+            for x, y in zip(param_leaves(got[0]), param_leaves(want[0])):
+                assert torch.equal(x, y), f"{name}: mesh update differs"
+            assert got[1] == want[1], (name, got[1], want[1])
+            t = time.monotonic()
+            res = sharded.train()
+            loss = res["learner"].get("loss", res["learner"].get("bc_loss"))
+            assert np.isfinite(loss), (name, res)
+            line.append(f"{name} {json.dumps(got[1])}, one train() on the "
+                        f"mesh {time.monotonic() - t:.2f} s")
+    finally:
+        for algo in algos:
+            algo.stop()
+        ray_tpu_torch.shutdown()
+        dist.destroy_process_group()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    log(f"18c RL on a one-rank {backend} mesh: one update each equal to "
+        f"the bit to mesh=None: "
+        f"{'; '.join(line)}; the phase {time.monotonic() - t0:.1f} s")
+
+
+def tracker_records():
+    """The process tracker's compile records of the engine's step
+    functions: {callable: compiles}."""
+    from ray_tpu_torch.util import compile_tracker
+    tracker = compile_tracker.get_global()
+    assert tracker is not None, "the compile tracker is off"
+    return {n: (tracker.callable_stats(n) or {}).get("compiles", 0)
+            for n in LLM_CALLABLES}
+
+
+def phase_tracker(programs, model_config=None, engine_config=None,
+                  runs=TRACKER_RUNS):
+    """18d, right after phase 4 (the process's first engine): the compile
+    tracker's records of ``llm.*`` equal the step programs phase 4
+    dispatched (at most 3) and no ``llm_compile_invariant_breach`` event
+    is staged; then phase 4's engine (its model and engine settings, the
+    prefix cache off so that each run does the same work) serves phase
+    4's first wave in turns with the tracker's wraps on and off: the
+    streams equal, no new record, the ragged launches counted from 0 the
+    engine's count; and the wrap's own host cost a call (a no-op behind
+    the same wrap and probe, ``TRACKER_CALLS`` calls); -> the ragged
+    launches."""
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    from ray_tpu_torch.ops import paged_attention as tpa
+    from ray_tpu_torch.util import compile_tracker
+
+    records = tracker_records()
+    breaches = [e for e in compile_tracker.get_global()
+                .drain_journal_events()
+                if e["type"] == "llm_compile_invariant_breach"]
+    assert sum(records.values()) == programs <= 3, (records, programs)
+    assert not breaches, breaches
+    cfg = model_config_from_dict(model_config or MAIN_MODEL)
+    eng = InferenceEngine(cfg, **{**(engine_config or MAIN_ENGINE),
+                                  "prefix_cache": False})
+    wrapped = {n: getattr(eng._fns, n) for n in
+               ("ragged_step", "decode_loop", "copy_page")}
+    plain = {n: f.__rtpu_compile_wrapped__ for n, f in wrapped.items()}
+    reqs, _ = main_requests(cfg.vocab_size, eng.prefill_chunk)
+    for name in tpa.launch_counts:
+        tpa.launch_counts[name] = 0
+    turns, streams = [], []
+
+    def sync():
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    for mode in runs:
+        for n, f in (wrapped if mode == "on" else plain).items():
+            setattr(eng._fns, n, f)
+        sync()
+        t = time.monotonic()
+        rids = [eng.add_request(prompt, max_tokens)
+                for _, prompt, max_tokens in reqs]
+        done = {}
+        for _ in range(1000):
+            done.update(eng.step())
+            if len(done) == len(rids):
+                break
+        sync()
+        turns.append((mode, time.monotonic() - t))
+        streams.append([done[r] for r in rids])
+    launches = dict(tpa.launch_counts)
+    stats = dict(eng.stats)
+    expected = cfg.n_layers * (stats["ragged_dispatches"]
+                               + eng.decode_chunk
+                               * stats["decode_dispatches"])
+    after = tracker_records()
+    noop = compile_tracker.get_global().wrap(
+        lambda: None, name="chip_smoke.noop",
+        probe=eng._fns.compiled_step_programs)
+    t = time.perf_counter()
+    for _ in range(TRACKER_CALLS):
+        noop()
+    wrap_us = (time.perf_counter() - t) / TRACKER_CALLS * 1e6
+    dispatches = stats["ragged_dispatches"] + stats["decode_dispatches"] \
+        + stats["cow_copies"]
+    del eng, wrapped, plain, sync
+    assert all(s == streams[0] for s in streams), "the tracker moved a token"
+    assert after == records, (records, after)
+    assert launches["ragged_paged_attention"] == expected, \
+        (launches, expected)
+    assert launches["ragged_paged_attention_reference_cuda"] == 0, launches
+    on, off = (sum(s for m, s in turns if m == mode)
+               / sum(m == mode for m, _ in turns) for mode in ("on", "off"))
+    log(f"18d compile tracker: phase 4's records {json.dumps(records)} = "
+        f"{programs} step programs, no breach event; phase 4's first wave "
+        f"on its engine (prefix cache off) in turns "
+        f"{', '.join(f'{m} {s:.3f} s' for m, s in turns)}: "
+        f"with the tracker {on:.3f} s, without {off:.3f} s "
+        f"({(on / off - 1) * 100:+.2f}%); streams equal, no new record; "
+        f"the wrap's own cost {wrap_us:.2f} us a call, "
+        f"{dispatches} dispatches: "
+        f"{wrap_us * dispatches / len(runs) / 1e3:.3f} ms a wave; "
+        f"ragged launches {launches['ragged_paged_attention']} = the "
+        f"engine's count")
+    return launches["ragged_paged_attention"]
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -4402,6 +4837,10 @@ def main():
     assert launches["ragged_paged_attention_reference_cuda"] == 0, \
         "the plain attention ran on CUDA tensors in the main path"
     assert programs[0] == 0 and programs[1] <= 3, programs
+    # 18d: the compile tracker's records of phase 4, then its cost, while
+    # phase 4's engine is still the only one the process ran
+    free_card()
+    tracker_launches = phase_tracker(programs[1])
     free_card()
     decode_launches = phase_decode_engine()
     phase_oracle(device)
@@ -4494,6 +4933,14 @@ def main():
     ring_block_against_plain(device)
     ring = phase_ring_blocks(device, card=card)
     log(f"phase 17: {time.monotonic() - t_axes:.1f} s")
+    # the DAGs and the RL learners on a mesh (18d ran after phase 4)
+    t_dags = time.monotonic()
+    free_card()
+    dag = phase_compiled_dag(device)
+    free_card()
+    phase_actor_dag()
+    phase_rl_mesh(device)
+    log(f"phase 18a-c: {time.monotonic() - t_dags:.1f} s")
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -4503,7 +4950,7 @@ def main():
         "source": "ray_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:340",
         "launches": launches["ragged_paged_attention"]
-        + tp_serving["launches"] + tp4["launches"],
+        + tp_serving["launches"] + tp4["launches"] + tracker_launches,
         "max_abs_err": max(k["max_abs_err"] for k in [
             *kern.values(), *kern_bench.values(), *kern_shards]),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
@@ -4521,7 +4968,8 @@ def main():
         "source": f"ray_tpu_torch/ops/csrc/{src}",
         "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
         "launches": flash_launches[name] + trainer_launches[name]
-        + sum(r["launches"][name] for r in ring.values()),
+        + sum(r["launches"][name] for r in ring.values())
+        + (dag["launches"] if name == "flash_attention_fwd" else 0),
         **flash[name]}
         for name, src, line in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 91),

@@ -15,7 +15,10 @@ joined, and the daemons stopped, before the interpreter goes. RLlib
 (``rllib/``: PPO, IMPALA, DQN, SAC and BC with their env runners), the
 datasets of ``data/`` and Tune (``tune/``) run on either mode; Serve
 (``serve/``: deployments, the router, the HTTP and gRPC ingress) on the
-cluster runtime. The runtime's modules never import torch: the daemons
+cluster runtime. ``fn.bind(...)`` builds lazy DAGs (``dag.py``:
+``experimental_compile`` captures a graph of pure stages in CUDA graphs,
+or pipelines an actor chain over shm channels, ``runtime/channel.py``),
+which durable workflows (``workflow.py``) run step by step. The runtime's modules never import torch: the daemons
 stay free of it.
 
 The Llama and Mixtral models and their losses, the MLP, and the routed

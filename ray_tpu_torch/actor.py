@@ -146,11 +146,10 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node over this actor method (reference:
-        dag/class_node.py ClassMethodNode): not in this package until
-        ``dag.py`` is ported (ROADMAP Queue 1 item 8)."""
-        raise NotImplementedError(
-            "bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        dag/class_node.py ClassMethodNode); chains compile into
+        pre-launched channel-fed loops via dag.experimental_compile."""
+        from ray_tpu_torch.dag import ActorMethodNode
+        return ActorMethodNode(self._handle, self._method_name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError("actor methods must be invoked with .remote()")

@@ -24,15 +24,17 @@ timestamp ``time.monotonic()`` taken after the dispatch's tokens reached
 the host), the engine gauges on the port's metrics plane (``_update_metrics``,
 throttled to ~1/s), and ``compiled_step_programs()``: the distinct step
 programs dispatched in this process, each step function per signature of
-its arguments (the counterpart of the JAX engine's jit cache entries).
+its arguments (the counterpart of the JAX engine's jit cache entries),
+fed to the process's compile tracker (``util/compile_tracker.py``): the
+step functions are wrapped as ``llm.ragged_step``, ``llm.decode_loop``
+and ``llm.copy_page``, a new program is a compile record, and more than 3
+programs stage one ``llm_compile_invariant_breach`` journal event per
+excursion.
 
 Tensor parallelism (``tp`` > 1): ``llm/tp.py``'s ``TPEngineFns`` behind
 the same ``_fns`` seam, the parameters and the pool split into one shard
 per device (``devices``); the scheduler, the page allocator, the prefix
 cache and the telemetry do not change.
-
-Not ported yet: the compile tracker (its journal events need the
-runtime).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ray_tpu_torch.models.llama import (LlamaConfig, init_leaves,
                                         init_params, resolve_device,
                                         tree_leaves)
 from ray_tpu_torch.ops.paged_attention import check_kernel_geometry
+from ray_tpu_torch.util import compile_tracker
 from ray_tpu_torch.util import metrics as metrics_mod
 
 #: step programs dispatched in this process: (step function, its static
@@ -247,6 +250,20 @@ class InferenceEngine:
             self.kv = make_kv_cache(cfg, total_pages, page_size,
                                     kv_dtype=self.kv_dtype,
                                     device=self.device)
+        # compile tracker seam (util/compile_tracker.py), as the JAX
+        # engine's: the three step entry points are wrapped so every new
+        # step program is recorded with its arg signature. The probe is
+        # compiled_step_programs itself: growth of the program set across
+        # one wrapped call (``_note_program``) belongs to that call — the
+        # port's counterpart of a jit compile.
+        self._tracker = compile_tracker.ensure_started()
+        self._invariant_breached = False
+        if self._tracker is not None:
+            probe = self._fns.compiled_step_programs
+            for name in ("ragged_step", "decode_loop", "copy_page"):
+                setattr(self._fns, name, self._tracker.wrap(
+                    getattr(self._fns, name), name=f"llm.{name}",
+                    probe=probe))
         self.allocator = PageAllocator(total_pages)
         use_prefix = defaults["llm_prefix_cache"] \
             if prefix_cache is None else prefix_cache
@@ -762,10 +779,29 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- metrics
 
+    def _check_program_budget(self, programs: int) -> None:
+        """Above 3 step programs, stage ONE
+        ``llm_compile_invariant_breach`` cluster-journal event per
+        excursion, carrying the tracker's last ``llm.*`` recompile (the
+        culprit's name, its signature and the diff that moved); re-armed
+        once the count drops (a fresh process, a cleared program set)."""
+        if programs <= 3:
+            self._invariant_breached = False
+            return
+        if self._invariant_breached or self._tracker is None:
+            return
+        self._invariant_breached = True
+        culprit = self._tracker.last_recompile("llm.") or {}
+        self._tracker.stage_journal_event(
+            "llm_compile_invariant_breach", programs=programs, budget=3,
+            callable=culprit.get("name", ""),
+            diff=culprit.get("diff", []),
+            signature=culprit.get("signature", []))
+
     def _update_metrics(self, force: bool = False) -> None:
-        """Engine gauges on the port's metrics plane, throttled to ~1/s.
-        The JAX engine's compile-invariant journal event waits for the
-        runtime; the program count is the gauge here."""
+        """Engine gauges on the port's metrics plane, throttled to ~1/s,
+        and the step-program budget's journal event
+        (``_check_program_budget``)."""
         now = time.monotonic()
         dt = now - self._metrics_ts
         if dt < 1.0 and not force:
@@ -786,7 +822,9 @@ class InferenceEngine:
         # ragged-step visibility: step programs dispatched (O(1) by
         # design), dispatches per scheduler step, and the padding
         # fraction of ragged token slots over the gauge window
-        self._g_programs.set(float(self.compiled_step_programs()))
+        programs = self.compiled_step_programs()
+        self._g_programs.set(float(programs))
+        self._check_program_budget(programs)
         d_steps = s["steps"] - last["steps"]
         if d_steps > 0:
             disp = sum(s[k] - last[k] for k in

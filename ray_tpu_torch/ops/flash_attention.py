@@ -53,6 +53,14 @@ def _count(name: str) -> None:
         launch_counts[name] += 1
 
 
+def add_launches(delta) -> None:
+    """Add each ``delta[name]`` to ``launch_counts[name]`` (a CUDA graph's
+    replay launches what its capture counted once: ``dag.CompiledDAG``)."""
+    with _count_lock:
+        for name, n in delta.items():
+            launch_counts[name] += n
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for (Llama: 128; bf16 at 64
 #: takes the first designs, the Hopper designs being built for 128 only)

@@ -76,6 +76,14 @@ def _count(name: str) -> None:
         launch_counts[name] += 1
 
 
+def add_launches(delta) -> None:
+    """Add each ``delta[name]`` to ``launch_counts[name]`` (a CUDA graph's
+    replay launches what its capture counted once: ``dag.CompiledDAG``)."""
+    with _count_lock:
+        for name, n in delta.items():
+            launch_counts[name] += n
+
+
 def _token_descriptors(q_start, q_len, kv_len, T: int):
     """Per-token (owning row, visible kv length) from per-row descriptors;
     a token no row owns gets row 0 and visible length 0."""

@@ -95,11 +95,10 @@ class RemoteFunction:
         return refs
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG node (reference: ray.dag dag_node.py:32): not in this
-        package until ``dag.py`` is ported (ROADMAP Queue 1 item 8)."""
-        raise NotImplementedError(
-            "bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        """Lazy DAG node (reference: ray.dag dag_node.py:32) — builds the
+        graph without executing; see ray_tpu_torch.dag."""
+        from ray_tpu_torch.dag import DAGNode
+        return DAGNode(self, args, kwargs)
 
     @property
     def underlying_function(self):

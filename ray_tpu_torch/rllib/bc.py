@@ -11,6 +11,11 @@ Besides the JAX package's result keys, each result carries
 ``time_data_s`` (waiting on the dataset's batches) and ``time_learn_s``
 (the learner updates).
 
+On a device mesh (``build(mesh=)``) the JAX ``BCLearner`` keeps the mesh
+and shards nothing; here every rank is a process, the first reads the
+dataset and runs the evaluation runners, broadcasting each batch and the
+returns, and every rank computes the same whole-batch update.
+
 ``record_dataset`` is the offline-writer half (reference:
 rllib/offline/offline_env_runner.py): roll a trained policy and persist
 (obs, action) rows as a Dataset.
@@ -29,14 +34,16 @@ import ray_tpu_torch
 from ray_tpu_torch.rllib.env import ENV_REGISTRY
 from ray_tpu_torch.rllib.learner import Adam, params_device, value_and_grad
 from ray_tpu_torch.rllib.module import forward, init_module
-from ray_tpu_torch.rllib.trainer_base import TrainerBase, check_build
+from ray_tpu_torch.rllib.trainer_base import (TrainerBase, check_build,
+                                              from_root)
 
 
 class BCLearner:
     """Supervised update: -log pi(a_recorded | obs), one Adam step."""
 
-    def __init__(self, *, lr: float = 1e-3):
+    def __init__(self, *, lr: float = 1e-3, mesh=None):
         self.optimizer = Adam(lr)
+        self.mesh = mesh   # kept, as the JAX learner keeps it: no shards
 
     def init(self, params) -> None:
         self.optimizer.init(params)
@@ -107,12 +114,13 @@ class BC(TrainerBase):
     def __init__(self, config: BCConfig, device="cuda", mesh=None):
         self.config = config
         self.device = check_build(device, mesh)
+        self.mesh = mesh
         spec = ENV_REGISTRY[config.env](1)
         self._gen = torch.Generator(device=self.device).manual_seed(
             config.seed)
         self.params = init_module(self._gen, spec.observation_dim,
                                   spec.num_actions, config.hidden)
-        self.learner = BCLearner(lr=config.lr)
+        self.learner = BCLearner(lr=config.lr, mesh=mesh)
         self.learner.init(self.params)
         # greedy evaluation runners (epsilon 0 => argmax over the policy
         # head): offline training, ONLINE measurement
@@ -127,10 +135,12 @@ class BC(TrainerBase):
         n = 0
         data_s = learn_s = 0.0
         batches = iter(self.config.dataset.iter_batches(
-            batch_size=self.config.batch_size, drop_last=True))
+            batch_size=self.config.batch_size, drop_last=True)) \
+            if self.is_root else None
         while True:
             t = time.monotonic()
-            batch = next(batches, None)
+            batch = next(batches, None) if self.is_root else None
+            batch = from_root(batch, self.mesh)
             t_learn = time.monotonic()
             data_s += t_learn - t
             if batch is None:
@@ -140,10 +150,13 @@ class BC(TrainerBase):
             losses.append(metrics["bc_loss"])
             n += len(batch["action"])
         # greedy eval episode returns
-        self._broadcast_weights(epsilon=0.0)
-        evals = ray_tpu_torch.get([r.sample.remote() for r in self.runners],
-                                  timeout=600)
-        returns = np.concatenate([b["episode_returns"] for b in evals])
+        returns = None
+        if self.is_root:
+            self._broadcast_weights(epsilon=0.0)
+            evals = ray_tpu_torch.get(
+                [r.sample.remote() for r in self.runners], timeout=600)
+            returns = np.concatenate([b["episode_returns"] for b in evals])
+        returns = from_root(returns, self.mesh)
         self._track_returns(returns)
         return self._base_result(
             episodes=int(len(returns)), t0=t0,

@@ -93,14 +93,14 @@ class DQNConfig:
     # the env runners' device ("cpu", "cuda"); None: the learner's
     runner_device: Optional[str] = None
 
-    def build(self, device="cuda", mesh=None) -> "DQN":
-        return DQN(self, device=device, mesh=mesh)
+    def build(self, device="cuda") -> "DQN":
+        return DQN(self, device=device)
 
 
 class DQN(TrainerBase):
-    def __init__(self, config: DQNConfig, device="cuda", mesh=None):
+    def __init__(self, config: DQNConfig, device="cuda"):
         self.config = config
-        self.device = check_build(device, mesh)
+        self.device = check_build(device)
         spec = ENV_REGISTRY[config.env](1)
         gen = torch.Generator(device=self.device).manual_seed(config.seed)
         self.params = init_module(gen, spec.observation_dim,

@@ -8,6 +8,13 @@ importance weights, then pushes fresh weights to that runner only. The
 runners sample while the learner updates, so each push is a snapshot
 (``module.snapshot``): a runner never reads parameters halfway through an
 update.
+
+On a device mesh (``build(mesh=)``) each rank is a process: the first
+owns the runners and broadcasts each batch, every rank runs the update on
+its own columns of the env axis (V-trace along T, the bootstrap value
+from its own ``last_obs`` rows), the loss terms are global sums over the
+T·B samples, and the gradients are summed over the ranks before the clip
+at 40 (``learner.py``), so every rank holds the same parameters.
 """
 
 from __future__ import annotations
@@ -21,10 +28,13 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch.rllib.env import ENV_REGISTRY
-from ray_tpu_torch.rllib.learner import (Adam, params_device, to_device,
+from ray_tpu_torch.rllib.learner import (Adam, env_shards, global_sum,
+                                         mesh_loss, params_device,
+                                         shard_env, to_device,
                                          value_and_grad)
 from ray_tpu_torch.rllib.module import forward, init_module
-from ray_tpu_torch.rllib.trainer_base import TrainerBase, check_build
+from ray_tpu_torch.rllib.trainer_base import (TrainerBase, check_build,
+                                              from_root)
 
 
 def vtrace(behavior_logp, target_logp, values, rewards, dones, last_value,
@@ -60,13 +70,16 @@ class IMPALALearner:
     def __init__(self, *, lr: float = 6e-4, gamma: float = 0.99,
                  vf_coeff: float = 0.5, entropy_coeff: float = 0.01,
                  rho_clip: float = 1.0, c_clip: float = 1.0,
-                 max_grad_norm: float = 40.0):
+                 max_grad_norm: float = 40.0, mesh=None):
         self.optimizer = Adam(lr, max_norm=max_grad_norm)
         self.cfg = dict(gamma=gamma, vf=vf_coeff, ent=entropy_coeff,
                         rho_clip=rho_clip, c_clip=c_clip)
+        self.mesh = mesh
         self.initialized = False
 
     def _loss(self, p, batch):
+        """Sums over this rank's [T, B / ranks] samples over the whole
+        batch's T·B, summed over the ranks."""
         cfg = self.cfg
         T, B = batch["rewards"].shape
         logits, values = forward(p, batch["obs"].reshape(T * B, -1))
@@ -82,11 +95,14 @@ class IMPALALearner:
             batch["logp"], logp.detach(), values.detach(), batch["rewards"],
             batch["dones"], last_value.detach(), gamma=cfg["gamma"],
             rho_clip=cfg["rho_clip"], c_clip=cfg["c_clip"])
-        pg_loss = -(pg_adv * logp).mean()
-        v_loss = 0.5 * ((values - vs) ** 2).mean()
-        entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
-        return (pg_loss + cfg["vf"] * v_loss - cfg["ent"] * entropy,
-                (v_loss.detach(), entropy.detach()))
+        size = T * B * env_shards(self.mesh)[0]
+        pg_loss = -(pg_adv * logp).sum()
+        v_loss = 0.5 * ((values - vs) ** 2).sum()
+        entropy = -(torch.exp(logp_all) * logp_all).sum(-1).sum()
+        total = (pg_loss + cfg["vf"] * v_loss - cfg["ent"] * entropy) / size
+        return (mesh_loss(total, self.mesh),
+                (global_sum(v_loss, self.mesh) / size,
+                 global_sum(entropy, self.mesh) / size))
 
     def update(self, params, batch: Dict[str, np.ndarray]):
         if not self.initialized:
@@ -94,8 +110,10 @@ class IMPALALearner:
             self.initialized = True
         jb = to_device(batch, ("obs", "actions", "logp", "rewards", "dones",
                                "last_obs"), params_device(params))
+        if self.mesh is not None:
+            jb = shard_env(jb, self.mesh, batch_major=("last_obs",))
         loss, (v_loss, entropy), grads = value_and_grad(
-            self._loss, params, jb)
+            self._loss, params, jb, mesh=self.mesh)
         params = self.optimizer.step(params, grads)
         m = torch.stack([loss, v_loss, entropy]).tolist()
         return params, {"loss": m[0], "v_loss": m[1], "entropy": m[2]}
@@ -132,6 +150,7 @@ class IMPALA(TrainerBase):
     def __init__(self, config: IMPALAConfig, device="cuda", mesh=None):
         self.config = config
         self.device = check_build(device, mesh)
+        self.mesh = mesh
         spec = ENV_REGISTRY[config.env](1)
         gen = torch.Generator(device=self.device).manual_seed(config.seed)
         self.params = init_module(gen, spec.observation_dim,
@@ -139,14 +158,16 @@ class IMPALA(TrainerBase):
         self.learner = IMPALALearner(
             lr=config.lr, gamma=config.gamma, vf_coeff=config.vf_coeff,
             entropy_coeff=config.entropy_coeff, rho_clip=config.rho_clip,
-            c_clip=config.c_clip)
+            c_clip=config.c_clip, mesh=mesh)
         self._make_runners(config.env, config.num_env_runners,
                            config.num_envs_per_runner,
                            config.rollout_length, config.seed)
-        self._broadcast_weights()
         # one sample PERMANENTLY in flight per runner — the async core
-        self._inflight: Dict[Any, Any] = {
-            r.sample.remote(): r for r in self.runners}
+        # (on a mesh, the first rank's runners)
+        self._inflight: Dict[Any, Any] = {}
+        if self.is_root:
+            self._broadcast_weights()
+            self._inflight = {r.sample.remote(): r for r in self.runners}
 
     def train(self) -> Dict[str, Any]:
         """One iteration = consume batches_per_iteration async batches."""
@@ -157,16 +178,10 @@ class IMPALA(TrainerBase):
         metrics: Dict[str, float] = {}
         for _ in range(self.config.batches_per_iteration):
             t = time.monotonic()
-            ready, _ = ray_tpu_torch.wait(list(self._inflight),
-                                          num_returns=1, timeout=600)
-            if not ready:
-                from ray_tpu_torch.exceptions import GetTimeoutError
-                raise GetTimeoutError(
-                    f"no env-runner produced a batch within 600s "
-                    f"({len(self._inflight)} in flight — runners dead?)")
-            ref = ready[0]
-            runner = self._inflight.pop(ref)
-            batch = ray_tpu_torch.get(ref)
+            runner = batch = None
+            if self.is_root:
+                runner, batch = self._next_batch()
+            batch = from_root(batch, self.mesh)
             t_sample += time.monotonic() - t
             t = time.monotonic()
             self.params, metrics = self.learner.update(self.params, batch)
@@ -177,8 +192,21 @@ class IMPALA(TrainerBase):
             self._track_returns(returns)
             # fresh weights to this runner only, then it resamples —
             # other runners keep producing with their (stale) weights
-            runner.set_weights.remote(self._put_weights())
-            self._inflight[runner.sample.remote()] = runner
+            if runner is not None:
+                runner.set_weights.remote(self._put_weights())
+                self._inflight[runner.sample.remote()] = runner
         return self._base_result(
             episodes=episodes, t0=t0, env_steps_this_iter=env_steps,
             time_sample_s=t_sample, time_learn_s=t_learn, learner=metrics)
+
+    def _next_batch(self):
+        """(runner, batch) of whichever in-flight sample lands first."""
+        ready, _ = ray_tpu_torch.wait(list(self._inflight), num_returns=1,
+                                      timeout=600)
+        if not ready:
+            from ray_tpu_torch.exceptions import GetTimeoutError
+            raise GetTimeoutError(
+                f"no env-runner produced a batch within 600s "
+                f"({len(self._inflight)} in flight — runners dead?)")
+        runner = self._inflight.pop(ready[0])
+        return runner, ray_tpu_torch.get(ready[0])

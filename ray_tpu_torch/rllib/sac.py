@@ -227,14 +227,14 @@ class SACConfig:
     # the env runners' device ("cpu", "cuda"); None: the learner's
     runner_device: Optional[str] = None
 
-    def build(self, device="cuda", mesh=None) -> "SAC":
-        return SAC(self, device=device, mesh=mesh)
+    def build(self, device="cuda") -> "SAC":
+        return SAC(self, device=device)
 
 
 class SAC(TrainerBase):
-    def __init__(self, config: SACConfig, device="cuda", mesh=None):
+    def __init__(self, config: SACConfig, device="cuda"):
         self.config = config
-        self.device = check_build(device, mesh)
+        self.device = check_build(device)
         spec = ENV_REGISTRY[config.env](1)
         if not spec.continuous:
             raise ValueError(f"SAC needs a continuous-action env, "

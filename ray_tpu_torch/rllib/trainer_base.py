@@ -7,7 +7,16 @@ names another; in cluster mode a runner is a worker process, and weights
 reach it as CPU tensors (``core/serialization.py``) that it moves to its
 device. Weights go out as a detached snapshot: local mode stores values
 by reference, and torch tensors, unlike JAX arrays, can change under a
-runner that holds them."""
+runner that holds them.
+
+On a device mesh (``build(mesh=)``: PPO, IMPALA and BC) every rank is a
+process that builds the algorithm, as ``TorchTrainer``'s loop does. Where
+the JAX package has one controller holding the whole batch, here the
+mesh's first rank owns the runners and broadcasts what they sample (and
+PPO's permutations) over the mesh's group (``from_root``); every rank
+builds the same parameters from the config's seed, runs the same update
+and so holds the same parameters, and the first rank sends the weights
+to the runners."""
 
 from __future__ import annotations
 
@@ -24,13 +33,41 @@ from ray_tpu_torch.rllib.module import snapshot
 RETURN_WINDOW = 100
 
 
-def check_build(device, mesh) -> torch.device:
-    """The device an algorithm's ``build`` runs on; a mesh raises, since
-    the learners have no sharded (mesh) path in this port yet."""
-    if mesh is not None:
-        raise ValueError("build(mesh=...): the RL learners' sharded path "
-                         "over a device mesh is not in this port yet")
-    return resolve_device(device)
+def check_build(device, mesh=None) -> torch.device:
+    """The device an algorithm's ``build`` runs on: ``device``, which a
+    mesh (a ``DeviceMesh`` from ``parallel.mesh.build_mesh``) must have
+    the type of."""
+    if mesh is not None and not (hasattr(mesh, "device_type")
+                                 and hasattr(mesh, "get_rank")):
+        raise ValueError(f"build(mesh=...) takes a torch DeviceMesh "
+                         f"(parallel.mesh.build_mesh), not a "
+                         f"{type(mesh).__name__}")
+    dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {dev.type} learner on a {mesh.device_type} "
+                         f"mesh: build on the mesh's device type")
+    return dev
+
+
+def mesh_root(mesh) -> int:
+    """The global rank of the mesh's first rank."""
+    return int(mesh.mesh.flatten()[0])
+
+
+def from_root(value, mesh):
+    """``value`` as the mesh's first rank holds it, on every rank (a
+    pickled broadcast over the mesh's group); as is without a mesh or on
+    a mesh of one rank. Pass host values (numpy, lists): a tensor would
+    be unpickled on the device it came from."""
+    from ray_tpu_torch.parallel.mesh import axis_group
+    group = None if mesh is None else axis_group(
+        mesh, tuple(mesh.mesh_dim_names))
+    if group is None:
+        return value
+    import torch.distributed as dist
+    box = [value]
+    dist.broadcast_object_list(box, src=mesh_root(mesh), group=group)
+    return box[0]
 
 
 class TrainerBase:
@@ -41,10 +78,22 @@ class TrainerBase:
     params: Any
     device: torch.device
     config: Any
+    mesh: Any = None
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this rank owns the runners: always without a mesh."""
+        return self.mesh is None or self.mesh.get_rank() == mesh_root(
+            self.mesh)
 
     def _make_runners(self, env: str, num_runners: int, num_envs: int,
                       rollout_len: int, seed: int,
                       exploration: str = "categorical") -> None:
+        self.iteration = 0
+        self._return_window: List[float] = []
+        self.runners = []
+        if not self.is_root:
+            return
         runner_cls = ray_tpu_torch.remote(num_cpus=1)(EnvRunner)
         device = self.device if self.config.runner_device is None \
             else resolve_device(self.config.runner_device)
@@ -52,8 +101,6 @@ class TrainerBase:
             runner_cls.remote(env, num_envs, rollout_len, seed=seed + i,
                               exploration=exploration, device=device)
             for i in range(num_runners)]
-        self.iteration = 0
-        self._return_window: List[float] = []
 
     def _put_weights(self):
         """One store write of a snapshot the learner cannot reach."""

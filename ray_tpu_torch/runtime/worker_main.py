@@ -341,6 +341,48 @@ class Executor:
         self.cancelled.add(payload["task_id"])
         return True
 
+    def handle_dag_start_loop(self, payload, ctx):
+        """Pre-launch a compiled-DAG execution loop on this actor
+        (reference: compiled_dag_node.py do_exec_tasks at :188 — the
+        actor-side half of aDAG): read the input shm ring, run the bound
+        method on the live actor instance, write the output ring. The
+        stop sentinel cascades: closing our input closes our output."""
+        from ray_tpu_torch.runtime.channel import ChannelClosed, ShmChannel
+        store = self.backend.object_plane.store
+        inc = ShmChannel(store, payload["in"], payload["capacity"])
+        out = ShmChannel(store, payload["out"], payload["capacity"])
+        method_name = payload["method"]
+
+        def loop():
+            while True:
+                try:
+                    tag, val = inc.get(timeout=None)
+                except ChannelClosed:
+                    out.close()
+                    return
+                except Exception:  # noqa: BLE001 — store torn down
+                    return
+                if tag == "e":  # upstream error: pass through untouched
+                    out.put((tag, val))
+                    continue
+                try:
+                    method = getattr(self.actor_instance, method_name)
+                    out.put(("v", method(val)))
+                except BaseException as e:  # noqa: BLE001
+                    if isinstance(e, (SystemExit, KeyboardInterrupt)):
+                        raise
+                    try:
+                        out.put(("e", e))
+                    except Exception:  # unserializable exception: a dead
+                        # loop would hang the whole pipeline — ship a
+                        # stringified stand-in instead
+                        out.put(("e", RuntimeError(
+                            f"{type(e).__name__}: {e!r} "
+                            f"(original not serializable)")))
+
+        threading.Thread(target=loop, daemon=True, name="dag-loop").start()
+        return self.backend.local_node_id
+
     def handle_become_actor(self, payload, ctx):
         # Ack immediately — construction runs async on the exec thread so an
         # arbitrarily slow __init__ can't trip the node->worker RPC deadline
@@ -854,6 +896,7 @@ def main() -> None:
         "push_task_batch": executor.handle_push_task_batch,
         "become_actor": executor.handle_become_actor,
         "cancel_task": executor.handle_cancel,
+        "dag_start_loop": executor.handle_dag_start_loop,
         "ping": lambda p, c: "pong",
         "dump_stacks": lambda p, c: _dump_stacks(),
         # on-demand burst capture (node daemon fans 'profiles_record'

@@ -13,10 +13,17 @@ by the callable's cache growth (a ``_cache_size`` probe) or signature
 novelty; ``note_monitor_duration``/``note_cache_miss`` take durations
 reported by a compiler's own monitoring.
 
-The JAX package also hooks ``jax.monitoring`` here; this copy leaves
-those hooks out, and the tracker that feeds it from torch is ROADMAP
-Queue 1 item 8. Importing this module imports neither jax nor torch —
-node daemons and the head run it.
+In the port, ``wrap`` is the one observation path. The engine wraps its
+step functions (``llm.ragged_step``, ``llm.decode_loop``,
+``llm.copy_page``, probed by the growth of its program set: a new step
+program is the port's compile) and ``dag.CompiledDAG`` its executions
+(``dag.compiled``: each new CUDA graph capture, or on the CPU each new
+input signature). The JAX package also registers a ``jax.monitoring``
+listener that attributes XLA's own compile-phase durations (jaxpr trace,
+lowering, backend compile) and cache misses; torch has no counterpart of
+those events, so the listener is left out and a record's ``phases`` stay
+empty. Importing this module imports neither jax nor torch — node
+daemons and the head run it.
 
 Exports drain through the existing ``telemetry_push`` into the head's
 ``CompileStore`` (``compiles_dump`` cursor RPC) and feed the
@@ -60,7 +67,9 @@ def _fmt_value(a: Any) -> str:
     shape = getattr(a, "shape", None)
     dtype = getattr(a, "dtype", None)
     if shape is not None and dtype is not None:
-        name = getattr(dtype, "name", None) or str(dtype)
+        # torch dtypes print as "torch.float32" and have no .name
+        name = getattr(dtype, "name", None) or str(dtype).removeprefix(
+            "torch.")
         short = _DTYPE_SHORT.get(name, name)
         try:
             dims = ",".join(str(int(d)) for d in shape)

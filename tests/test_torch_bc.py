@@ -145,7 +145,9 @@ def test_bc_clones_ppo_policy_from_dataset():
 def test_bc_build_rejects_a_mesh_a_missing_card_and_no_dataset(
         monkeypatch):
     cfg = tbc.BCConfig(dataset=object())
-    with pytest.raises(ValueError, match="mesh"):
+    # a mesh must be a DeviceMesh (build(mesh=) takes one since the
+    # learners' mesh path was ported)
+    with pytest.raises(ValueError, match="DeviceMesh"):
         cfg.build(device="cpu", mesh=object())
     with pytest.raises(ValueError, match="dataset"):
         tbc.BCConfig().build(device="cpu")

@@ -98,7 +98,8 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.util.fault_injector",
                 "ray_tpu_torch.util.compile_tracker",
                 "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.tracing",
-                "ray_tpu_torch.llm.tp",
+                "ray_tpu_torch.llm.tp", "ray_tpu_torch.dag",
+                "ray_tpu_torch.workflow", "ray_tpu_torch.runtime.channel",
                 *(f"ray_tpu_torch.serve.{m}" for m in SERVE_MODULES),
                 *(f"ray_tpu_torch.parallel.{m}" for m in PARALLEL_MODULES),
                 *(f"ray_tpu_torch.train.{m}" for m in TRAIN_MODULES)):
@@ -262,3 +263,12 @@ def test_parallel_axis_modules_import_without_jax_or_ray_tpu():
                 "ray_tpu_torch.parallel.ulysses, "
                 "ray_tpu_torch.parallel.pipeline, "
                 "ray_tpu_torch.parallel.attention\n") == "[]"
+
+
+def test_dag_workflow_and_channel_import_without_jax_or_ray_tpu():
+    """The DAGs, the workflows and the shm channels on their own; none of
+    them needs torch to import (a CompiledDAG imports it to execute)."""
+    code = ("import ray_tpu_torch.dag, ray_tpu_torch.workflow, "
+            "ray_tpu_torch.runtime.channel\n"
+            "assert 'torch' not in sys.modules, 'torch'\n")
+    assert _run(code) == "[]"

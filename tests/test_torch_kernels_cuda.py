@@ -877,3 +877,179 @@ def test_tp_engine_across_two_cards_matches_tp1(cuda):
     a, b = ttp.sum_shards(parts)
     assert a.device.index == 0 and b.device.index == 1
     assert torch.equal(a.cpu(), b.cpu()) and a[0, 0].item() == 3.0
+
+
+def _flash_dag(B, H, L, D, stage=None):
+    """chip_smoke.py 18a's graph at a small shape: a projection into k and
+    v, the flash forward with the input as the queries, an output
+    projection; ``stage`` (if given) is bound after the projection."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w_kv = (torch.randn(H * D, 2 * H * D, generator=g, device="cuda")
+            * (H * D) ** -0.5).bfloat16()
+    w_o = (torch.randn(H * D, H * D, generator=g, device="cuda")
+           * (H * D) ** -0.5).bfloat16()
+
+    @ray_tpu_torch.remote
+    def project(x, w):
+        kv = torch.matmul(x.reshape(B, L, H * D), w)
+        k, v = kv.reshape(B, L, 2, H, D).unbind(2)
+        return k.contiguous(), v.contiguous()
+
+    @ray_tpu_torch.remote
+    def attend(x, kv):
+        return tfa.flash_attention(x, *kv, causal=True)
+
+    @ray_tpu_torch.remote
+    def output(a, w):
+        return torch.matmul(a.reshape(B, L, H * D), w)
+
+    with InputNode() as inp:
+        kv = project.bind(inp, w_kv)
+        if stage is not None:
+            kv = stage.bind(kv)
+        return output.bind(attend.bind(inp, kv), w_o)
+
+
+@pytest.mark.cuda
+def test_compiled_dag_graph_equals_eager_and_counts_launches(cuda):
+    """A CompiledDAG on CUDA tensors: one CUDA graph per input signature,
+    each replay equal to the stages run eagerly to the bit, a kept result
+    unchanged by the next execute, and the flash forward's launches
+    counted once per replay (plus the warm-up of each capture)."""
+    from ray_tpu_torch.dag import experimental_compile
+    B, H, L, D = 2, 4, 256, 128
+    compiled = experimental_compile(_flash_dag(B, H, L, D))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xs = [torch.randn(B, L, H, D, generator=g, device="cuda").bfloat16()
+          for _ in range(3)]
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    first = compiled.execute(xs[0])
+    kept = first.clone()
+    outs = [compiled.execute(x) for x in xs]
+    torch.cuda.synchronize()
+    assert compiled.captures() == 1
+    assert tfa.launch_counts["flash_attention_fwd"] == 1 + 4
+    assert torch.equal(first, kept)
+    for x, got in zip(xs, outs):
+        want = compiled._run(x)
+        assert torch.equal(got, want)
+    # a new signature is a new graph
+    short = torch.randn(B, 128, H, D, device="cuda").bfloat16()
+    with pytest.raises(RuntimeError):
+        compiled.execute(short)          # the bound stages fix L
+    other = experimental_compile(_flash_dag(1, H, L, D))
+    other.execute(xs[0][:1])
+    other.execute(xs[1][:1])
+    assert other.captures() == 1 and compiled.captures() == 1
+    assert tfa.launch_counts["flash_attention_fwd_reference_cuda"] == 0
+
+
+@pytest.mark.cuda
+def test_compiled_dag_names_a_stage_that_cannot_be_captured(cuda):
+    """A stage that syncs with the host raises, named, and does not run
+    eagerly instead."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import experimental_compile
+
+    @ray_tpu_torch.remote
+    def host_sync(kv):
+        if kv[0].abs().max().item() < 0:     # a read back to the host
+            raise AssertionError
+        return kv
+
+    compiled = experimental_compile(_flash_dag(1, 2, 128, 128, host_sync))
+    x = torch.randn(1, 128, 2, 128, device="cuda").bfloat16()
+    with pytest.raises(RuntimeError, match="stage 'host_sync'"):
+        compiled.execute(x)
+
+
+def _rl_mesh_loop():
+    """The rank program of the two-card test: PPO's and IMPALA's update
+    through build(device="cuda", mesh=) on a synthetic batch, every
+    rank's parameters gathered to rank 0's report."""
+    def loop(cfg):
+        import torch
+        import torch.distributed as dist
+
+        from ray_tpu_torch import rllib, train
+        mesh = train.get_context().global_mesh()
+
+        def tensors(tree):
+            return {k: torch.tensor(v, device="cuda") for k, v in tree.items()}
+
+        out = {}
+        for name in ("PPO", "IMPALA"):
+            conf = (rllib.PPOConfig(num_env_runners=0, lr=1e-3) if
+                    name == "PPO" else
+                    rllib.IMPALAConfig(num_env_runners=0, lr=1e-3))
+            algo = conf.build(device="cuda", mesh=mesh)
+            kw = {"perms": cfg["perms"]} if name == "PPO" else {}
+            new, m = algo.learner.update(tensors(cfg["params"]),
+                                         cfg["batch"], **kw)
+            mine = ({k: v.cpu().numpy() for k, v in new.items()}, m)
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, mine)
+            out[name] = ranks
+        train.report(out)
+    return loop
+
+
+@pytest.mark.cuda
+def test_rl_learners_over_two_cards_match_one(cuda, tmp_path):
+    """PPO and IMPALA through build(mesh=) over dp 2 on two cards (NCCL):
+    both ranks equal to the bit, and within 1e-5 of each leaf's largest
+    value of the unsharded update on one card."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.rllib.impala import IMPALALearner
+    from ray_tpu_torch.rllib.learner import PPOLearner
+    from ray_tpu_torch.rllib.module import init_module
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    T, B = 32, 16
+    rng = np.random.default_rng(0)
+    params = {k: v.numpy() for k, v in init_module(
+        torch.Generator().manual_seed(0), 4, 2, (64, 64)).items()}
+    batch = {"obs": rng.normal(size=(T, B, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, (T, B)).astype(np.int32),
+             "logp": -rng.uniform(0.3, 1.2, (T, B)).astype(np.float32),
+             "values": rng.normal(size=(T, B)).astype(np.float32),
+             "rewards": np.ones((T, B), np.float32),
+             "dones": rng.random((T, B)) < 0.05,
+             "last_value": rng.normal(size=B).astype(np.float32),
+             "last_obs": rng.normal(size=(B, 4)).astype(np.float32),
+             "episode_returns": np.asarray([20.0])}
+    perms = [rng.permutation(T * B) for _ in range(4)]
+    rt.init(num_cpus=4)
+    try:
+        got = train.TorchTrainer(
+            _rl_mesh_loop(), train_loop_config={
+                "params": params, "batch": batch, "perms": perms},
+            scaling_config=train.ScalingConfig(
+                num_workers=2, use_gpu=True, mesh=MeshSpec(dp=2)),
+            run_config=train.RunConfig(storage_path=str(tmp_path))).fit()
+    finally:
+        rt.shutdown()
+    for name in ("PPO", "IMPALA"):
+        ranks = got.metrics[name]
+        for k in params:
+            assert np.array_equal(ranks[0][0][k], ranks[1][0][k]), (name, k)
+        assert ranks[0][1] == ranks[1][1]
+        one = (PPOLearner(lr=1e-3) if name == "PPO" else
+               IMPALALearner(lr=1e-3))
+        kw = {"perms": perms} if name == "PPO" else {}
+        want, m = one.update(
+            {k: torch.tensor(v, device="cuda") for k, v in params.items()},
+            batch, **kw)
+        for k, v in want.items():
+            w = v.cpu().numpy()
+            assert np.abs(ranks[0][0][k] - w).max() <= \
+                1e-5 * np.abs(w).max() + 1e-7, (name, k)
+        for k in m:
+            assert ranks[0][1][k] == pytest.approx(m[k], rel=1e-5), (name, k)

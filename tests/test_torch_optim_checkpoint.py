@@ -80,8 +80,12 @@ def _make_loop():
                 first = not os.path.exists(cfg["marker"])
                 dist.barrier()
                 if first:
+                    # the marker is written before any rank raises: a rank
+                    # that raised first could get rank 0 killed before it
+                    # wrote it, and the retry would fail again
                     if ctx.rank == 0:
                         open(cfg["marker"], "w").close()
+                    dist.barrier()
                     raise RuntimeError("planted failure")
             params, opt, m = step_fn(params, opt, tokens)
             train.report({"loss": float(m["loss"])},

@@ -377,9 +377,13 @@ def test_runner_weights_do_not_move_with_the_learners(torch_rt):
 @pytest.mark.parametrize("config", ["PPOConfig", "IMPALAConfig", "DQNConfig",
                                     "SACConfig"])
 def test_build_rejects_a_mesh_and_a_missing_card(config, monkeypatch):
+    """PPO and IMPALA take a DeviceMesh and refuse anything else; DQN's
+    and SAC's ``build`` take no mesh, as the JAX package's do."""
     import ray_tpu_torch.rllib as rl
     cfg = getattr(rl, config)()
-    with pytest.raises(ValueError, match="mesh"):
+    takes_mesh = config in ("PPOConfig", "IMPALAConfig")
+    with pytest.raises(ValueError if takes_mesh else TypeError,
+                       match="mesh"):
         cfg.build(device="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -253,6 +253,12 @@ def test_api_before_init_raises():
 
 
 def test_bind_raises(torch_rt):
+    """bind() builds lazy DAG nodes in local mode too (it raised before
+    ``dag.py`` was ported); what raises now is a graph executed without
+    the input its InputNode stands for."""
+    from ray_tpu_torch.dag import (ActorMethodNode, DAGNode, InputNode,
+                                   execute_with_input)
+
     @torch_rt.remote
     def f(x):
         return x
@@ -262,10 +268,17 @@ def test_bind_raises(torch_rt):
         def m(self):
             return 1
 
-    with pytest.raises(NotImplementedError, match="dag"):
-        f.bind(1)
-    with pytest.raises(NotImplementedError, match="dag"):
-        A.remote().m.bind()
+    node = f.bind(1)
+    assert isinstance(node, DAGNode)
+    assert torch_rt.get(node.execute(), timeout=30) == 1
+    method = A.remote().m.bind()
+    assert isinstance(method, ActorMethodNode)
+    assert torch_rt.get(method.execute(), timeout=30) == 1
+    with InputNode() as inp:
+        dag = f.bind(inp)
+    with pytest.raises(ValueError, match="no input supplied"):
+        dag.execute()
+    assert torch_rt.get(execute_with_input(dag, 7), timeout=30) == 7
 
 
 @pytest.mark.parametrize("env, error", [

@@ -129,3 +129,32 @@ def test_as_metrics_matches_jax():
     # the phases are a copy, not the breakdown's own dict
     got["phases"]["forward"] = 9.0
     assert bd.phases["forward"] == 0.05
+
+
+@pytest.mark.parametrize("pkg", ["ray_tpu", "ray_tpu_torch"])
+def test_report_phases_rides_session_gauges(pkg, tmp_path):
+    """tests/test_step_profiler.py's program on each package: a report's
+    ``phases`` become ``train_phase_time_s`` gauges tagged by phase (the
+    first report only arms the clock); the port's gauges must equal the
+    JAX package's."""
+    import importlib
+    seen = {}
+    for name in ("ray_tpu", "ray_tpu_torch") if pkg == "ray_tpu_torch" \
+            else (pkg,):
+        s = importlib.import_module(f"{name}.train.session")
+        m = importlib.import_module(f"{name}.util.metrics")
+        m.clear_registry()
+        try:
+            ctx = s.TrainContext(rank=0, world_size=1,
+                                 storage_path=str(tmp_path / name))
+            ctx.report({"loss": 1.0})
+            ctx.report({"loss": 0.9,
+                        "phases": {"forward": 0.25, "backward": 0.5}})
+            seen[name] = dict(m.snapshot()["train_phase_time_s"]["values"])
+        finally:
+            m.clear_registry()
+    tagged = seen[pkg]
+    assert tagged[("forward",)] == pytest.approx(0.25)
+    assert tagged[("backward",)] == pytest.approx(0.5)
+    if pkg == "ray_tpu_torch":
+        assert seen["ray_tpu_torch"] == seen["ray_tpu"]

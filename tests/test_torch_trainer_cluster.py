@@ -181,6 +181,52 @@ def test_elastic_requires_fill_axis(cluster, tmp_path):
         trainer.fit()
 
 
+def _dataset_loop(pkg):
+    """tests/test_data.py's rank program for ``pkg``: this rank's dataset
+    shard in batches of 4, its rows and their sum reported."""
+    def loop(cfg):
+        import importlib
+        train = importlib.import_module(f"{pkg}.train")
+        ctx = train.get_context()
+        total = n = 0
+        for batch in train.get_dataset_shard("train").iter_batches(
+                batch_size=4):
+            total += int(batch["id"].sum())
+            n += len(batch["id"])
+        train.report({"rows": n, "sum": total, "rank": ctx.get_rank()})
+    return loop
+
+
+def test_trainer_with_dataset_shards_matches_jax(cluster, tmp_path):
+    """tests/test_data.py's ``test_trainer_with_dataset_shards``: two
+    workers each read a disjoint half of a 24-row dataset in 6 blocks
+    (``datasets=``). The JAX program runs in the JAX package's local
+    mode, as its test does; the port's local mode takes one rank, so its
+    program runs on this cluster (two worker processes over gloo). Rank
+    0's report must be the same in both."""
+    import ray_tpu
+    from ray_tpu import data as jdata
+    from ray_tpu import train as jtrain
+    from ray_tpu_torch import data as tdata
+    ray_tpu.init(local_mode=True, num_cpus=4)
+    try:
+        want = jtrain.JaxTrainer(
+            _dataset_loop("ray_tpu"), train_loop_config={},
+            scaling_config=jtrain.ScalingConfig(num_workers=2),
+            run_config=jtrain.RunConfig(storage_path=str(tmp_path / "j")),
+            datasets={"train": jdata.range(24, num_blocks=6)}).fit().metrics
+    finally:
+        ray_tpu.shutdown()
+    got = train.TorchTrainer(
+        _dataset_loop("ray_tpu_torch"), train_loop_config={},
+        scaling_config=train.ScalingConfig(num_workers=2, use_gpu=False),
+        run_config=train.RunConfig(storage_path=str(tmp_path / "t")),
+        datasets={"train": tdata.range(24, num_blocks=6)}).fit().metrics
+    assert want["rows"] == 12          # rank 0's disjoint half
+    assert {k: got[k] for k in ("rows", "sum", "rank")} == \
+        {k: want[k] for k in ("rows", "sum", "rank")}
+
+
 def test_elastic_policy_sizing():
     from ray_tpu_torch.train.scaling_policy import ElasticScalingPolicy
     pol = ElasticScalingPolicy(2, 8, {"CPU": 2.0})
