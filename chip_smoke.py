@@ -262,6 +262,29 @@ result line is printed):
      phase 4's first wave on phase 4's engine (prefix cache off) in turns
      with the tracker's wraps on and off: equal streams, no new record,
      the ragged launches the engine's count, both wall times printed.
+ 19. the cluster's operations surface: 19a. a multi-node ``Cluster``
+     (``cluster_utils``): a head, a head node and node A with no card,
+     node B with the card (``resources={"GPU": 1}``; the others advertise
+     none), no daemon holding CUDA; 19b. ``JobSubmissionClient`` runs an
+     entrypoint that connects through ``RTPT_ADDRESS``, reserves
+     ``{"GPU": 1, "CPU": 1}`` in a STRICT_PACK placement group and serves
+     phase 4's requests from phase 14's server (full 8B) in bundle 0: the
+     job ends SUCCEEDED, the bundle is on node B, the streams equal phase
+     4's to the bit, the worker's ragged launches the engine's count
+     (added to the kernels' record); 19c. ``python -m ray_tpu_torch``
+     status, list nodes, list actors, top (node B's card memory), requests
+     (the wave's records and TTFTs), trace --request and logs --request,
+     each exiting 0 and timed; the dashboard's state (the three nodes, the
+     group) and ``/metrics`` (node B's ``gpu_memory_used_bytes``, the
+     ``llm_*`` series); 19d. ``remove_placement_group`` ends the worker
+     and the card's free memory returns to the phase's start; 19e. an
+     ``AutoscalingCluster`` (a head node with no card, node types cpu and
+     h100): a pending ``[{"GPU": 1}]`` bundle launches one h100 node and
+     no cpu node, the server at 8B widths with 2 layers answers one
+     request with a direct engine's tokens, and once the group is removed
+     idle drain terminates the node (its record through TERMINATED, its
+     daemon gone). Boot, submit-to-SUCCEEDED, group ready, each CLI call,
+     scale-up and drain times printed.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3002,6 +3025,11 @@ class MainServer:
         out["e2e_s"][len(reqs)] = time.monotonic() - t
         return out
 
+    def one(self, prompt, max_tokens):
+        """One request through ``__call__``: -> its tokens."""
+        return self.srv({"prompt_ids": prompt,
+                         "max_tokens": max_tokens})["token_ids"]
+
     def counts(self):
         return server_counts(self.srv)
 
@@ -4795,6 +4823,445 @@ def phase_tracker(programs, model_config=None, engine_config=None,
     return launches["ragged_paged_attention"]
 
 
+#: phase 19: each node's CPUs, the placement group's one bundle, and the
+#: telemetry periods its cluster's daemons and workers run with (so that
+#: the CLI's readings land within a second or two)
+OPS_NODE_CPUS = 4
+OPS_BUNDLE = {"GPU": 1, "CPU": 1}
+OPS_TELEMETRY = {"metrics_export_period_s": 1.0, "hw_sampler_period_s": 0.5}
+#: 19e's server: 8B widths at 2 layers
+OPS_AUTOSCALE_MODEL = dict(MAIN_MODEL, n_layers=2)
+OPS_AUTOSCALE_TOKENS = 16
+#: the CLI's readings (card memory, request records, log records) reach
+#: the head on the workers' next telemetry flush: poll at most this long
+OPS_POLL_S = 30.0
+
+#: phase 19b's job: connect through RTPT_ADDRESS, reserve the card in a
+#: placement group, serve phase 4's requests from phase 14's server in the
+#: bundle and write what it saw to the file its argument names. The actor
+#: and the group outlive the job (detached), for 19c and 19d.
+OPS_JOB = """\
+import json, os, sys, time
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["repo"])
+import chip_smoke
+import ray_tpu_torch as rt
+from ray_tpu_torch.util.placement_group import placement_group
+rt.init(address=os.environ["RTPT_ADDRESS"])
+t0 = time.monotonic()
+pg = placement_group([args["bundle"]], strategy="STRICT_PACK",
+                     name="phase19")
+pg.ready(300)
+pg_s = time.monotonic() - t0
+server = rt.remote(num_gpus=1, name=args["actor"], namespace="phase19",
+                   lifetime="detached")(chip_smoke.MainServer)
+a = server.options(placement_group=pg,
+                   placement_group_bundle_index=0).remote(
+    args["model"], args["engine"])
+where = rt.get(a.where.remote(), timeout=900)
+device = rt.get(a.device.remote(), timeout=60)
+got = rt.get(a.answer.remote(), timeout=900)
+launches, expected, stats = rt.get(a.counts.remote(), timeout=60)
+with open(args["out"], "w") as f:
+    json.dump({"pg": pg.id.hex(), "pg_s": pg_s,
+               "bundle_node": pg.bundle_node(0), "where": where,
+               "device": device, "wave": got["wave"], "hit": got["hit"],
+               "e2e_s": got["e2e_s"], "launches": launches,
+               "expected": expected, "stats": stats,
+               "job_id": os.environ["RTPT_JOB_ID"]}, f)
+print("phase 19 job: served", len(got["wave"]) + 1, "requests; ragged "
+      "launches", launches["ragged_paged_attention"], "of", expected)
+rt.shutdown()
+"""
+
+
+def ops_cli(address, *args, timeout=120):
+    """``python -m ray_tpu_torch <args> --address <address>``: -> its
+    exit code, stdout, stderr and seconds."""
+    t = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", *args, "--address",
+         address], cwd=str(REPO), capture_output=True, text=True,
+        timeout=timeout)
+    return out.returncode, out.stdout, out.stderr, time.monotonic() - t
+
+
+def poll(what, fn, timeout=OPS_POLL_S, period=0.25):
+    """Call ``fn`` until it returns a true value: -> that value and the
+    seconds it took."""
+    t0 = time.monotonic()
+    while True:
+        got = fn()
+        if got:
+            return got, time.monotonic() - t0
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{what}: not seen in {timeout} s")
+        time.sleep(period)
+
+
+@contextlib.contextmanager
+def daemon_config(values):
+    """The daemons and workers a cluster started inside this block run
+    with ``values`` (they read the starting process's config)."""
+    from ray_tpu_torch.core import config as config_mod
+    old = {k: getattr(config_mod.GlobalConfig, k) for k in values}
+    config_mod.GlobalConfig.apply(values)
+    try:
+        yield
+    finally:
+        config_mod.GlobalConfig.apply(old)
+
+
+def phase_operations(model_config=None, engine_config=None,
+                     main_streams=None, autoscale_model=None,
+                     card="the CPU"):
+    """Phase 19: ``phase_ops_cluster`` (19a-d) then ``phase_autoscale``
+    (19e). -> their summaries, with the ragged launches of both."""
+    t_phase = time.monotonic()
+    summary = phase_ops_cluster(model_config, engine_config, main_streams,
+                                card)
+    summary.update(phase_autoscale(autoscale_model, engine_config))
+    summary["launches"] = summary["job_launches"] + summary["scale_launches"]
+    log(f"phase 19: {time.monotonic() - t_phase:.1f} s")
+    return summary
+
+
+def phase_ops_cluster(model_config=None, engine_config=None,
+                      main_streams=None, card="the CPU"):
+    """19a. a multi-node ``Cluster`` (a head node, node A with no card,
+    node B with the card); 19b. a job (``JobSubmissionClient``) whose
+    entrypoint reserves the card in a placement group and serves phase
+    4's requests from phase 14's server in the bundle: its streams must
+    equal ``main_streams`` and its ragged launches the engine's count;
+    19c. the CLI, the dashboard's state and ``/metrics`` against the live
+    cluster; 19d. ``remove_placement_group`` ends the worker and the
+    card's memory returns. -> a summary."""
+    import os
+    import shlex
+    import tempfile
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.ids import PlacementGroupID
+    from ray_tpu_torch.dashboard import Dashboard
+    from ray_tpu_torch.jobs import SUCCEEDED, JobSubmissionClient
+    from ray_tpu_torch.util import prometheus
+    from ray_tpu_torch.util.placement_group import (PlacementGroup,
+                                                    remove_placement_group)
+    model_config = model_config or MAIN_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    cuda = engine_config.get("device", "cuda") == "cuda"
+    reset_port_launch_counts()
+    summary = {}
+    if cuda:
+        free_card()
+        free_before, total = torch.cuda.mem_get_info()
+
+    # 19a: the cluster
+    t0 = time.monotonic()
+    with daemon_config(OPS_TELEMETRY):
+        cluster = Cluster()
+        head_node = cluster.add_node(num_cpus=1)
+        node_a = cluster.add_node(num_cpus=OPS_NODE_CPUS)
+        node_b = cluster.add_node(num_cpus=OPS_NODE_CPUS,
+                                  resources={"GPU": 1})
+    pids = {"head": cluster.head_proc.pid, "head node": head_node.proc.pid,
+            "node A": node_a.proc.pid, "node B": node_b.proc.pid}
+    tmp = tempfile.TemporaryDirectory(prefix="phase19-")
+    try:
+        rt.init(address=cluster.address, _system_config=OPS_TELEMETRY)
+        boot_s = time.monotonic() - t0
+        res = rt.cluster_resources()
+        gpus = {n["NodeID"]: n["Resources"].get("GPU", 0.0)
+                for n in rt.nodes()}
+        log(f"19a: Cluster of a head, a head node and nodes A and B booted "
+            f"in {boot_s:.2f} s; resources {res}; GPUs per node "
+            f"{ {k[:12]: v for k, v in gpus.items()} }")
+        assert res.get("GPU") == 1.0, res
+        assert gpus == {head_node.node_id: 0.0, node_a.node_id: 0.0,
+                        node_b.node_id: 1.0}, gpus
+        for name, pid in pids.items():
+            assert not holds_cuda(pid), f"the {name} daemon holds CUDA"
+
+        # 19b: the job
+        out_path = os.path.join(tmp.name, "job.json")
+        script = os.path.join(tmp.name, "phase19_job.py")
+        with open(script, "w") as f:
+            f.write(OPS_JOB)
+        args = {"repo": str(REPO), "model": model_config,
+                "engine": engine_config, "bundle": OPS_BUNDLE,
+                "actor": "llm8b_job", "out": out_path}
+        client = JobSubmissionClient()
+        t0 = time.monotonic()
+        job_id = client.submit_job(entrypoint=(
+            f"{shlex.quote(sys.executable)} {shlex.quote(script)} "
+            f"{shlex.quote(json.dumps(args))}"))
+        status = client.wait(job_id, timeout=1200)
+        job_s = time.monotonic() - t0
+        logs = client.get_job_logs(job_id)
+        assert status == SUCCEEDED, (status, client.get_job_info(job_id),
+                                     logs[-4000:])
+        with open(out_path) as f:
+            job = json.load(f)
+        job["e2e_s"] = {int(k): v for k, v in job["e2e_s"].items()}
+        where = job["where"]
+        log(f"19b: job {job_id} {status} {job_s:.2f} s after submission; "
+            f"its placement group ready in {job['pg_s']:.2f} s, bundle 0 "
+            f"on node {job['bundle_node'][:12]} (node B "
+            f"{node_b.node_id[:12]}); the server's worker pid "
+            f"{where['pid']}, CUDA_VISIBLE_DEVICES {where['visible']!r}, "
+            f"built in {where['build_s']:.2f} s, device {job['device']}; "
+            f"the job's last line: {logs.strip().splitlines()[-1]!r}")
+        assert job["bundle_node"] == node_b.node_id, job["bundle_node"]
+        assert job["job_id"] == job_id
+        assert where["visible"] == "0", where
+        if cuda:
+            assert job["device"]["type"] == "cuda", job["device"]
+            assert holds_cuda(where["pid"])
+        for i in sorted(job["e2e_s"]):
+            theirs = main_streams["e2e_s"].get(i) if main_streams else None
+            log(f"19b: request {i}: {job['e2e_s'][i] * 1e3:.1f} ms in the "
+                f"job's server" + ("" if theirs is None else
+                                   f", {theirs * 1e3:.1f} ms in phase 4"))
+        check_streams(job, main_streams)
+        launches, expected = job["launches"], job["expected"]
+        log(f"19b: the job's {len(job['wave']) + 1} token streams "
+            + ("equal phase 4's" if main_streams is not None else
+               "(no phase 4 run to compare)")
+            + f"; the worker's launches {launches}, the engine's count "
+            f"{expected}")
+        if cuda:
+            assert launches["ragged_paged_attention"] == expected, \
+                (launches, expected)
+        else:
+            assert not any(launches.values()), launches
+        assert launches["ragged_paged_attention_reference_cuda"] == 0
+        summary.update(boot_s=boot_s, job_s=job_s, pg_s=job["pg_s"],
+                       job_launches=launches["ragged_paged_attention"],
+                       job_expected=expected)
+
+        # 19c: the CLI, the dashboard and /metrics on the live cluster
+        address = cluster.address
+        cli_s = {}
+
+        def cli(*cmd):
+            rc, out, err, secs = ops_cli(address, *cmd)
+            cli_s[" ".join(cmd[:2] if cmd[0] == "list" else cmd[:1])] = secs
+            assert rc == 0, (cmd, rc, out[-2000:], err[-2000:])
+            return out, err
+
+        out, _ = cli("status")
+        assert "3/3 nodes alive" in out, out
+        assert re.search(r"GPU: \S+/1 available", out), out
+        out, _ = cli("list", "nodes", "--format", "json")
+        rows = {r["node_id"]: r for r in json.loads(out)}
+        assert rows[node_b.node_id]["resources"].get("GPU") == 1, rows
+        out, _ = cli("list", "actors", "--format", "json")
+        actors = [r for r in json.loads(out) if r["class"] == "MainServer"]
+        assert [(a["state"], a["node_id"]) for a in actors] == \
+            [("ALIVE", node_b.node_id)], actors
+
+        def top_row():
+            out, _ = cli("top")
+            row = next(ln for ln in out.splitlines()
+                       if ln.startswith(node_b.node_id[:12]))
+            return row if not row.endswith("-") else None
+
+        if cuda:
+            row, _ = poll("the card's memory in `top`", top_row)
+            used = row.split()[-1].split("/")[0]
+            assert not used.startswith("0B"), row
+        else:
+            row = top_row() or "-"
+        rids = {}
+
+        def records():
+            out, _ = cli("requests", "--format", "json")
+            recs = json.loads(out) if out.strip().startswith("[") else []
+            rids.update((r["rid"], r) for r in recs if r.get("ttft"))
+            return len(rids) >= len(job["wave"]) + 1
+
+        poll("the job's request records at the head", records)
+        out, _ = cli("requests")
+        assert out.count("(TTFT)") >= len(job["wave"]) + 1, out[-2000:]
+        rid = sorted(rids)[0]
+        out, _ = cli("trace", "--request", rid)
+        assert f"request {rid}" in out and "(TTFT)" in out, out
+
+        def log_lines():
+            _, err = cli("logs", "--request", rid)
+            return int(re.search(r"\((\d+) record", err).group(1))
+
+        n_logs, _ = poll("the request's log records", log_lines)
+        dash = Dashboard(address)
+        try:
+            base = f"http://127.0.0.1:{dash.port}"
+            with urllib.request.urlopen(f"{base}/api/state",
+                                        timeout=30) as r:
+                state = json.loads(r.read())
+            assert {n["node_id"] for n in state["nodes"]} == \
+                {head_node.node_id, node_a.node_id, node_b.node_id}
+            assert [(pg["name"], pg["nodes"]) for pg in
+                    state["placement_groups"]] == \
+                [("phase19", [node_b.node_id])], state["placement_groups"]
+
+            def scrape():
+                with urllib.request.urlopen(f"{base}/metrics",
+                                            timeout=30) as r:
+                    fams = prometheus.parse(r.read().decode())
+                mem = [s for s in fams.get("gpu_memory_used_bytes", {})
+                       .get("samples", ())
+                       if s[1].get("node") == node_b.node_id[:12]
+                       and s[2] > 0]
+                if (mem or not cuda) and "llm_ttft_seconds" in fams:
+                    return fams, mem
+                return None
+
+            (fams, mem), _ = poll("/metrics' card memory and latency",
+                                  scrape)
+        finally:
+            dash.stop()
+        assert fams["llm_ttft_seconds"]["type"] == "histogram"
+        log(f"19c: the CLI against the live cluster: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in cli_s.items())
+            + f"; `top`'s row for node B: {row!r}; {len(rids)} request "
+            f"records with TTFTs "
+            f"{[round(r['ttft'] * 1e3, 1) for r in rids.values()]} ms; "
+            f"`trace --request {rid}` and {n_logs} log records of it; the "
+            f"dashboard's state lists the three nodes and the placement "
+            f"group; /metrics: node B's gpu_memory_used_bytes "
+            f"{[s[2] for s in mem]}, the llm_* series "
+            f"{sorted(f for f in fams if f.startswith('llm_'))}")
+        summary["cli_s"] = cli_s
+
+        # 19d: remove the placement group: the worker ends, the card frees
+        pg = PlacementGroup(PlacementGroupID(bytes.fromhex(job["pg"])),
+                            [dict(OPS_BUNDLE)], "STRICT_PACK", "phase19")
+        t0 = time.monotonic()
+        remove_placement_group(pg)
+        gone_s = wait_gone(where["pid"])
+        if cuda:
+            free_after, _ = torch.cuda.mem_get_info()
+            log(f"19d: remove_placement_group -> the server's worker gone "
+                f"in {gone_s:.2f} s; free device memory {free_before} "
+                f"bytes at the phase's start, {free_after} after (of "
+                f"{total}); {card}")
+            assert free_after >= free_before - MEMORY_RETURN_SLACK, \
+                (free_before, free_after)
+        else:
+            log(f"19d: remove_placement_group -> the server's worker gone "
+                f"in {gone_s:.2f} s")
+        summary["pg_remove_s"] = gone_s
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+        tmp.cleanup()
+    for name, pid in pids.items():
+        wait_gone(pid, timeout=30)
+    return summary
+
+
+def phase_autoscale(model_config=None, engine_config=None):
+    """19e. an ``AutoscalingCluster`` (a head node with no card, node
+    types cpu and h100) whose pending ``{"GPU": 1}`` bundle launches one
+    h100 node and no cpu node, where ``model_config``'s server answers as
+    a direct engine of that model does, and which drains once the group
+    is removed. -> a summary."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import autoscaler as asc
+    from ray_tpu_torch.runtime import instance_manager as im
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    model_config = model_config or OPS_AUTOSCALE_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    cuda = engine_config.get("device", "cuda") == "cuda"
+    summary = {}
+    here = MainServer(model_config, engine_config)
+    try:
+        prompt = _prompt(19, 40, here.srv.engine.cfg.vocab_size)
+        want = here.one(prompt, OPS_AUTOSCALE_TOKENS)
+    finally:
+        here.srv.shutdown()
+        del here
+    if cuda:
+        free_card()
+    t0 = time.monotonic()
+    with daemon_config(OPS_TELEMETRY):
+        scaling = asc.AutoscalingCluster(
+            head_resources={"CPU": 2.0}, idle_timeout_s=2.0,
+            node_types={
+                "cpu": asc.NodeTypeSpec({"CPU": OPS_NODE_CPUS, "GPU": 0.0},
+                                        max_workers=1),
+                "h100": asc.NodeTypeSpec(
+                    {"CPU": OPS_NODE_CPUS, "GPU": 1.0}, max_workers=1)})
+    scaler = scaling.autoscaler
+    scaler.poll_period_s = 0.25
+    node_pid = None
+    try:
+        rt.init(address=scaling.address,
+                _system_config={**OPS_TELEMETRY,
+                                "infeasible_grace_s": 300.0})
+        boot_s = time.monotonic() - t0
+        assert rt.cluster_resources().get("GPU", 0.0) == 0.0
+        t0 = time.monotonic()
+        pg = placement_group([{"GPU": 1}], strategy="STRICT_PACK")
+        (rec,), up_s = poll("the GPU node's registration", lambda: [
+            r for r in scaler.im.records(im.RUNNING)], timeout=120)
+        pg.ready(120)
+        ready_s = time.monotonic() - t0
+        types = sorted(r.node_type for r in scaler.im.records())
+        assert types == ["h100"], types
+        assert pg.bundle_node(0) == rec.node_id
+        node_pid = rec.metadata["pid"]
+        server = rt.remote(num_gpus=1)(MainServer)
+        a = server.options(placement_group=pg,
+                           placement_group_bundle_index=0).remote(
+            model_config, engine_config)
+        where = rt.get(a.where.remote(), timeout=600)
+        got = rt.get(a.one.remote(prompt, OPS_AUTOSCALE_TOKENS),
+                     timeout=600)
+        launches_e, expected_e, _ = rt.get(a.counts.remote(), timeout=60)
+        assert where["visible"] == "0", where
+        assert got == want, (got, want)
+        if cuda:
+            assert launches_e["ragged_paged_attention"] == expected_e, \
+                (launches_e, expected_e)
+        assert launches_e["ragged_paged_attention_reference_cuda"] == 0
+        t0 = time.monotonic()
+        remove_placement_group(pg)
+        _, drain_s = poll("the GPU node's drain", lambda: all(
+            r.state == im.TERMINATED for r in scaler.im.records()),
+            timeout=120)
+        gone_s = wait_gone(node_pid, timeout=30)
+        records = [(r.node_type, [s for s, _ in r.history])
+                   for r in scaler.im.records()]
+        assert records == [("h100", [im.REQUESTED, im.ALLOCATED,
+                                     im.RUNNING, im.DRAINING,
+                                     im.TERMINATED])], records
+        assert scaler.provider.list_live() == {}
+        log(f"19e: AutoscalingCluster booted in {boot_s:.2f} s (the head "
+            f"node: no card); a pending {{'GPU': 1}} bundle: the h100 node "
+            f"registered {up_s:.2f} s after the demand, the group ready in "
+            f"{ready_s:.2f} s; no cpu node launched; the server at "
+            f"{model_config} answered {len(got)} tokens equal to a "
+            f"direct engine's (worker pid {where['pid']}, built in "
+            f"{where['build_s']:.2f} s), ragged launches "
+            f"{launches_e['ragged_paged_attention']} of "
+            f"{expected_e}; the group removed -> drained and TERMINATED in "
+            f"{drain_s:.2f} s, the node daemon gone {gone_s:.2f} s later; "
+            f"the instance's states {records[0][1]}")
+        summary.update(scale_up_s=up_s, scale_ready_s=ready_s,
+                       drain_s=drain_s,
+                       scale_launches=launches_e["ragged_paged_attention"])
+    finally:
+        rt.shutdown()
+        scaling.shutdown()
+    if node_pid is not None:
+        wait_gone(node_pid, timeout=30)
+    return summary
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -4941,6 +5408,11 @@ def main():
     phase_actor_dag()
     phase_rl_mesh(device)
     log(f"phase 18a-c: {time.monotonic() - t_dags:.1f} s")
+    # the operations surface: phase 4's server in a job's placement group
+    # on a multi-node Cluster, the CLI and dashboard against it, then the
+    # autoscaler launching a GPU node for a pending bundle
+    free_card()
+    ops = phase_operations(main_streams=main_streams, card=card)
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -4950,7 +5422,8 @@ def main():
         "source": "ray_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:340",
         "launches": launches["ragged_paged_attention"]
-        + tp_serving["launches"] + tp4["launches"] + tracker_launches,
+        + tp_serving["launches"] + tp4["launches"] + tracker_launches
+        + ops["launches"],
         "max_abs_err": max(k["max_abs_err"] for k in [
             *kern.values(), *kern_bench.values(), *kern_shards]),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],

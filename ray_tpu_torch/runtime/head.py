@@ -1221,9 +1221,15 @@ class Head:
                 if node_id is not None:
                     node = self._nodes[node_id]
                     try:
+                        # the physical shape (lease_resources): a PG
+                        # actor's `resources` are empty, its accounting
+                        # being the bundle's, but a GPU actor must still
+                        # get a card of its own (the JAX package's head
+                        # sends `resources` here, so its PG actors get no
+                        # chips)
                         grant = self._node_clients.get(node.address).call(
                             "lease_worker",
-                            {"resources": entry.resources,
+                            {"resources": entry.lease_resources,
                              "runtime_env": entry.runtime_env})
                     except RpcError:
                         self._release(node_id, entry.resources)
@@ -1613,6 +1619,15 @@ class Head:
                         continue
                     if node_id in self._nodes and self._nodes[node_id].alive:
                         self.cluster.release(node_id, bundle)
+            # the actors placed in its bundles go with it (the reference's
+            # remove_placement_group kills them; the JAX package's head
+            # leaves them running on resources no bundle holds any more)
+            placed = [aid for aid, e in self._actors.items()
+                      if e.pg is not None and e.pg[0] == p["pg_id"]
+                      and e.state != DEAD]
+        for actor_id in placed:
+            self._h_kill_actor({"actor_id": actor_id, "no_restart": True},
+                               ctx)
         self._try_schedule_pgs()
         return True
 

@@ -21,7 +21,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch
 from ray_tpu_torch.tune.schedulers import Decision, FIFOScheduler, TrialScheduler
-from ray_tpu_torch.tune.trial import DONE, Trial, TrialRunner, TrialStatus
+from ray_tpu_torch.tune.trial import (DONE, STOP_JOIN_S, Trial, TrialRunner,
+                                     TrialStatus)
 
 logger = logging.getLogger(__name__)
 
@@ -69,6 +70,9 @@ class TuneController:
                     if t.last_result:
                         t.results.append(t.last_result)
         self._failures: Dict[str, int] = {}
+        # refs of the stop() calls in flight: run() returns once each has
+        # answered, so no trial's function thread outlives fit()
+        self._stopping: List[Any] = []
 
     # ------------------------------------------------------------ lifecycle
     def _trial_dir(self, trial: Trial) -> str:
@@ -97,7 +101,7 @@ class TuneController:
                 # kill() alone would leave the fn thread parked forever on a
                 # full queue in local mode. The local actor queue is FIFO, so
                 # stop is processed before the kill tombstone.
-                trial.actor.stop.remote()
+                self._stopping.append(trial.actor.stop.remote())
                 ray_tpu_torch.kill(trial.actor)
             except Exception:  # noqa: BLE001 — best-effort teardown
                 pass
@@ -164,7 +168,19 @@ class TuneController:
             self._on_trial_result(trial, result, pending, running)
         self._note_running_gauge(0)
         self._save_experiment_state()
+        self._await_stops()
         return self.trials
+
+    def _await_stops(self) -> None:
+        """Wait until every stopped trial's ``stop()`` has answered (its
+        function thread has unwound). ``_stop_actor`` only sends the call:
+        the last trials a scheduler stops would otherwise still be parked
+        on their full result queues when ``fit()`` returns. A killed
+        actor's call answers with an error, which is enough here."""
+        if self._stopping:
+            ray_tpu_torch.wait(self._stopping, num_returns=len(self._stopping),
+                               timeout=STOP_JOIN_S)
+        self._stopping = []
 
     def _on_trial_result(self, trial: Trial, result: Dict[str, Any],
                          pending: List[Trial], running: List[Trial]) -> None:

@@ -22,6 +22,16 @@ PARALLEL_MODULES = ("mesh", "collectives", "fsdp_overlap", "attention",
                     "ring_attention", "ulysses", "pipeline")
 TRAIN_MODULES = ("backend", "config", "checkpoint", "session", "result",
                  "scaling_policy", "worker_group", "controller", "trainer")
+#: the cluster's operations surface and the jax-free utilities
+OPERATIONS_MODULES = (
+    "ray_tpu_torch.util.placement_group", "ray_tpu_torch.cluster_utils",
+    "ray_tpu_torch.runtime.instance_manager", "ray_tpu_torch.autoscaler",
+    "ray_tpu_torch.jobs", "ray_tpu_torch.util.state",
+    "ray_tpu_torch.util.prometheus", "ray_tpu_torch.dashboard",
+    "ray_tpu_torch.scripts", "ray_tpu_torch.scripts.cli",
+    "ray_tpu_torch.__main__", "ray_tpu_torch.util.actor_pool",
+    "ray_tpu_torch.util.queue", "ray_tpu_torch.util.multiprocessing",
+    "ray_tpu_torch.util.joblib_backend", "ray_tpu_torch.util.collective")
 SERVE_MODULES = ("batching", "controller", "grpc_proxy", "multiplex",
                  "proxy", "replica", "router", "schema")
 
@@ -100,6 +110,7 @@ def test_every_module_imports_without_jax_or_ray_tpu():
                 "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.tracing",
                 "ray_tpu_torch.llm.tp", "ray_tpu_torch.dag",
                 "ray_tpu_torch.workflow", "ray_tpu_torch.runtime.channel",
+                *OPERATIONS_MODULES,
                 *(f"ray_tpu_torch.serve.{m}" for m in SERVE_MODULES),
                 *(f"ray_tpu_torch.parallel.{m}" for m in PARALLEL_MODULES),
                 *(f"ray_tpu_torch.train.{m}" for m in TRAIN_MODULES)):
@@ -152,6 +163,17 @@ def test_serve_imports_without_torch_jax_or_ray_tpu():
             "    getattr(serve, name)\n"
             "assert 'torch' not in sys.modules, 'torch'\n"
             "assert 'grpc' not in sys.modules, 'grpc'\n")
+    assert _run(code) == "[]"
+
+
+def test_operations_surface_imports_without_torch_jax_or_ray_tpu():
+    """The instance manager, autoscaler, CLI, dashboard and the other
+    modules of the operations surface import no torch (the daemons and the
+    CLI hold no card) and no joblib (the card's machine has none): the
+    joblib backend imports it when it registers."""
+    code = (f"import {', '.join(OPERATIONS_MODULES)}\n"
+            "assert 'torch' not in sys.modules, 'torch'\n"
+            "assert 'joblib' not in sys.modules, 'joblib'\n")
     assert _run(code) == "[]"
 
 

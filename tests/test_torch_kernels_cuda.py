@@ -1053,3 +1053,28 @@ def test_rl_learners_over_two_cards_match_one(cuda, tmp_path):
                 1e-5 * np.abs(w).max() + 1e-7, (name, k)
         for k in m:
             assert ranks[0][1][k] == pytest.approx(m[k], rel=1e-5), (name, k)
+
+
+def test_operations_surface_on_the_card(cuda):
+    """chip_smoke.py's 19a-19d at 8B widths with 2 layers: a multi-node
+    ``Cluster`` with the card on node B only, a job whose server in a
+    ``{"GPU": 1, "CPU": 1}`` bundle answers with this process's token
+    streams and launches the ragged kernel as often as its engine counts,
+    the CLI, dashboard and ``/metrics`` reading node B's card memory, and
+    the group's removal giving the card's memory back."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    model = dict(chip_smoke.MAIN_MODEL, n_layers=2)
+    here = chip_smoke.MainServer(model, chip_smoke.MAIN_ENGINE)
+    try:
+        streams = here.answer()
+    finally:
+        here.srv.shutdown()
+        del here
+    out = chip_smoke.phase_ops_cluster(model, chip_smoke.MAIN_ENGINE,
+                                       main_streams=streams)
+    assert out["job_launches"] == out["job_expected"] > 0

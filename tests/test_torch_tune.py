@@ -11,6 +11,7 @@ the port's local-mode runtime and must reach that file's own gates.
 import math
 import random
 import threading
+import time
 
 import pytest
 
@@ -313,6 +314,29 @@ def test_tune_program_reaches_its_gate_through_the_port(program, torch_rt,
                                                         tmp_path):
     program(tmp_path)
     # every trial's function thread has unwound
+    assert not [t for t in threading.enumerate()
+                if t.name == "tune-trial-fn" and t.is_alive()]
+
+
+@pytest.mark.parametrize("program", [median_rule_prunes,
+                                     asha_stops_bad_trials_early],
+                         ids=lambda p: p.__name__)
+def test_fit_returns_after_the_stopped_trials_unwind(program, torch_rt,
+                                                     tmp_path, monkeypatch):
+    """Under the suite's load, ``median_rule_prunes`` found a pruned
+    trial's function thread still alive after ``fit()``: the controller
+    only sends ``stop()``, and the thread, parked on its full result queue,
+    unwinds when the trial's actor thread gets to run that call. Each
+    ``stop()`` is paced here by 0.3 s, as a loaded actor thread would be;
+    ``fit()`` must still return only once every stop has answered."""
+    stop = ttrial.TrialRunner.stop
+
+    def paced_stop(self):
+        time.sleep(0.3)
+        return stop(self)
+
+    monkeypatch.setattr(ttrial.TrialRunner, "stop", paced_stop)
+    program(tmp_path)
     assert not [t for t in threading.enumerate()
                 if t.name == "tune-trial-fn" and t.is_alive()]
 
