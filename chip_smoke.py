@@ -285,6 +285,26 @@ result line is printed):
      idle drain terminates the node (its record through TERMINATED, its
      daemon gone). Boot, submit-to-SUCCEEDED, group ready, each CLI call,
      scale-up and drain times printed.
+ 20. several cards (each sub-phase logs a line that skips it when
+     ``torch.cuda.device_count()`` is below what it needs; rank programs
+     run through ``TorchTrainer(use_gpu=True)``, one leased worker and
+     card each in an NCCL group, and each parity case against the same
+     program over gloo CPU ranks at the gloo tests' limits): 20a. the
+     group on 2 and 4 cards and a re-join in the same processes; 20b.
+     every collective over every mesh axis and axis pair, forward and
+     backward, and the bus bandwidth at 256 MB of bf16; 20c. the sharded
+     train step on dp 2, fsdp 2, tp 2, dp 2 x fsdp 2, fsdp 2 x tp 2 and
+     the prefetching fsdp step; 20d. Llama-3-8B FSDP over 4 cards ((8,
+     2048) tokens, Adafactor, flash, selective remat): a 2-layer fp32
+     check against one card, then 32 layers with plain and prefetched
+     gathers (step ms, tokens/s, MFU a card, peak a card, NCCL time and
+     its share under compute) and the flash kernels at a rank's shape;
+     20e. the fused ring, Ulysses, pp 2 and dp 2 x ep 2, and the ring's
+     forward at L 8192 against one flash call; 20f. 20d's checkpoint on
+     2 cards, a killed rank resumed on 3, a grow from 2 to 4, and a
+     group whose peer stays away ended within its timeout; 20g. phase
+     4's server at tp=4 with a shard on each card; 20h. phase 13's PBT
+     with a card per trial.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2702,7 +2722,7 @@ TUNE_INTERVAL = 2               # PBT's perturbation interval
 TUNE_LOSS_RTOL = 1e-6
 
 
-def tune_trainable(device, config, batch, events):
+def tune_trainable(device, config, batch, events, extra=None):
     """A Tune trainable over ``make_train_step``: each report is
     TUNE_STEPS_PER_REPORT steps; ``loss`` is the first step's (the
     forward pass on the weights the report starts from). At every
@@ -2712,7 +2732,8 @@ def tune_trainable(device, config, batch, events):
     weights, with its new lr. ``events`` gets ("step", lr, ms),
     ("save", s) and ("load", s) as they happen (local mode passes the
     trainable by reference), so steps a stopped trial ran without
-    reporting them count too."""
+    reporting them count too. ``extra()`` (when given) adds its dict to
+    each report."""
     from ray_tpu_torch import tune
     from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
     from ray_tpu_torch.rllib.module import snapshot
@@ -2754,7 +2775,8 @@ def tune_trainable(device, config, batch, events):
                 events.append(("step", cfg["lr"], ms[-1]))
             t = time.monotonic()
             tune.report({"loss": losses[0], "losses": losses, "iter": it,
-                         "step_ms": ms, "lr": cfg["lr"]}, checkpoint=ckpt)
+                         "step_ms": ms, "lr": cfg["lr"],
+                         **(extra() if extra else {})}, checkpoint=ckpt)
             if ckpt is not None:
                 events.append(("save", time.monotonic() - t))
             del ckpt
@@ -5262,6 +5284,1568 @@ def phase_autoscale(model_config=None, engine_config=None):
     return summary
 
 
+# -------------------------------------------- phase 20: several cards
+
+#: the cluster phase 20 boots: the gloo twins' CPU workers beside the
+#: card workers (one CPU each); no large object crosses its store
+MULTI_CPUS = 8
+MULTI_STORE_BYTES = 256 << 20
+#: the gloo tests' limits (tests/test_torch_sharded_train.py,
+#: test_torch_seq_parallel.py, test_torch_pipeline_moe.py,
+#: test_torch_sharded_optim.py), fp32 on both sides, TF32 off
+PARITY_LOSS_RTOL = 2e-4
+PARITY_GRAD_RTOL = 1e-5
+ADAFACTOR_NORM_RTOL = 1e-4
+#: the prefetching fsdp step against the plain one on the same backend
+OVERLAP_RTOL = 1e-6
+#: a collective's sums: 2 to 4 fp32 terms added in another order
+SUM_RTOL = 1e-6
+#: 20b: meshes of the collective checks by world size (every pair of
+#: axes on 4 ranks shares its combined group's code), the buffer of the
+#: bandwidth runs (bf16), its warm-up and timed calls
+COLLECTIVE_MESHES = {2: ({"dp": 2}, {"sp": 2}),
+                     4: ({"dp": 2, "tp": 2}, {"pp": 2, "fsdp": 2},
+                         {"fsdp": 2, "sp": 2})}
+BUS_BYTES = 256 << 20
+BUS_WARMUP, BUS_ITERS = 2, 5
+#: 20c: tests/test_torch_sharded_train.py's step model (flash, selective
+#: remat) at widths the flash kernels take (head dim 64), its meshes by
+#: world size, and the prefetching fsdp step on dp 2 x fsdp 2
+SHARDED_MODEL = dict(preset="tiny", n_layers=2, dim=256, ffn_dim=512,
+                     n_heads=4, n_kv_heads=2, attention="flash",
+                     remat_policy="selective", dtype="float32")
+SHARDED_TOKENS = (8, 32)
+SHARDED_MESHES = {2: {"dp2": dict(dp=2), "fsdp2": dict(fsdp=2),
+                      "tp2": dict(tp=2)},
+                  4: {"dp2_fsdp2": dict(dp=2, fsdp=2),
+                      "fsdp2_tp2": dict(fsdp=2, tp=2),
+                      "dp2_fsdp2_overlap": dict(dp=2, fsdp=2)}}
+#: 20d: Llama-3-8B, FSDP over the cards, phase 7's flash and remat,
+#: Adafactor; the check at 2 of 32 layers in fp32 (two steps, the
+#: first checkpointed for 20f's restore), then the numbers at 32 layers
+FLAGSHIP_MODEL = dict(preset="llama3_8b", attention="flash",
+                      remat_policy="selective", dtype="bfloat16")
+FLAGSHIP_CHECK = dict(FLAGSHIP_MODEL, n_layers=2, dtype="float32")
+FLAGSHIP_BATCH = (8, 2048)
+FLAGSHIP_WARMUP, FLAGSHIP_STEPS = 2, 5
+#: 20e: attention blocks (B, L, H, D; head dim 64 for the flash blocks),
+#: the pipelined Llama's and Mixtral's tokens, the MoE's capacity factors
+AXES_QKV = (2, 256, 4, 64)
+AXES_TOKENS = (4, 16)
+MOE_CAPACITY = (1.25, 8.0)
+#: 20e: the ring's timing shape, one rank's block (sp 4: L 8192 in all)
+RING_TIMED = (1, 2048, 24, 128)
+#: 20f: the elastic program's steps, the step rank 1 exits at, the
+#: grow run's steps and each step's pause (room for the grow monitor)
+ELASTIC_STEPS, ELASTIC_KILL_AT = 6, 3
+GROW_STEPS, GROW_PAUSE_S = 8, 1.5
+#: 20f: a group whose peer stays away: the timeout the check's ranks
+#: take, and the most the rank left alone may take past it (NCCL's
+#: watchdog may first wait for its flight recorder's dump)
+AWAY_TIMEOUT_S = 20.0
+AWAY_GRACE_S = 150.0
+
+
+def model_kwargs(model):
+    """A model dict (``preset`` "llama3_8b" or "tiny" or none; ``dtype``
+    a name) as ``LlamaConfig``'s keywords."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+    model = dict(model)
+    preset = model.pop("preset", None)
+    if "dtype" in model:
+        model["dtype"] = getattr(torch, model["dtype"])
+    if preset is None:
+        return model
+    return dataclasses.asdict(getattr(LlamaConfig, preset)(**model))
+
+
+def report_ranks(out, **first):
+    """Every rank's ``out`` to rank 0's report (``dist.all_gather_object``),
+    beside ``first``."""
+    import torch.distributed as dist
+    from ray_tpu_torch import train
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    train.report(dict(first, ranks=ranks))
+
+
+def fit_ranks(loop, cfg, n, cuda, storage, name, mesh=None, failures=0,
+              **scaling):
+    """``TorchTrainer`` over ``n`` workers: one card each with ``cuda``
+    (an NCCL group), CPU workers over gloo without. -> the Result."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    run = train.RunConfig(
+        name=name, storage_path=str(storage),
+        failure_config=train.FailureConfig(max_failures=failures))
+    return train.TorchTrainer(
+        loop, train_loop_config=dict(cfg, device="cuda" if cuda else "cpu"),
+        scaling_config=train.ScalingConfig(
+            num_workers=n, use_gpu=cuda, mesh=mesh or MeshSpec(dp=-1),
+            **scaling),
+        run_config=run).fit()
+
+
+def gloo_twin(cuda, got, loop, cfg, n, storage, name, read):
+    """The gloo CPU run of ``loop`` that a card run is held against; on the
+    CPU (a rehearsal of the phase) the run is its own twin."""
+    if not cuda:
+        return got
+    return read(fit_ranks(loop, cfg, n, False, storage, name))
+
+
+def rank_setup(cfg):
+    """A rank program's first lines: TF32 off, one thread on the CPU (the
+    gloo tests' setting), -> the device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(cfg["device"])
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    return device
+
+
+def to_numpy(t):
+    return t.detach().float().cpu().numpy()
+
+
+def worst_ratio(got, want, rtol):
+    """max |got - want| over ``rtol`` x the largest |want| (+1e-7, the
+    tests' floor): <= 1 passes."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max(initial=0.0)
+                 / (rtol * np.abs(want).max(initial=0.0) + 1e-7))
+
+
+def hold(what, got, want, rtol, worst):
+    """Hold ``got`` to ``want`` (arrays or lists of them) at ``rtol`` of the
+    largest value, or to the bit at ``rtol`` None (inf where it is not):
+    the worst ratio goes into ``worst`` under ``what``, a failing array's
+    position and ratio under ``worst["failed"]``; ``settle`` raises."""
+    import numpy as np
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), what
+        pairs = list(zip(got, want))
+    else:
+        pairs = [(got, want)]
+    for i, (g, w) in enumerate(pairs):
+        if rtol is None:
+            r = 0.0 if np.array_equal(np.asarray(g), np.asarray(w)) \
+                else math.inf
+        else:
+            r = worst_ratio(g, w, rtol)
+        if r > 1:
+            worst.setdefault("failed", []).append(
+                f"{what} [{i}]: {r:.3g} of {rtol or 'the bit'}")
+        worst[what] = max(worst.get(what, 0.0), r)
+
+
+def hold_scalar(what, got, want, rtol, worst):
+    r = abs(got - want) / (rtol * abs(want))
+    if r > 1:
+        worst.setdefault("failed", []).append(
+            f"{what}: {got} against {want} ({r:.3g} of {rtol})")
+    worst[what] = max(worst.get(what, 0.0), r)
+
+
+def settle(worst, what):
+    """Raise with every comparison of ``worst`` past its limit."""
+    assert not worst.get("failed"), f"{what}: {worst['failed']}"
+
+
+def ratios(worst):
+    return ", ".join(f"{k} {v:.3f}" for k, v in worst.items()
+                     if k != "failed")
+
+
+def skip_below(need, what):
+    """Log a skip line when this machine has fewer than ``need`` cards:
+    -> whether to skip."""
+    have = torch.cuda.device_count()
+    if have >= need:
+        return False
+    log(f"phase {what}: skipped, needs {need} cards, "
+        f"torch.cuda.device_count() is {have}")
+    return True
+
+
+# ---- 20a: the NCCL group on 2 and 4 cards, teardown and re-join
+
+
+def group_loop(cfg):
+    """20a's rank program: what the rank sees (backend, world, its card's
+    uuid and ``CUDA_VISIBLE_DEVICES``, the node ids ``global_mesh`` would
+    group by), then it leaves the group and joins a new one at rank 0's
+    free port in the same process, and sums its rank over it."""
+    import os
+    import socket
+    import time
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import backend
+    device = rank_setup(cfg)
+    cuda = device.type == "cuda"
+    ctx = train.get_context()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "cards": torch.cuda.device_count() if cuda else 0,
+           "uuid": str(torch.cuda.get_device_properties(0).uuid)
+           if cuda else None, "nodes": backend._node_ids(),
+           "pid": os.getpid()}
+    port = [None]
+    if ctx.get_rank() == 0:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = [s.getsockname()[1]]
+        s.close()
+    dist.broadcast_object_list(port, src=0)
+    t0 = time.monotonic()
+    backend.teardown_torch_worker()
+    backend.setup_torch_worker({
+        "coordinator": f"127.0.0.1:{port[0]}", "rank": ctx.get_rank(),
+        "world_size": ctx.get_world_size(), "use_gpu": cuda})
+    out["rejoin_s"] = time.monotonic() - t0
+    x = torch.full((4,), float(ctx.get_rank() + 1), device=device)
+    dist.all_reduce(x)
+    out["sum"] = x.tolist()
+    out["pid_after"] = os.getpid()
+    report_ranks(out)
+
+
+def phase_group(cuda, storage, sizes=(2, 4)):
+    """20a: ``TorchTrainer`` with ``use_gpu`` over 2 and 4 workers, one
+    card each: every rank in an NCCL group of the run's size (gloo on the
+    CPU), one card visible to each, distinct cards, one node, then the
+    re-join in the same processes."""
+    out = {}
+    for n in sizes:
+        if cuda and skip_below(n, f"20a at {n} cards"):
+            continue
+        t0 = time.monotonic()
+        res = fit_ranks(group_loop, {}, n, cuda, storage, f"20a-{n}")
+        fit_s = time.monotonic() - t0
+        ranks = res.metrics["ranks"]
+        want_backend = "nccl" if cuda else "gloo"
+        assert all(r["backend"] == want_backend and r["world"] == n
+                   for r in ranks), ranks
+        assert all(r["sum"] == [n * (n + 1) / 2] * 4 for r in ranks), ranks
+        assert all(r["pid"] == r["pid_after"] for r in ranks), ranks
+        assert len({tuple(r["nodes"]) for r in ranks}) == 1
+        if cuda:
+            assert all(r["cards"] == 1 for r in ranks), ranks
+            assert len({r["uuid"] for r in ranks}) == n, ranks
+            assert len({r["visible"] for r in ranks}) == n, ranks
+        out[n] = ranks
+        log(f"20a: {n} ranks, {want_backend}, fit {fit_s:.1f} s; cards "
+            f"(CUDA_VISIBLE_DEVICES) {[r['visible'] for r in ranks]}, each "
+            f"rank sees {[r['cards'] for r in ranks]}; re-joined a new "
+            f"group in the same processes in "
+            f"{[round(r['rejoin_s'], 2) for r in ranks]} s, its all-reduce "
+            f"{ranks[0]['sum'][0]}")
+    return out
+
+
+# ---- 20b: every collective over every axis; bus bandwidth
+
+
+COLLECTIVE_OPS = ("sum", "mean", "max", "min", "gather0", "gather1",
+                  "gather_stack", "scatter0", "scatter1", "broadcast",
+                  "alltoall01", "alltoall10", "alltoall_bf16_strided",
+                  "shift+1", "shift-1")
+#: ops whose forward moves values without adding them (equal to the bit)
+MOVES = ("max", "min", "gather0", "gather1", "gather_stack", "broadcast",
+         "alltoall01", "alltoall10", "alltoall_bf16_strided", "shift+1",
+         "shift-1")
+#: ops whose backward adds (a sum's, a gather's and a broadcast's)
+SUMMED_GRADS = ("sum", "mean", "gather0", "gather1", "gather_stack",
+                "broadcast")
+
+
+def run_collective(op, x, mesh, axis):
+    from ray_tpu_torch.parallel import collectives as C
+    if op in ("sum", "mean", "max", "min"):
+        return C.allreduce(x, mesh, axis, op)
+    if op.startswith("gather"):
+        return C.allgather(x, mesh, axis, 1 if op == "gather1" else 0,
+                           tiled=op != "gather_stack")
+    if op.startswith("scatter"):
+        return C.reducescatter(x, mesh, axis, int(op[-1]))
+    if op == "broadcast":
+        return C.broadcast(x, mesh, axis, root=1)
+    if op == "alltoall_bf16_strided":    # a transposed bf16 view
+        return C.alltoall(x.bfloat16().t(), mesh, axis, 0, 1)
+    if op.startswith("alltoall"):
+        return C.alltoall(x, mesh, axis, int(op[-2]), int(op[-1]))
+    return C.ppermute_shift(x, mesh, axis, int(op[len("shift"):]))
+
+
+def bus_times(group, n, nbytes, device, warmup=BUS_WARMUP, iters=BUS_ITERS):
+    """Median ms of each collective on ``nbytes`` of bf16 over ``group``
+    (n ranks): all-reduce (in place), all-gather (the output nbytes),
+    reduce-scatter (the input nbytes), all-to-all, and a shift (each rank
+    sends nbytes to the next and receives as much)."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import collectives as C
+    cuda = device.type == "cuda"
+    elems = nbytes // 2
+    x = torch.ones(elems, dtype=torch.bfloat16, device=device)
+    part = torch.ones(elems // n, dtype=torch.bfloat16, device=device)
+    y = torch.empty_like(x)
+    me = dist.get_group_rank(group, dist.get_rank())
+
+    def shift():
+        ops = [dist.P2POp(dist.isend, x,
+                          dist.get_global_rank(group, (me + 1) % n), group),
+               dist.P2POp(dist.irecv, y,
+                          dist.get_global_rank(group, (me - 1) % n), group)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+
+    ops = {"all_reduce": lambda: dist.all_reduce(x, group=group),
+           "all_gather": lambda: C._gather_into(y, part, group=group),
+           "reduce_scatter": lambda: C._scatter_into(part, x, group=group),
+           "all_to_all": lambda: dist.all_to_all_single(y, x, group=group),
+           "shift": shift}
+    out = {}
+    for name, fn in ops.items():
+        ms = []
+        for i in range(warmup + iters):
+            dist.barrier(group=group)
+            if cuda:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                t = start.elapsed_time(end)
+            else:
+                t0 = time.perf_counter()
+                fn()
+                t = (time.perf_counter() - t0) * 1e3
+            if i >= warmup:
+                ms.append(t)
+        out[name] = statistics.median(ms)
+    return out
+
+
+#: nccl-tests' bus-bandwidth factors (algbw = nbytes / time)
+BUS_FACTOR = {"all_reduce": lambda n: 2 * (n - 1) / n,
+              "all_gather": lambda n: (n - 1) / n,
+              "reduce_scatter": lambda n: (n - 1) / n,
+              "all_to_all": lambda n: (n - 1) / n,
+              "shift": lambda n: 1.0}
+
+
+def collectives_loop(cfg):
+    """20b's rank program: on each mesh of ``cfg["meshes"]`` (built with
+    its combined groups), each collective of ``parallel.collectives``
+    over each axis and over the axes together, forward and the backward
+    of a seeded cotangent, on seeded per-rank inputs; then the bus
+    times over the whole group and over the last mesh's last axis."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshSpec, axis_group, build_mesh
+    device = rank_setup(cfg)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = {"cases": {}, "groups": {}}
+    for spec in cfg["meshes"]:
+        mesh = build_mesh(MeshSpec(**spec))
+        assert mesh.device_type == device.type, mesh.device_type
+        tag = "·".join(f"{a}{d}" for a, d in spec.items())
+        out["groups"][tag] = sorted("+".join(k) for k in mesh._rtpt_groups)
+        axes = list(spec) + ([tuple(spec)] if len(spec) > 1 else [])
+        for axis in axes:
+            name = axis if isinstance(axis, str) else "+".join(axis)
+            for k, op in enumerate(COLLECTIVE_OPS):
+                rng = np.random.default_rng([rank, k])
+                x = torch.tensor(rng.standard_normal((8, 8)),
+                                 dtype=torch.float32, device=device)
+                x.requires_grad_(op not in ("max", "min"))
+                y = run_collective(op, x, mesh, axis)
+                case = {"y": to_numpy(y)}
+                if x.requires_grad:
+                    cot = torch.tensor(rng.standard_normal(tuple(y.shape)),
+                                       dtype=torch.float32, device=device)
+                    (y.float() * cot).sum().backward()
+                    case["dx"] = to_numpy(x.grad)
+                out["cases"][f"{tag}/{name}/{op}"] = case
+    if cfg.get("bus_bytes"):
+        pair = axis_group(mesh, list(cfg["meshes"][-1])[-1])
+        out["bus"] = {
+            f"{n} ranks": bus_times(dist.group.WORLD, n, cfg["bus_bytes"],
+                                    device),
+            "2 ranks": bus_times(pair, 2, cfg["bus_bytes"], device)}
+    report_ranks(out)
+
+
+def phase_collectives(cuda, storage, sizes=(2, 4), bus_bytes=BUS_BYTES):
+    """20b: ``collectives_loop`` over gloo CPU ranks, then over NCCL ranks
+    on the cards: forward values and gradients equal to the bit where the
+    collective moves values (gathers, shifts, all-to-alls, broadcast,
+    max, min), to ``SUM_RTOL`` of the largest where it adds; the same
+    combined groups; the bus bandwidth at ``bus_bytes`` of bf16 (cards
+    only; the topology printed beside it)."""
+    out = {}
+    for n in sizes:
+        if cuda and skip_below(n, f"20b at {n} cards"):
+            continue
+        cfg = {"meshes": COLLECTIVE_MESHES[n]}
+        t0 = time.monotonic()
+        got = fit_ranks(collectives_loop, dict(cfg, bus_bytes=bus_bytes),
+                        n, cuda, storage, f"20b-{n}").metrics["ranks"]
+        fit_s = time.monotonic() - t0
+        twin = gloo_twin(cuda, got, collectives_loop, cfg, n, storage,
+                         f"20b-gloo-{n}", lambda r: r.metrics["ranks"])
+        worst = {}
+        for r, (g, w) in enumerate(zip(got, twin)):
+            assert g["groups"] == w["groups"], (g["groups"], w["groups"])
+            assert set(g["cases"]) == set(w["cases"])
+            for key, case in w["cases"].items():
+                op = key.rsplit("/", 1)[1]
+                hold(f"{op} forward", g["cases"][key]["y"], case["y"],
+                     None if op in MOVES else SUM_RTOL, worst)
+                if "dx" in case:
+                    hold(f"{op} backward", g["cases"][key]["dx"],
+                         case["dx"],
+                         SUM_RTOL if op in SUMMED_GRADS else None, worst)
+        bus = {}
+        for group, times in got[0].get("bus", {}).items():
+            k = int(group.split()[0])
+            for name in times:
+                ms = max(r["bus"][group][name] for r in got)
+                bus[f"{name} over {group}"] = {
+                    "ms": ms, "busbw_GBps": bus_bytes / (ms / 1e3) / 1e9
+                    * BUS_FACTOR[name](k)}
+        out[n] = {"worst": worst, "bus": bus}
+        log(f"20b: {n} ranks ({'nccl' if cuda else 'gloo'} against gloo), "
+            f"{len(twin[0]['cases'])} cases a rank over the meshes "
+            f"{[g for g in twin[0]['groups']]} (combined groups "
+            f"{twin[0]['groups']}): values moved equal to the bit (0), "
+            f"sums within {SUM_RTOL} of the largest; worst ratio to each "
+            f"limit: {ratios(worst)}; fit {fit_s:.1f} s")
+        if bus:
+            log(f"20b: bus bandwidth at {bus_bytes} bytes of bf16 (median "
+                f"of {BUS_ITERS} after {BUS_WARMUP}, the slowest rank; "
+                f"nccl-tests' factors): " + "; ".join(
+                    f"{k} {v['ms']:.3f} ms = {v['busbw_GBps']:.1f} GB/s"
+                    for k, v in bus.items()))
+        settle(worst, f"20b at {n} ranks")
+    return out
+
+
+# ---- 20c: the sharded train step's meshes
+
+
+def tree_to(tree, device):
+    """A copy of a parameter tree on ``device`` (a copy on the CPU too: a
+    leaf's local shard may be a view of what it was sharded from, and
+    the optimizers step the shards in place)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def sharded_loop(cfg):
+    """20c's rank program: tests/test_torch_sharded_train.py's program on
+    each mesh of ``cfg["meshes"]`` in turn: one step's loss and every
+    gradient leaf gathered whole, then three chained steps of SGD, AdamW
+    and Adafactor (losses, gradient norms, the parameters after them);
+    the parameters from one seed on the CPU, the tokens from a numpy
+    seed, so both backends start alike."""
+    import functools
+
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train.optim import Adafactor
+    from ray_tpu_torch.train.train_step import (local_shard, param_leaves,
+                                                reduce_gradients)
+    device = rank_setup(cfg)
+    base = tl.LlamaConfig(**model_kwargs(cfg["model"]))
+    host = tl.init_params(base, seed=0, device="cpu")
+    np_tokens = np.random.default_rng(0).integers(0, base.vocab_size,
+                                                  cfg["tokens"])
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    optimizers = {
+        "sgd": lambda ps: torch.optim.SGD(ps, lr=1e-2),
+        "adamw": lambda ps: torch.optim.AdamW(ps, lr=1e-3,
+                                              weight_decay=1e-4),
+        "adafactor": lambda ps: Adafactor(ps, lr=1e-3)}
+    out = {}
+    for case, spec in cfg["meshes"].items():
+        overlap = case.endswith("_overlap")
+        tcfg = dataclasses.replace(base, fsdp_overlap=overlap)
+        mesh = build_mesh(MeshSpec(**spec))
+        specs = tl.param_specs(tcfg)
+        tokens = train.shard_batch(torch.tensor(np_tokens, device=device),
+                                   mesh)
+
+        def fresh():
+            return train.shard_params(tree_to(host, device), mesh, specs)
+
+        params = fresh()
+        local = {k: ({n: local_shard(t) for n, t in v.items()}
+                     if isinstance(v, dict) else local_shard(v))
+                 for k, v in params.items()}
+        leaves = param_leaves(local)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = tl.loss_fn(local, tokens, tcfg, mesh=mesh)
+        loss.backward()
+        reduce_gradients(leaves)
+        res = {"loss": loss.item(), "grads": [to_numpy(DTensor.from_local(
+            t.grad, mesh, t.shard_info.placements,
+            run_check=False).full_tensor()) for t in leaves]}
+        for opt_name in (("sgd",) if overlap else optimizers):
+            params = fresh()
+            init_fn, step_fn = train.make_train_step(
+                functools.partial(tl.loss_fn, cfg=tcfg, mesh=mesh),
+                optimizers[opt_name])
+            opt = init_fn(params)
+            hist = []
+            for _ in range(3):
+                params, opt, m = step_fn(params, opt, tokens)
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            res[opt_name] = {"metrics": hist, "params": [
+                to_numpy(t.full_tensor()) for t in param_leaves(params)]}
+        out[case] = res
+    train.report({"cases": out, "launches": dict(tfa.launch_counts)})
+
+
+def phase_sharded_train(cuda, storage, sizes=(2, 4), model=SHARDED_MODEL,
+                        tokens=SHARDED_TOKENS, meshes=SHARDED_MESHES):
+    """20c: ``sharded_loop`` over gloo CPU ranks and over NCCL ranks on
+    the cards, each mesh of ``SHARDED_MESHES``: one step's loss (rel
+    ``PARITY_LOSS_RTOL``) and gathered gradients (``PARITY_GRAD_RTOL`` of
+    each leaf's largest), the chained steps' losses, the first gradient
+    norm, SGD's norms and parameters, Adafactor's norms (rel
+    ``ADAFACTOR_NORM_RTOL``) and parameters; the prefetching fsdp step
+    equal to the plain one on the same backend (``OVERLAP_RTOL``). ->
+    the cards' flash launches."""
+    launches = {}
+    for n in sizes:
+        if cuda and skip_below(n, f"20c at {n} cards"):
+            continue
+        cfg = {"meshes": meshes[n], "model": model, "tokens": tokens}
+        t0 = time.monotonic()
+        res = fit_ranks(sharded_loop, cfg, n, cuda, storage,
+                        f"20c-{n}").metrics
+        fit_s = time.monotonic() - t0
+        twin = gloo_twin(cuda, res, sharded_loop, cfg, n, storage,
+                         f"20c-gloo-{n}", lambda r: r.metrics)
+        worst = {}
+        for case, w in twin["cases"].items():
+            g = res["cases"][case]
+            hold_scalar(f"{case} loss", g["loss"], w["loss"],
+                        PARITY_LOSS_RTOL, worst)
+            hold(f"{case} grads", g["grads"], w["grads"], PARITY_GRAD_RTOL,
+                 worst)
+            for opt in ("sgd", "adamw", "adafactor"):
+                if opt not in w:
+                    continue
+                gm, wm = g[opt]["metrics"], w[opt]["metrics"]
+                for (gl, gn), (wl, wn) in zip(gm, wm):
+                    hold_scalar(f"{case} {opt} losses", gl, wl,
+                                PARITY_LOSS_RTOL, worst)
+                hold_scalar(f"{case} {opt} first norm", gm[0][1], wm[0][1],
+                            PARITY_GRAD_RTOL, worst)
+                if opt in ("sgd", "adafactor"):
+                    rtol = PARITY_GRAD_RTOL if opt == "sgd" \
+                        else ADAFACTOR_NORM_RTOL
+                    for (_, gn), (_, wn) in zip(gm, wm):
+                        hold_scalar(f"{case} {opt} norms", gn, wn, rtol,
+                                    worst)
+                    hold(f"{case} {opt} params", g[opt]["params"],
+                         w[opt]["params"], PARITY_GRAD_RTOL, worst)
+            if case.endswith("_overlap"):
+                plain = res["cases"][case[:-len("_overlap")]]
+                hold_scalar(f"{case} loss against the plain step",
+                            g["loss"], plain["loss"], OVERLAP_RTOL, worst)
+                hold(f"{case} grads against the plain step", g["grads"],
+                     plain["grads"], OVERLAP_RTOL, worst)
+        launches[n] = res["launches"]
+        log(f"20c: {n} ranks ({'nccl' if cuda else 'gloo'} against gloo), "
+            f"meshes {list(meshes[n])}, flash launches on rank 0 "
+            f"{res['launches']}, fit {fit_s:.1f} s; worst ratio to each "
+            f"limit: {ratios(worst)}")
+        settle(worst, f"20c at {n} ranks")
+    return launches
+
+
+# ---- 20d: the flagship, Llama-3-8B FSDP over four cards
+
+
+def step_overlap(prof):
+    """From a profiled step: (NCCL kernels' device ms, other kernels' ms
+    (their union over streams), the NCCL ms that ran while another
+    kernel did), from the device events' intervals; None without device
+    events."""
+    from torch.autograd import DeviceType
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
+    if not spans:
+        return None
+    comm = sorted((s, e) for n, s, e in spans if "nccl" in n.lower())
+    comp = sorted((s, e) for n, s, e in spans if "nccl" not in n.lower())
+    union = []
+    for s, e in comp:
+        if union and s <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], e)
+        else:
+            union.append([s, e])
+    under = sum(max(0, min(e, ue) - max(s, us))
+                for s, e in comm for us, ue in union)
+    return (sum(e - s for s, e in comm) / 1e3,
+            sum(e - s for s, e in union) / 1e3, under / 1e3)
+
+
+def flagship_loop(cfg):
+    """20d's rank program: Llama-3-8B widths (``cfg["model"]``), FSDP over
+    the run's ranks (the mesh ``MeshSpec(fsdp=-1)``), the parameters from
+    one seed made whole on each card and sharded, the tokens from one CPU
+    seed, Adafactor; with a checkpoint it restores parameters and
+    optimizer state first. Runs each of ``cfg["variants"]`` (a name, the
+    model's changes, warm-up and timed steps) on the same parameters,
+    rank 0 profiling one more step of each when ``cfg["profile"]``; the
+    first ``cfg["save"]`` steps report a checkpoint. Every rank's step
+    times, peak memory and flash launches go to the last report."""
+    import functools
+    import time as _time
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.train import Adafactor
+    device = rank_setup(cfg)
+    cuda = device.type == "cuda"
+    ctx = train.get_context()
+    mesh = ctx.global_mesh()
+    base = tl.LlamaConfig(**model_kwargs(cfg["model"]))
+    whole = tl.init_params(base, seed=0, device=device)
+    params = train.shard_params(whole, mesh, tl.param_specs(base))
+    del whole
+    if cuda:
+        torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(1)
+    tokens = train.shard_batch(torch.randint(
+        0, base.vocab_size, tuple(cfg["batch"]), generator=g).to(device),
+        mesh)
+    load_s = None
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    mine = {"step_s": {}, "nccl": {}}
+    saved = 0
+    # one step function for every variant (its optimizer holds the
+    # shards), the model's changes read at each call
+    current = {}
+    init_fn, step_fn = train.make_train_step(
+        lambda p, b: tl.loss_fn(p, b, current["cfg"], mesh=mesh),
+        functools.partial(Adafactor, lr=1e-3))
+    opt = init_fn(params)
+    if ctx.get_checkpoint() is not None:
+        t0 = _time.monotonic()
+        state = ctx.get_checkpoint().load(target={"params": params,
+                                                  "opt": None})
+        with torch.no_grad():
+            for dst, src in zip(train.param_leaves(params),
+                                train.param_leaves(state["params"])):
+                dst.to_local().copy_(src.to_local())
+        opt.load_state_dict(state["opt"])
+        del state
+        load_s = _time.monotonic() - t0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for vname, changes, warmup, steps in cfg["variants"]:
+        current["cfg"] = dataclasses.replace(base, **changes)
+        times = []
+        for i in range(warmup + steps):
+            t0 = _time.monotonic()
+            params, opt, m = step_fn(params, opt, tokens)
+            loss = float(m["loss"])                 # waits for the card
+            dt = _time.monotonic() - t0
+            if i >= warmup:
+                times.append(dt)
+            ckpt = None
+            if saved < cfg.get("save", 0):
+                ckpt = {"params": params, "opt": opt.state_dict()}
+                saved += 1
+            train.report({"loss": loss, "variant": vname, "step_s": dt,
+                          "grad_norm": float(m["grad_norm"]),
+                          "load_s": load_s}, checkpoint_tree=ckpt)
+        mine["step_s"][vname] = times
+        if cfg.get("profile"):
+            dist.barrier()
+            if ctx.get_rank() == 0 and cuda:
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = _time.monotonic()
+                    params, opt, m = step_fn(params, opt, tokens)
+                    float(m["loss"])
+                    prof_s = _time.monotonic() - t0
+                mine["nccl"][vname] = (step_overlap(prof), prof_s)
+            else:
+                params, opt, m = step_fn(params, opt, tokens)
+                float(m["loss"])
+    mine["launches"] = dict(tfa.launch_counts)
+    mine["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    report_ranks(mine, loss=loss)
+
+
+def flagship_reference_loss(model, batch, device):
+    """The first step's loss of ``flagship_loop`` on one card, no mesh:
+    the same parameters and tokens, the forward alone."""
+    from ray_tpu_torch.models import llama as tl
+    cfg = tl.LlamaConfig(**model_kwargs(model))
+    params = tl.init_params(cfg, seed=0, device=device)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, tuple(batch),
+                           generator=g).to(device)
+    with torch.no_grad():
+        loss = float(tl.loss_fn(params, tokens, cfg))
+    del params
+    return loss
+
+
+def phase_flagship(cuda, storage, n=4, check_model=FLAGSHIP_CHECK,
+                   model=FLAGSHIP_MODEL, batch=FLAGSHIP_BATCH,
+                   warmup=FLAGSHIP_WARMUP, steps=FLAGSHIP_STEPS, card=""):
+    """20d on ``n`` cards: the check (``check_model``, two steps, the first
+    checkpointed for 20f): its first loss equal to the same tokens' loss
+    from the same parameters on one card (rel ``PARITY_LOSS_RTOL``); then
+    ``model`` (unless None) with the plain fsdp gathers and with the
+    prefetching ones
+    (``fsdp_overlap``), ``warmup`` and ``steps`` each, one more step of
+    each under the profiler on rank 0: losses finite and falling, step
+    ms, tokens/s, MFU per card, peak memory per card, NCCL kernels' time
+    and the share of it under other kernels, the flash launches. ->
+    (the check's Result, the numbers' summary)."""
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    if cuda and skip_below(n, f"20d at {n} cards"):
+        return None, None
+    device = torch.device("cuda" if cuda else "cpu")
+    mesh = MeshSpec(fsdp=-1)
+    t0 = time.monotonic()
+    check = fit_ranks(flagship_loop, {
+        "model": check_model, "batch": batch, "save": 1,
+        "variants": [("check", {}, 0, 2)]}, n, cuda, storage, "20d-check",
+        mesh=mesh)
+    check_s = time.monotonic() - t0
+    hist = steps_of(check)
+    want = flagship_reference_loss(check_model, batch, device)
+    if cuda:
+        free_card()
+    gap = abs(hist[0]["loss"] - want) / abs(want)
+    assert gap <= PARITY_LOSS_RTOL, (hist[0]["loss"], want)
+    ccfg = tl.LlamaConfig(**model_kwargs(check_model))
+    log(f"20d check: {ccfg.n_layers} layers, dim {ccfg.dim}, fp32, "
+        f"fsdp {n}, B {batch[0]} x L {batch[1]}: first loss "
+        f"{hist[0]['loss']:.6f} against one card's {want:.6f} (gap "
+        f"{gap:.2e} of itself, limit {PARITY_LOSS_RTOL}); second "
+        f"{hist[1]['loss']:.6f}; checkpoint {check.checkpoint.path}; fit "
+        f"{check_s:.1f} s")
+    if model is None:
+        return check, None
+    t0 = time.monotonic()
+    res = fit_ranks(flagship_loop, {
+        "model": model, "batch": batch, "profile": True,
+        "variants": [("plain", {}, warmup, steps),
+                     ("prefetch", {"fsdp_overlap": True}, 1, steps)]},
+        n, cuda, storage, "20d", mesh=mesh)
+    fit_s = time.monotonic() - t0
+    losses = [m["loss"] for m in steps_of(res)]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    ranks = res.metrics["ranks"]
+    cfg = tl.LlamaConfig(**model_kwargs(model))
+    B, L = batch
+    per_rank = B * L // n
+    summary = {"losses": losses, "fit_s": fit_s,
+               "peaks": [r["peak"] for r in ranks],
+               "launches": ranks[0]["launches"], "variants": {}}
+    total = sum(1 + warmup + steps for warmup, steps in
+                ((warmup, steps), (1, steps)))
+    if cuda:
+        expected = expected_flash_launches(cfg.n_layers, total)
+        assert ranks[0]["launches"] == expected, (ranks[0]["launches"],
+                                                  expected)
+    for vname in ranks[0]["step_s"]:
+        slowest = [max(r["step_s"][vname][i] for r in ranks)
+                   for i in range(steps)]
+        step_s = sorted(slowest)[len(slowest) // 2]
+        tok_s = B * L / step_s
+        mfu = tok_s / n * tl.flops_per_token(cfg, L) / BF16_FLOPS
+        nccl = ranks[0]["nccl"].get(vname)
+        summary["variants"][vname] = {"step_s": step_s, "tok_s": tok_s,
+                                      "mfu": mfu, "nccl": nccl}
+        comm = "not measured (no device events)"
+        if nccl and nccl[0]:
+            (comm_ms, comp_ms, under_ms), prof_s = nccl
+            moved = fsdp_bytes(cfg, n, regather=vname == "plain")
+            comm = (f"rank 0's profiled step {prof_s * 1e3:.1f} ms: NCCL "
+                    f"kernels {comm_ms:.1f} ms, other kernels {comp_ms:.1f}"
+                    f" ms, NCCL under other kernels {under_ms:.1f} ms "
+                    f"({under_ms / comm_ms:.1%}); about {moved / 1e9:.1f} GB "
+                    f"through each rank's links a step = "
+                    f"{moved / (comm_ms / 1e3) / 1e9:.1f} GB/s over the "
+                    f"NCCL kernels' time")
+        log(f"20d {vname}: {cfg.n_layers} layers, {tl.num_params(cfg)} "
+            f"parameters, fsdp {n}, B {B} x L {L} ({per_rank // L} x {L} a "
+            f"rank): step {step_s * 1e3:.1f} ms (median of {steps} after "
+            f"warm-up, the slowest rank each step), {tok_s:.0f} tokens/s, "
+            f"MFU {mfu:.1%} a card of 989 TFLOP/s; {comm}; {card}")
+    log(f"20d: losses {[round(x, 4) for x in losses]}; peak memory per card "
+        f"{summary['peaks']} bytes; rank 0's flash launches "
+        f"{ranks[0]['launches']}; fit {fit_s:.1f} s")
+    if cuda:
+        summary["flash_ms"] = flash_at_rank_shape(
+            device, cfg, per_rank // L, L, f"fsdp {n} rank", card)
+    return check, summary
+
+
+def flash_at_rank_shape(device, cfg, B, L, name, card=""):
+    """The three flash kernels alone at one rank's shape of ``cfg`` (B
+    rows of L, GQA's kv heads repeated to the q heads, as the model
+    does): 16a's checks and times, beside each kernel's bound. -> name
+    -> (ms, (bound ms, bound by))."""
+    shard = phase_flash_shards(device, shards={
+        name: (B, cfg.n_heads, cfg.n_kv_heads)}, L=L, D=cfg.head_dim)
+    out = {k: (ms, flash_bound_ms(k, B * cfg.n_heads, L, L, cfg.head_dim,
+                                  True, 2))
+           for k, ms in shard[name]["ms"].items()}
+    log(f"20d: the flash kernels at a {name}'s shape, ms against the bound"
+        " (989 TFLOP/s, 3.35 TB/s): " + ", ".join(
+            f"{k} {ms:.4f} / {b[0]:.4f} ({b[1]})"
+            for k, (ms, b) in out.items()) + f"; {card}")
+    return out
+
+
+def steps_of(result):
+    """A flagship run's step reports (the last report carries the ranks'
+    records only)."""
+    return [m for m in result.metrics_history if "ranks" not in m]
+
+
+def fsdp_bytes(cfg, n, regather):
+    """The bytes each rank's gathers and reduce-scatters move in one fsdp
+    step of ``cfg`` over ``n`` ranks: the fp32 layers gathered in the
+    forward, again in the backward's recompute (``regather``: the plain
+    path; the prefetching one keeps the gathered layers), their gradients
+    reduce-scattered; the embedding gathered once and reduce-scattered."""
+    from ray_tpu_torch.models.llama import num_params
+    embed = cfg.vocab_size * cfg.dim
+    layers = num_params(cfg) - embed - cfg.dim
+    return 4 * (n - 1) / n * ((3 if regather else 2) * layers + 2 * embed)
+
+
+# ---- 20e: the fused ring, Ulysses, the pipeline and ep across cards
+
+
+def axes_loop(cfg):
+    """20e's rank program on 4 ranks: ring attention through the fused
+    ring of flash blocks at sp 4 and at dp 2 x sp 2 (``use_kernel`` True:
+    the kernels on CUDA tensors, their plain versions on CPU ones),
+    Ulysses at dp 2 x sp 2 (the block outputs and the gradients of a
+    seeded cotangent, causal); Llama's loss and gradients with pp 2 over
+    dp 2 ("full" attention: the pipeline's shift chain over P2P);
+    ``moe_ffn_sharded`` on a hand-made (dp 2, ep 2) mesh, each dp row its
+    own tokens (per-rank capacity buckets), and Mixtral's loss and
+    gradients there. With ``cfg["ring_timed"]``, the ring's forward over
+    sp 4 at that block shape in bf16, timed."""
+    import importlib
+    import statistics
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models import mixtral as tm
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.parallel.mesh import (MeshSpec, axis_index, axis_size,
+                                             build_mesh)
+    from ray_tpu_torch.parallel.moe import moe_ffn_sharded
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+    from ray_tpu_torch.train.train_step import (local_shard, param_leaves,
+                                                reduce_gradients)
+    ra = importlib.import_module("ray_tpu_torch.parallel.ring_attention")
+    device = rank_setup(cfg)
+    rank = dist.get_rank()
+    for name in tfa.launch_counts:
+        tfa.launch_counts[name] = 0
+    rng = np.random.default_rng(20)
+    qkv, cot = (rng.standard_normal((4, *cfg["qkv"])).astype(np.float32)
+                for _ in range(2))
+    out = {}
+
+    def block(a, mesh):
+        """This rank's [B/dp, L/sp] block of a global array."""
+        dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+        B, L = a.shape[:2]
+        i, j = axis_index(mesh, "dp"), axis_index(mesh, "sp")
+        return torch.tensor(a[i * B // dp:(i + 1) * B // dp,
+                              j * L // sp:(j + 1) * L // sp], device=device)
+
+    for case, spec in (("ring sp4", dict(sp=4)),
+                       ("ring dp2 sp2", dict(dp=2, sp=2)),
+                       ("ulysses dp2 sp2", dict(dp=2, sp=2))):
+        mesh = build_mesh(MeshSpec(**spec))
+        q, k, v = (block(a, mesh).requires_grad_() for a in qkv[:3])
+        if case.startswith("ring"):
+            o = ra.ring_attention_sharded(q, k, v, mesh, causal=True,
+                                          use_kernel=True)
+            out[f"{case} path"] = ra.last_ring_path()
+        else:
+            o = ulysses_attention_sharded(q, k, v, mesh, causal=True)
+        (o.float() * block(cot[0], mesh)).sum().backward()
+        out[case] = [to_numpy(t) for t in (o, q.grad, k.grad, v.grad)]
+
+    def loss_grads(loss_fn, tree, mcfg, specs, tokens, mesh):
+        params = train.shard_params(tree, mesh, specs)
+        loc = {k: ({n: local_shard(t) for n, t in v.items()}
+                   if isinstance(v, dict) else local_shard(v))
+               for k, v in params.items()}
+        leaves = param_leaves(loc)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = loss_fn(loc, train.shard_batch(tokens, mesh), mcfg, mesh=mesh)
+        loss.backward()
+        reduce_gradients(leaves)
+        return loss.item(), [to_numpy(DTensor.from_local(
+            t.grad, mesh, t.shard_info.placements,
+            run_check=False).full_tensor()) for t in leaves]
+
+    # Llama with pp 2 x dp 2: the pipeline's shift chain
+    lcfg = tl.LlamaConfig.tiny(n_layers=2, dtype=torch.float32,
+                               pp_microbatches=2)
+    tokens = torch.tensor(np.random.default_rng(21).integers(
+        0, lcfg.vocab_size, cfg["tokens"]), device=device)
+    mesh = build_mesh(MeshSpec(pp=2, dp=2))
+    out["pp2 dp2"] = loss_grads(
+        tl.loss_fn, tree_to(tl.init_params(lcfg, seed=0, device="cpu"),
+                            device), lcfg, tl.param_specs(lcfg), tokens, mesh)
+
+    # the MoE and Mixtral on (dp 2, ep 2)
+    mesh = init_device_mesh(device.type, (2, 2), mesh_dim_names=("dp", "ep"))
+    d, e = axis_index(mesh, "dp"), axis_index(mesh, "ep")
+    mcfg = tm.MixtralConfig.tiny(dtype=torch.float32, remat=False)
+    full = tm.init_params(mcfg, seed=0, device="cpu")
+    E = mcfg.n_experts
+    moe = {k: v[0] for k, v in full["layers"].items()
+           if k in ("router", "w_gate", "w_in", "w_out")}
+    rows = np.random.default_rng(22).standard_normal(
+        (2, 64, mcfg.dim)).astype(np.float32)
+    for cf in cfg["capacity"]:
+        params = {k: (v if k == "router" else v[e * E // 2:(e + 1) * E // 2]
+                      ).to(device, copy=True).requires_grad_()
+                  for k, v in moe.items()}
+        x = torch.tensor(rows[d, e * 32:(e + 1) * 32], device=device
+                         ).requires_grad_()
+        y = moe_ffn_sharded(params, x, mesh, capacity_factor=cf)
+        (y ** 2).sum().backward()
+        out[f"moe dp2 ep2 cf {cf}"] = [to_numpy(y), to_numpy(x.grad)] + [
+            to_numpy(params[k].grad) for k in sorted(params)]
+        with torch.no_grad():
+            own = capacity_moe_reference(
+                {k: v.to(device) for k, v in moe.items()}, x, cf)
+        out[f"moe dp2 ep2 cf {cf} y against its own"] = worst_ratio(
+            to_numpy(y), to_numpy(own), PARITY_GRAD_RTOL)
+    tree = tree_to(full, device)
+    for k in ("w_gate", "w_in", "w_out"):
+        tree["layers"][k] = tree["layers"][k][:, e * E // 2:(e + 1) * E // 2]
+    tree["layers"] = {k: v.contiguous().requires_grad_()
+                      for k, v in tree["layers"].items()}
+    for k in ("embed", "final_norm"):
+        tree[k].requires_grad_()
+    toks = torch.tensor(np.random.default_rng(23).integers(
+        0, mcfg.vocab_size, (4, 16))[d * 2:(d + 1) * 2], device=device)
+    loss = tm.loss_fn(tree, toks, mcfg, mesh=mesh)
+    loss.backward()
+    out["mixtral dp2 ep2"] = [np.float32(loss.item())] + [
+        to_numpy(t.grad) for t in param_leaves(tree)]
+    launches = dict(tfa.launch_counts)
+
+    if cfg.get("ring_timed"):
+        mesh = build_mesh(MeshSpec(sp=4))
+        g = torch.Generator(device=device).manual_seed(24 + rank)
+        q, k, v = (torch.randn(*cfg["ring_timed"], generator=g,
+                               device=device).bfloat16() for _ in range(3))
+        ms = []
+        for i in range(7):
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ra.ring_attention_sharded(q, k, v, mesh, causal=True)
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                ms.append(start.elapsed_time(end))
+        out["ring ms"] = statistics.median(ms)
+    out["launches"] = launches
+    report_ranks(out)
+
+
+def phase_axes(cuda, storage, n=4, qkv=AXES_QKV, tokens=AXES_TOKENS,
+               ring_timed=RING_TIMED):
+    """20e: ``axes_loop`` over gloo CPU ranks and over NCCL ranks on the
+    cards, every rank's blocks against its twin's: attention outputs and
+    gradients to ``PARITY_GRAD_RTOL`` of their largest value (the ring's
+    path "fused" on both), the pipelined loss (rel ``PARITY_LOSS_RTOL``)
+    and gradients, the MoE's outputs and gradients, Mixtral's loss and
+    gradients; then, on the cards, the ring's forward at L 4 x
+    ``ring_timed[1]`` over four cards against one flash call at that
+    length on card 0. -> the flash launches of the cards' rank 0."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    if cuda and skip_below(n, "20e"):
+        return None
+    cfg = {"qkv": qkv, "tokens": tokens, "capacity": MOE_CAPACITY}
+    t0 = time.monotonic()
+    got = fit_ranks(axes_loop, dict(cfg, ring_timed=ring_timed if cuda
+                                    else None), n, cuda, storage,
+                    "20e").metrics["ranks"]
+    fit_s = time.monotonic() - t0
+    twin = gloo_twin(cuda, got, axes_loop, cfg, n, storage, "20e-gloo",
+                     lambda r: r.metrics["ranks"])
+    worst = {}
+    for case in twin[0]:
+        if case == "launches":
+            continue
+        if case.endswith("path"):
+            assert [r[case] for r in got] == ["fused"] * n, case
+            assert [r[case] for r in twin] == ["fused"] * n, case
+            continue
+        if case.endswith("own"):
+            # each side against the plain per-rank capacity function
+            for side, ranks in (("cards", got), ("gloo", twin)):
+                for r in ranks:
+                    worst[f"{case} ({side})"] = max(
+                        worst.get(f"{case} ({side})", 0.0), r[case])
+                    if r[case] > 1:
+                        worst.setdefault("failed", []).append(
+                            f"{case} ({side}): {r[case]:.3g}")
+            continue
+        for g, w in zip(got, twin):
+            if case == "pp2 dp2":
+                hold_scalar(f"{case} loss", g[case][0], w[case][0],
+                            PARITY_LOSS_RTOL, worst)
+                hold(f"{case} grads", g[case][1], w[case][1],
+                     PARITY_GRAD_RTOL, worst)
+            elif case.startswith("mixtral"):
+                hold_scalar(f"{case} loss", float(g[case][0]),
+                            float(w[case][0]), PARITY_LOSS_RTOL, worst)
+                hold(f"{case} grads", g[case][1:], w[case][1:],
+                     PARITY_GRAD_RTOL, worst)
+            else:
+                hold(case, g[case], w[case], PARITY_GRAD_RTOL, worst)
+    launches = got[0]["launches"]
+    if cuda:
+        # the ring's blocks (sp 4: 10 forward and backward blocks a rank
+        # at most, sp 2: 3) ran the kernels, never the plain versions
+        assert launches["flash_attention_fwd"] > 0, launches
+        assert launches["flash_attention_fwd_reference_cuda"] == 0
+        assert launches["flash_attention_bwd_reference_cuda"] == 0
+    line = (f"20e: 4 ranks ({'nccl' if cuda else 'gloo'} against gloo), "
+            f"the ring's path {got[0]['ring sp4 path']}; rank 0's flash "
+            f"launches {launches}; fit {fit_s:.1f} s; worst ratio to each "
+            f"limit: {ratios(worst)}")
+    log(line)
+    if cuda:
+        ring_ms = max(r["ring ms"] for r in got)
+        B, Lr, H, D = ring_timed
+        g = torch.Generator(device="cuda").manual_seed(25)
+        q, k, v = (torch.randn(B, n * Lr, H, D, generator=g,
+                               device="cuda").bfloat16() for _ in range(3))
+        one_ms = time_ms(lambda: tfa.flash_attention(q, k, v, causal=True),
+                         flush=torch.empty(256 << 20, dtype=torch.uint8,
+                                           device="cuda"))
+        del q, k, v
+        free_card()
+        log(f"20e: the ring's forward over {n} cards at B {B} x L "
+            f"{n * Lr} x {H} heads x D {D} (bf16, causal; the slowest rank, "
+            f"median of 5 after 2, CUDA events, the shifts included) "
+            f"{ring_ms:.4f} ms against one flash call at that length on "
+            f"card 0 {one_ms:.4f} ms (time_ms, L2 flushed)")
+    settle(worst, "20e")
+    return launches
+
+
+def capacity_moe_reference(params, x, capacity_factor, top_k=2):
+    """The plain function of ``moe_ffn_sharded``'s drop rule on one rank's
+    tokens x [t, d] (``params``: every expert): every expert on every
+    token, each (token, k) weighted by its renormalized top-k weight, or
+    by 0 past the first ceil(t·k/E·factor) assignments to its expert in
+    token order (tests/test_torch_pipeline_moe.py's
+    ``_per_rank_capacity_moe`` in torch)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.parallel.moe import _expert_ffn, _routing
+    E, t = params["router"].shape[1], x.shape[0]
+    cap = max(1, math.ceil(t * top_k / E * capacity_factor))
+    idx, w = _routing(params, x, top_k)
+    onehot = F.one_hot(idx.reshape(-1), E)
+    slot = ((onehot.cumsum(0) - 1) * onehot).sum(-1)
+    w = w * (slot < cap).reshape(t, top_k)
+    ys = torch.stack([_expert_ffn(
+        params["w_in"][e], params["w_out"][e], x,
+        params["w_gate"][e] if "w_gate" in params else None)
+        for e in range(E)])
+    rows = torch.arange(t, device=x.device)
+    return sum(w[:, k, None] * ys[idx[:, k], rows] for k in range(top_k))
+
+
+# ---- 20f: checkpoints across world sizes; a lost rank; elastic grow
+
+
+AWAY_RANK = """
+import sys, time
+import torch
+import torch.distributed as dist
+from ray_tpu_torch.parallel import mesh as pm
+pm.GROUP_TIMEOUT_S = float(sys.argv[3])
+from ray_tpu_torch.parallel.mesh import MeshSpec, axis_group
+from ray_tpu_torch.train.backend import global_mesh, setup_torch_worker
+rank, cuda = int(sys.argv[2]), sys.argv[5] == "cuda"
+setup_torch_worker({"coordinator": sys.argv[1], "world_size": 2,
+                    "rank": rank, "use_gpu": cuda})
+mesh = global_mesh(MeshSpec(dp=1, fsdp=2))
+group = {"world": None, "fsdp": axis_group(mesh, "fsdp")}[sys.argv[6]]
+# one collective with both ranks: the group's communicator exists
+dist.all_reduce(torch.ones(1, device="cuda" if cuda else "cpu"), group=group)
+print("joined", flush=True)
+if rank == 1:
+    time.sleep(float(sys.argv[4]))
+    sys.exit(0)
+t0 = time.monotonic()
+x = torch.ones(1, device="cuda" if cuda else "cpu")
+try:
+    dist.all_reduce(x, group=group)
+    x.item()
+    print("returned", round(time.monotonic() - t0, 2), flush=True)
+except RuntimeError as e:
+    print("raised", round(time.monotonic() - t0, 2), repr(e)[:200],
+          flush=True)
+"""
+
+
+def group_timeout_check(cuda, timeout_s=AWAY_TIMEOUT_S, group="fsdp",
+                        cards=(0, 1)):
+    """Two ranks joined by ``setup_torch_worker`` (NCCL on cards 0 and 1,
+    gloo on the CPU), ``GROUP_TIMEOUT_S`` cut to ``timeout_s``, with a
+    mesh over them; rank 1 then stays away while rank 0 all-reduces over
+    ``group`` ("world", or the mesh's "fsdp" group, which torch would
+    give its backend's default timeout) and reads the result. Rank 0
+    must end (raise, or be ended by NCCL's watchdog) within the timeout
+    and ``AWAY_GRACE_S``, before its peer comes back. -> (a summary
+    line, rank 0's first words after joining: "raised" and the seconds,
+    on gloo)."""
+    import os
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    away = timeout_s + 2 * AWAY_GRACE_S
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ)
+        if cuda:
+            env["CUDA_VISIBLE_DEVICES"] = str(cards[rank])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", AWAY_RANK, f"127.0.0.1:{port}", str(rank),
+             str(timeout_s), str(away), "cuda" if cuda else "cpu", group],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    t0 = time.monotonic()
+    try:
+        out, err = procs[0].communicate(timeout=timeout_s + AWAY_GRACE_S)
+    except subprocess.TimeoutExpired:
+        procs[0].kill()
+        out, err = procs[0].communicate(timeout=60)
+        raise AssertionError(
+            f"over the {group} group rank 0 still ran {timeout_s:.0f} + "
+            f"{AWAY_GRACE_S:.0f} s after its peer went away; it said "
+            f"{out!r}; stderr ends {err[-3000:]!r}") from None
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=60)
+    took = time.monotonic() - t0
+    said = out.split("\n")
+    assert said[0] == "joined", (out, err[-2000:])
+    assert not any(line.startswith("returned") for line in said), out
+    assert took < away, took
+    watchdog = [line for line in err.splitlines()
+                if "Watchdog" in line or "timed out" in line.lower()
+                or "Timeout" in line][:2]
+    line = (f"over the {group} group, rank 0 ended {took:.1f} s after its "
+            f"peer went away (timeout {timeout_s:.0f} s; joining included),"
+            f" exit code {procs[0].returncode}, it said "
+            f"{said[1:2] or 'nothing'}; stderr: "
+            f"{[w[:160] for w in watchdog]}")
+    return line, (said[1:2] or [""])[0].split()[:2]
+
+
+def elastic_loop(cfg):
+    """tests/test_torch_trainer_cluster.py's elastic program on
+    ``cfg["device"]``: tiny Llama replicated over dp, one row tiled over
+    dp (the mean loss compares across world sizes and falls under SGD), a
+    checkpoint every step; with ``cfg["kill_at"]`` rank 1 exits once,
+    after that step's checkpoint is committed; with ``cfg["pause"]`` each
+    step sleeps that long (room for a grow)."""
+    import functools
+    import os
+    import time as _time
+
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel.mesh import P
+    device = rank_setup(cfg)
+    ctx = train.get_context()
+    mesh = ctx.global_mesh()
+    n_dp = mesh.size(1)
+    mcfg = tl.LlamaConfig.tiny(n_layers=2, dtype=torch.float32)
+    host = tl.init_params(mcfg, 7, device="cpu")
+    specs = {k: ({n: P() for n in v} if isinstance(v, dict) else P())
+             for k, v in host.items()}
+    params = train.shard_params(tree_to(host, device), mesh, specs)
+    restored = ctx.get_checkpoint() is not None
+    if restored:
+        params = ctx.get_checkpoint().load(
+            target={"params": params})["params"]
+    init_fn, step_fn = train.make_train_step(
+        functools.partial(tl.loss_fn, cfg=mcfg, mesh=mesh),
+        functools.partial(torch.optim.SGD, lr=5e-2))
+    opt = init_fn(params)
+    row = np.random.default_rng(3).integers(0, mcfg.vocab_size, (1, 32))
+    batch = train.shard_batch(torch.tensor(np.tile(row, (n_dp, 1)),
+                                           device=device), mesh,
+                              spec=P("dp"))
+    while ctx.step < cfg["total_steps"]:
+        if (cfg.get("kill_at") is not None and ctx.get_rank() == 1
+                and ctx.step == cfg["kill_at"]
+                and not os.path.exists(cfg["marker"])):
+            latest = ctx.ckpt_manager.latest
+            deadline = _time.monotonic() + 60
+            while (latest() is None or not latest().path.endswith(
+                    f"_{ctx.step:08d}")) and _time.monotonic() < deadline:
+                _time.sleep(0.05)
+            with open(cfg["marker"], "w") as f:
+                f.write(str(_time.time()))
+            os._exit(1)
+        params, opt, metrics = step_fn(params, opt, batch)
+        train.report({"loss": float(metrics["loss"]),
+                      "world_size": ctx.get_world_size(),
+                      "restored": restored, "at": _time.time()},
+                     checkpoint_tree={"params": params})
+        if cfg.get("pause"):
+            _time.sleep(cfg["pause"])
+
+
+def phase_elastic(cuda, storage, check=None, away_timeout=AWAY_TIMEOUT_S,
+                  shrink=True, grow=True, card=""):
+    """20f: (1) 20d's checkpoint (4 cards) restored on 2, the next step's
+    loss equal to the 4-card run's second (rel ``PARITY_LOSS_RTOL``); (2)
+    the elastic program on 4 workers, rank 1 gone after step
+    ``ELASTIC_KILL_AT``: the run resumes on 3 from the last manifest,
+    starting at the next step, ``restored``, to the last step, its first
+    loss below the killed step's; the seconds from the exit to the
+    restarted group's first step (``phase_shrink``); (3) grow: 2 workers
+    while a holder actor keeps 2 cards (2 CPUs on the CPU), the holder
+    killed, the run ends on 4 (``phase_grow``); (4) a group whose peer
+    stays away ends within the group's timeout, the world group and a
+    mesh's (``group_timeout_check``, on two pairs of cards at once)."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    if cuda and skip_below(4, "20f"):
+        return
+    if check is not None:
+        ranks = 2
+        t0 = time.monotonic()
+        res = fit_ranks(flagship_loop, {
+            "model": check["model"], "batch": check["batch"],
+            "variants": [("restored", {}, 0, 1)]}, ranks, cuda, storage,
+            "20d-check", mesh=MeshSpec(fsdp=-1))
+        fit_s = time.monotonic() - t0
+        hist = steps_of(res)
+        want = check["losses"][1]
+        gap = abs(hist[0]["loss"] - want) / abs(want)
+        assert gap <= PARITY_LOSS_RTOL, (hist[0]["loss"], want)
+        assert hist[0]["load_s"] is not None, hist[0]
+        log(f"20f: 20d's checkpoint from {check['ranks']} ranks restored on "
+            f"{ranks} (fsdp "
+            f"re-derived by the fill axis): read in {hist[0]['load_s']:.2f} "
+            f"s, the next step's loss {hist[0]['loss']:.6f} against "
+            f"{want:.6f} before the save (gap {gap:.2e} of itself); fit "
+            f"{fit_s:.1f} s")
+    if shrink:
+        phase_shrink(cuda, storage)
+    if grow:
+        phase_grow(cuda, storage, card=card)
+    if away_timeout is not None:
+        # the world group on cards 0 and 1, a mesh's group on 2 and 3
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(2) as pool:
+            runs = list(pool.map(
+                lambda a: group_timeout_check(cuda, away_timeout, *a),
+                (("world", (0, 1)), ("fsdp", (2, 3)))))
+        for line, _ in runs:
+            log(f"20f: a group whose peer stays away: {line}; {card}")
+
+
+def phase_shrink(cuda, storage):
+    """20f (3): the elastic program on 4 workers, rank 1 gone after step
+    ``ELASTIC_KILL_AT``; see ``phase_elastic``."""
+    import json
+
+    from ray_tpu_torch import train
+    marker = storage / "20f-exited"
+    t0 = time.monotonic()
+    res = fit_ranks(elastic_loop, {
+        "total_steps": ELASTIC_STEPS, "kill_at": ELASTIC_KILL_AT,
+        "marker": str(marker)}, 4, cuda, storage, "20f-shrink",
+        failures=2, min_workers=2, grow_poll_s=0.5, grow_cooldown_s=120.0)
+    fit_s = time.monotonic() - t0
+    assert res.error is None, res.error
+    hist = res.metrics_history
+    assert hist[0]["_step"] == ELASTIC_KILL_AT + 1, hist[0]
+    assert hist[0]["restored"] is True, hist[0]
+    assert res.metrics["world_size"] == 3, res.metrics
+    assert hist[-1]["_step"] == ELASTIC_STEPS, hist[-1]
+    killed = json.load(open(train.CheckpointManager(res.path).dir_for(
+        ELASTIC_KILL_AT) + "/metrics.json"))
+    assert hist[0]["loss"] < killed["loss"], (hist[0], killed)
+    restart_s = hist[0]["at"] - float(marker.read_text())
+    log(f"20f: rank 1 of 4 exited after step {ELASTIC_KILL_AT}; the run "
+        f"resumed on {res.metrics['world_size']} "
+        f"{'cards' if cuda else 'CPU ranks'} from the last manifest at step "
+        f"{hist[0]['_step']} (restored), ended at step {hist[-1]['_step']}; "
+        f"first loss after the restart {hist[0]['loss']:.6f} below the "
+        f"killed step's {killed['loss']:.6f}; {restart_s:.1f} s from the "
+        f"exit to the restarted group's first step; fit {fit_s:.1f} s")
+
+
+def phase_grow(cuda, storage, grow_steps=GROW_STEPS, grow_pause=GROW_PAUSE_S,
+               card=""):
+    """20f (4): the elastic program grows from 2 workers to 4 once a
+    holder actor gives back what it kept; see ``phase_elastic``."""
+    import json
+
+    import ray_tpu_torch as rt
+    holder = rt.remote(**({"num_gpus": 2} if cuda else {"num_cpus": 2}))(
+        Holder).remote()
+    rt.get(holder.ready.remote(), timeout=300)
+    box = {}
+
+    def fit():
+        try:
+            box["result"] = fit_ranks(elastic_loop, {
+                "total_steps": grow_steps, "pause": grow_pause}, 4, cuda,
+                storage, "20f-grow", min_workers=2, grow_poll_s=0.5,
+                grow_min_dwell_s=1.0)
+        except BaseException as e:          # raised in the caller below
+            box["error"] = e
+
+    t0 = time.monotonic()
+    runner = threading.Thread(target=fit, daemon=True)
+    runner.start()
+    grow_dir = storage / "20f-grow"
+    deadline = time.monotonic() + 600
+    while not any(grow_dir.glob("checkpoint_*")) and \
+            time.monotonic() < deadline and runner.is_alive():
+        time.sleep(0.2)
+    rt.kill(holder)
+    freed, freed_at = time.monotonic(), time.time()
+    runner.join(900)
+    assert not runner.is_alive(), "the grow run did not end"
+    if "error" in box:
+        raise box["error"]
+    res = box["result"]
+    worlds = sorted({json.load(open(p))["world_size"] for p in
+                     grow_dir.glob("checkpoint_*/metrics.json")})
+    assert res.metrics["world_size"] == 4, res.metrics
+    assert 2 in worlds, worlds
+    assert res.metrics_history[0]["restored"] is True
+    log(f"20f: grow: started on 2 while a holder kept 2 "
+        f"{'cards' if cuda else 'CPUs'}, the holder killed "
+        f"{freed - t0:.1f} s in; world sizes in the checkpoints {worlds}, "
+        f"the run ended on {res.metrics['world_size']} at step "
+        f"{res.metrics_history[-1]['_step']}, resumed at step "
+        f"{res.metrics_history[0]['_step']} "
+        f"{res.metrics_history[0]['at'] - freed_at:.1f} s after the "
+        f"holder's kill; {card}")
+
+
+class Holder:
+    """An actor that only holds what it was leased (20f's grow)."""
+
+    def ready(self):
+        return True
+
+
+# ---- 20g: tp serving with a shard on each card; 20h: a card per trial
+
+
+def phase_tp_cards(main_streams=None, main_launches=None, main_peak=None,
+                   n=4, card=""):
+    """20g: ``phase_tp_serving`` (17a) at tp=4 with the shards on cards
+    0..3, full 8B depth, phase 4's requests: streams held to phase 4's by
+    17a's rule, the ragged launches 4 x phase 4's; each card's peak
+    memory, and whether the cards reach each other's memory (the
+    row-split sums copy partials peer to peer). -> 17a's summary."""
+    if skip_below(n, "20g"):
+        return None
+    devices = tuple(f"cuda:{i}" for i in range(n))
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(n) for j in range(n) if i != j}
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+    out = phase_tp_serving(main_streams=main_streams,
+                           main_launches=main_launches, main_peak=main_peak,
+                           devices=devices, card=card)
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+    free_card()
+    log(f"20g: tp={n} on {list(devices)}: peak memory per card {peaks} "
+        f"bytes; peer access {peer}")
+    return dict(out, peaks=peaks, peer=peer)
+
+
+def trial_card():
+    """What a Tune trial's worker sees of the cards, and when."""
+    import os
+    cards = torch.cuda.device_count()
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cards": cards, "t": time.time(),
+            "uuid": str(torch.cuda.get_device_properties(0).uuid)
+            if cards else None}
+
+
+def phase_tune_cards(n=4, config=None, batch=TUNE_BATCH, cuda=True,
+                     card=""):
+    """20h: phase 13's PBT on the cluster runtime with ``n`` trials of
+    ``resources_per_trial={"CPU": 1, "GPU": 1}`` at once: every trial's
+    worker sees one card, the trials' cards are distinct, all ran at
+    the same time (each trial's first report before any trial's last).
+    Without ``cuda`` (a rehearsal) the trials hold a CPU each."""
+    import os
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import tune
+    if cuda and skip_below(n, "20h"):
+        return None
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_cards_")
+    scheduler = recording_pbt(
+        perturbation_interval=TUNE_INTERVAL, quantile_fraction=0.5,
+        hyperparam_mutations={"lr": tune.loguniform(1e-4, 3e-3)}, seed=0)
+    t0 = time.monotonic()
+    try:
+        grid = tune.Tuner(
+            tune_trainable(torch.device("cuda" if cuda else "cpu"),
+                           config or TUNE_CONFIG, batch, [],
+                           extra=trial_card),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS[:n]))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        scheduler=scheduler,
+                                        max_concurrent_trials=n),
+            run_config=tune.TuneRunConfig(
+                storage_path=storage,
+                resources_per_trial={"CPU": 1, "GPU": 1} if cuda
+                else {"CPU": 1})).fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    fit_s = time.monotonic() - t0
+    assert not grid.errors, [t.error for t in grid.errors]
+    reports = [r for t in grid.trials for r in t.results]
+    uuids = {r["uuid"] for r in reports}
+    if cuda:
+        assert all(r["cards"] == 1 for r in reports), reports
+        assert len(uuids) == n, uuids
+    firsts = [t.results[0]["t"] for t in grid.trials]
+    lasts = [t.results[-1]["t"] for t in grid.trials]
+    assert max(firsts) < min(lasts), (firsts, lasts)
+    log(f"20h: PBT, {n} trials at once: each worker saw "
+        f"{sorted({r['cards'] for r in reports})} card, {len(uuids)} distinct "
+        f"cards "
+        f"({sorted({r['visible'] for r in reports})}); every first report "
+        f"{max(firsts) - min(firsts):.1f} s apart at most, before the "
+        f"first trial's last ({min(lasts) - max(firsts):.1f} s later); "
+        f"{len(scheduler.exploits)} exploits; fit {fit_s:.1f} s; {card}")
+    return {"fit_s": fit_s, "exploits": len(scheduler.exploits)}
+
+
+def phase_multicard(main_streams=None, main_launches=None, main_peak=None,
+                    card=""):
+    """Phase 20: the sharded paths on several cards (20a-20f through
+    ``TorchTrainer`` on one cluster, 20g in this process, 20h Tune on the
+    cluster); each sub-phase logs a skip line below the cards it needs.
+    -> the flash launches of 20c-20e and the ragged launches of 20g."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    t_phase = time.monotonic()
+    cards = torch.cuda.device_count()
+    launches = {"flash": [], "ragged": 0}
+    if cards < 2:
+        for what, need in (("20a-20c", 2), ("20d-20h", 4)):
+            skip_below(need, what)
+        return launches
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    log("20: nvidia-smi topo -m\n" + topo.rstrip())
+    storage = Path(tempfile.mkdtemp(prefix="phase20-"))
+    free_card()
+    rt.init(num_cpus=MULTI_CPUS, num_gpus=cards, _system_config={
+        "object_store_memory_bytes": MULTI_STORE_BYTES})
+    try:
+        phase_group(True, storage)
+        phase_collectives(True, storage)
+        launches["flash"] += list(phase_sharded_train(True,
+                                                      storage).values())
+        check, numbers = phase_flagship(True, storage, card=card)
+        if numbers is not None:
+            launches["flash"].append(numbers["launches"])
+        axes = phase_axes(True, storage)
+        if axes is not None:
+            launches["flash"].append(axes)
+        phase_elastic(True, storage, check=None if check is None else {
+            "model": FLAGSHIP_CHECK, "batch": FLAGSHIP_BATCH, "ranks": 4,
+            "losses": [m["loss"] for m in steps_of(check)]}, card=card)
+        phase_tune_cards(card=card)
+    finally:
+        rt.shutdown()
+    tp = phase_tp_cards(main_streams, main_launches, main_peak, card=card)
+    if tp is not None:
+        launches["ragged"] = tp["launches"]
+    log(f"phase 20: {time.monotonic() - t_phase:.1f} s; {card}")
+    return launches
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -5413,6 +6997,10 @@ def main():
     # autoscaler launching a GPU node for a pending bundle
     free_card()
     ops = phase_operations(main_streams=main_streams, card=card)
+    # several cards: each sub-phase logs its skip below the cards it needs
+    multi = phase_multicard(main_streams=main_streams,
+                            main_launches=launches["ragged_paged_attention"],
+                            main_peak=main_peak, card=card)
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -5423,7 +7011,7 @@ def main():
         "replaces": "ray_tpu/ops/paged_attention.py:340",
         "launches": launches["ragged_paged_attention"]
         + tp_serving["launches"] + tp4["launches"] + tracker_launches
-        + ops["launches"],
+        + ops["launches"] + multi["ragged"],
         "max_abs_err": max(k["max_abs_err"] for k in [
             *kern.values(), *kern_bench.values(), *kern_shards]),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
@@ -5442,7 +7030,8 @@ def main():
         "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
         "launches": flash_launches[name] + trainer_launches[name]
         + sum(r["launches"][name] for r in ring.values())
-        + (dag["launches"] if name == "flash_attention_fwd" else 0),
+        + (dag["launches"] if name == "flash_attention_fwd" else 0)
+        + sum(m[name] for m in multi["flash"]),
         **flash[name]}
         for name, src, line in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 91),

@@ -25,6 +25,14 @@ AXIS_ORDER = ("pp", "dp", "fsdp", "sp", "tp")
 #: the expert axis: not a ``MeshSpec`` axis (the JAX package's is not
 #: either); it lives on meshes made by hand, and has size 1 elsewhere
 EXPERT_AXIS = "ep"
+#: seconds a collective of the run's process group, or of a group a mesh
+#: builds over it, waits for its peers before it fails. Far above the
+#: longest wait between two collectives of a healthy run (a sharded
+#: checkpoint's save, whose barrier gives up after
+#: ``CheckpointConfig.barrier_timeout_s``, 60 s by default) and far below
+#: torch's defaults (30 minutes for gloo, 10 for NCCL), which a dead peer
+#: would otherwise hold every survivor for.
+GROUP_TIMEOUT_S = 300.0
 
 
 class P(tuple):
@@ -188,7 +196,22 @@ def build_mesh(spec: MeshSpec, device_type: Optional[str] = None,
         mesh = DeviceMesh(device_type, torch.as_tensor(layout),
                           mesh_dim_names=AXIS_ORDER)
     mesh._rtpt_groups = _combined_groups(mesh, layout)
+    _bound_waits(mesh)
     return mesh
+
+
+def group_timeout():
+    """``GROUP_TIMEOUT_S`` as the timedelta torch takes."""
+    import datetime
+    return datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+
+
+def _bound_waits(mesh) -> None:
+    """Give the groups of each mesh axis the run's timeout: torch creates
+    them with its backend default, not the world group's."""
+    from torch.distributed.distributed_c10d import _set_pg_timeout
+    for i in range(mesh.ndim):
+        _set_pg_timeout(group_timeout(), mesh.get_group(i))
 
 
 def _combined_groups(mesh, layout) -> Dict[Tuple[str, ...], object]:
@@ -206,7 +229,7 @@ def _combined_groups(mesh, layout) -> Dict[Tuple[str, ...], object]:
             members = moved.reshape(math.prod(moved.shape[:len(keep)]), -1)
             groups[axes], _ = dist.new_subgroups_by_enumeration(
                 [sorted(int(r) for r in members[:, j])
-                 for j in range(members.shape[1])])
+                 for j in range(members.shape[1])], timeout=group_timeout())
     return groups
 
 

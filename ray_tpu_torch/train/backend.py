@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh, group_timeout
 
 #: meshes built over the current group, by spec: ``build_mesh`` creates
 #: process groups, which every rank must do the same number of times
@@ -28,7 +28,13 @@ def setup_torch_worker(dist_cfg: Dict[str, Any]) -> None:
     dist_cfg keys: coordinator (host:port), world_size, rank, use_gpu
     (NCCL on the card, else gloo). With ``use_gpu`` a worker that finds no card raises, and so does NCCL failing to
     initialise: the group runs one all-reduce on the device before the
-    loop starts."""
+    loop starts.
+
+    The group, and every group a mesh builds over it, times out after
+    ``parallel.mesh.GROUP_TIMEOUT_S``: a rank whose peer is gone raises
+    there (on NCCL the watchdog ends the process about a minute later)
+    and the controller sees the failure, where torch's defaults would
+    wait 30 minutes (gloo) or 10 (NCCL)."""
     import torch
     import torch.distributed as dist
     use_gpu = bool(dist_cfg.get("use_gpu"))
@@ -46,7 +52,7 @@ def setup_torch_worker(dist_cfg: Dict[str, Any]) -> None:
     dist.init_process_group(
         backend, init_method=f"tcp://{dist_cfg['coordinator']}",
         world_size=int(dist_cfg["world_size"]), rank=int(dist_cfg["rank"]),
-        **kwargs)
+        timeout=group_timeout(), **kwargs)
     probe = torch.ones(1, device="cuda" if backend == "nccl" else "cpu")
     dist.all_reduce(probe)
     if int(probe.item()) != dist.get_world_size():

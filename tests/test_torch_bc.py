@@ -10,6 +10,8 @@ both packages; and BC must clone a PPO teacher to tests/test_rllib.py's
 gate through the port's runtime and datasets.
 """
 
+import gc
+
 import jax
 import numpy as np
 import pytest
@@ -97,11 +99,18 @@ class StubAlgo:
 
 @pytest.fixture
 def runtimes():
+    # no cyclic collection inside the JAX local-mode store's plain lock
+    # (it deadlocks; tests/test_torch_data.py pauses it alike)
+    gc.disable()
     ray_tpu.init(local_mode=True, num_cpus=4)
     ray_tpu_torch.init(local_mode=True, num_cpus=4)
-    yield
-    ray_tpu_torch.shutdown()
-    ray_tpu.shutdown()
+    try:
+        yield
+    finally:
+        ray_tpu_torch.shutdown()
+        ray_tpu.shutdown()
+        gc.enable()
+        gc.collect()
 
 
 @pytest.mark.parametrize("num_samples", [1000, 2048])

@@ -362,7 +362,7 @@ def test_runner_weights_do_not_move_with_the_learners(torch_rt):
         learner_ptrs = {t.data_ptr() for t in param_leaves(algo.params)}
         for p in held:
             assert not learner_ptrs & {t.data_ptr() for t in param_leaves(p)}
-        batch = ray_tpu_torch.get(next(iter(algo._inflight)))
+        batch = ray_tpu_torch.get(next(iter(algo._inflight)), timeout=60)
         new, _ = algo.learner.update(algo.params, batch)
         for t in param_leaves(algo.params):     # an in-place step, too
             t.add_(1.0)

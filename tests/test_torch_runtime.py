@@ -6,6 +6,7 @@ a ``threading.Event`` (local mode passes values by reference), so the
 ``wait`` and timeout cases are deterministic.
 """
 
+import gc
 import os
 import threading
 import time
@@ -19,9 +20,17 @@ import ray_tpu_torch
 
 @pytest.fixture
 def jax_rt():
+    # the JAX local-mode store's plain lock deadlocks when the cyclic
+    # collector frees an ObjectRef inside it: no collection while the JAX
+    # program runs (as tests/test_torch_data.py does)
+    gc.disable()
     ray_tpu.init(local_mode=True, num_cpus=4)
-    yield ray_tpu
-    ray_tpu.shutdown()
+    try:
+        yield ray_tpu
+    finally:
+        ray_tpu.shutdown()
+        gc.enable()
+        gc.collect()
 
 
 @pytest.fixture
@@ -36,7 +45,7 @@ def tasks(rt):
     def square(x):
         return x * x
 
-    return rt.get([square.remote(i) for i in range(8)])
+    return rt.get([square.remote(i) for i in range(8)], timeout=60)
 
 
 def ref_arguments(rt):
@@ -46,7 +55,7 @@ def ref_arguments(rt):
 
     x = rt.put(3)
     y = add.remote(x, 4)
-    return rt.get(add.remote(y, y)), rt.get(x)
+    return rt.get(add.remote(y, y), timeout=60), rt.get(x, timeout=60)
 
 
 def num_returns(rt):
@@ -55,7 +64,7 @@ def num_returns(rt):
         return x, x + 1
 
     a, b = pair.remote(10)
-    return rt.get([a, b])
+    return rt.get([a, b], timeout=60)
 
 
 def actor_calls_in_order(rt):
@@ -69,7 +78,7 @@ def actor_calls_in_order(rt):
             return self.n
 
     c = Counter.remote(5)
-    return rt.get([c.incr.remote(k=i % 3) for i in range(20)])
+    return rt.get([c.incr.remote(k=i % 3) for i in range(20)], timeout=60)
 
 
 def method_num_returns(rt):
@@ -80,12 +89,12 @@ def method_num_returns(rt):
             return s[:2], s[2:]
 
     a, b = Splitter.remote().split.remote("abcdef")
-    return rt.get(a), rt.get(b)
+    return rt.get(a, timeout=60), rt.get(b, timeout=60)
 
 
 def put_get(rt):
     values = [1, "text", [1, 2, 3], {"k": (4, 5)}, np.arange(6).reshape(2, 3)]
-    out = rt.get([rt.put(v) for v in values])
+    out = rt.get([rt.put(v) for v in values], timeout=60)
     return [v.tolist() if isinstance(v, np.ndarray) else v for v in out]
 
 
@@ -104,14 +113,16 @@ def wait_with_num_returns_and_timeout(rt):
     refs = [fast.remote(0), slow.remote(1, gate), fast.remote(2),
             slow.remote(3, gate), fast.remote(4)]
     ready, pending = rt.wait(refs, num_returns=2, timeout=10)
-    first = (len(ready), len(pending), set(rt.get(ready)) <= {0, 2, 4})
+    first = (len(ready), len(pending),
+             set(rt.get(ready, timeout=60)) <= {0, 2, 4})
     rt.get(refs[::2], timeout=10)
     # three are ready: asking for four returns three at the timeout
     ready, pending = rt.wait(refs, num_returns=4, timeout=0.3)
-    timed_out = (len(ready), len(pending), sorted(rt.get(ready)))
+    timed_out = (len(ready), len(pending), sorted(rt.get(ready, timeout=60)))
     gate.set()
     ready, pending = rt.wait(refs, num_returns=5, timeout=10)
-    return first, timed_out, (len(ready), len(pending)), rt.get(refs)
+    return (first, timed_out, (len(ready), len(pending)),
+            rt.get(refs, timeout=60))
 
 
 def get_timeout(rt):
@@ -138,7 +149,7 @@ def task_error(rt):
         raise ValueError(f"bad input {x}")
 
     try:
-        rt.get(fails.remote(7))
+        rt.get(fails.remote(7), timeout=60)
     except rt.exceptions.TaskError as e:
         return type(e).__name__, e.cause_cls_name, "bad input 7" in str(e)
     return None
@@ -151,7 +162,7 @@ def kill_then_call(rt):
             return x
 
     a = Echo.remote()
-    before = rt.get(a.echo.remote("hi"))
+    before = rt.get(a.echo.remote("hi"), timeout=60)
     rt.kill(a)
     try:
         rt.get(a.echo.remote("again"), timeout=10)
@@ -171,7 +182,7 @@ def named_actor(rt):
             return self.v
 
     Keeper.options(name="keeper").remote(42)
-    found = rt.get(rt.get_actor("keeper").value.remote())
+    found = rt.get(rt.get_actor("keeper").value.remote(), timeout=60)
     try:
         rt.get_actor("nobody")
         missing = None
@@ -185,7 +196,8 @@ def runtime_env_vars(rt):
     def read():
         return os.environ.get("RTPU_PORT_TEST_VAR")
 
-    return rt.get(read.remote()), "RTPU_PORT_TEST_VAR" in os.environ
+    return (rt.get(read.remote(), timeout=60),
+            "RTPU_PORT_TEST_VAR" in os.environ)
 
 
 def streaming(rt):
@@ -194,7 +206,7 @@ def streaming(rt):
         for i in range(n):
             yield i * 10
 
-    return [rt.get(r) for r in count.remote(4)]
+    return [rt.get(r, timeout=60) for r in count.remote(4)]
 
 
 def cancelled_task(rt):

@@ -16,6 +16,7 @@ joined by gloo: the programs of tests/test_multihost_train.py on the port.
   than the mesh's.
 """
 
+import gc
 import json
 import time
 
@@ -209,6 +210,10 @@ def test_trainer_with_dataset_shards_matches_jax(cluster, tmp_path):
     from ray_tpu import train as jtrain
     from ray_tpu_torch import data as tdata
     ray_tpu.init(local_mode=True, num_cpus=4)
+    # the JAX local-mode store's plain lock deadlocks when the cyclic
+    # collector frees an ObjectRef inside it (tests/test_data.py's
+    # program hung so): no collection while the JAX program runs
+    gc.disable()
     try:
         want = jtrain.JaxTrainer(
             _dataset_loop("ray_tpu"), train_loop_config={},
@@ -217,6 +222,8 @@ def test_trainer_with_dataset_shards_matches_jax(cluster, tmp_path):
             datasets={"train": jdata.range(24, num_blocks=6)}).fit().metrics
     finally:
         ray_tpu.shutdown()
+        gc.enable()
+        gc.collect()
     got = train.TorchTrainer(
         _dataset_loop("ray_tpu_torch"), train_loop_config={},
         scaling_config=train.ScalingConfig(num_workers=2, use_gpu=False),

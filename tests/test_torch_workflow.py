@@ -117,7 +117,8 @@ def test_workflow_event_wait_and_signal(rt, tmp_path):
     t = threading.Thread(target=deliver)
     t.start()
     out = workflow.run(dag, workflow_id="wf_ev", storage=storage)
-    t.join()
+    t.join(60)
+    assert not t.is_alive()
     assert out == "got:yes"
     # durable: a fresh run sees the delivered event without re-waiting
     assert workflow.run(dag, workflow_id="wf_ev", storage=storage) == \
