@@ -56,14 +56,12 @@
         and C (bf16); the design, the unswizzled walk and the streaming
         variant also with the L2 left clean before each call (a read
         flush), where chip_smoke.py's written flush leaves it dirty.
-    python3 chip_compare.py dq
-        variants of the bf16 dq kernel (flash_dq_sm90_kernel), each built
-        from this checkout's ops/csrc/flash_attention_bwd.cu with a few
-        lines replaced (ring slots; q read from shared memory instead of
-        registers; ping-pong between the consumer warpgroups, as the
-        forward kernel has), checked against the plain version, then
-        timed twice each, in turns, at the training path's shape (B 8,
-        H 24, L 2048, D 128, causal).
+    python3 chip_compare.py sass PARENT_DIR
+        the SASS (``cuobjdump -sass``) of the bf16 flash kernels' default
+        tile variants in this checkout against the same kernels in the
+        checkout in PARENT_DIR (before the kernels took a tile: the
+        kernels of the one design), instruction by instruction: the
+        count, and every instruction that differs.
     python3 chip_compare.py mixtral
         chip_smoke.py's Mixtral oracle (phase 10's fp32 Mixtral on the card
         against the CPU: every gradient's worst difference over its leaf's
@@ -80,6 +78,7 @@ without a CUDA device.
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -292,15 +291,24 @@ o, lse = tfa._fwd_cuda(q, k, v, True, scale)
 delta = (do.float() * o.float()).sum(-1)
 dq, dk, dv = (torch.empty_like(q) for _ in range(3))
 flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+if hasattr(tfa, '_launch_dq'):   # a tree whose kernels take a tile
+    tiles = tfa.default_tiles(q.dtype, D)
+    dq_run = lambda: tfa._launch_dq(q, k, v, do, lse, delta, dq, True,
+                                    scale, tiles.dq)
+    dkv_run = lambda: tfa._launch_dkv(q, k, v, do, lse, delta, dk, dv,
+                                      True, scale, tiles.dkv)
+else:
+    dq_run = lambda: tfa._launch(
+        'flash_attention_bwd', 'flash_attention_dq', dev, 1, q, k, v, do,
+        lse, delta, dq, BH, L, L, D, 1, scale)
+    dkv_run = lambda: tfa._launch(
+        'flash_attention_bwd', 'flash_attention_dkv', dev, 1, q, k, v, do,
+        lse, delta, dk, dv, BH, L, L, D, 1, scale)
 out = {
     'fwd': cs.time_ms(lambda: tfa._fwd_cuda(q, k, v, True, scale),
                       iters=20, flush=flush),
-    'dq': cs.time_ms(lambda: tfa._launch(
-        'flash_attention_bwd', 'flash_attention_dq', dev, 1, q, k, v, do,
-        lse, delta, dq, BH, L, L, D, 1, scale), iters=20, flush=flush),
-    'dkv': cs.time_ms(lambda: tfa._launch(
-        'flash_attention_bwd', 'flash_attention_dkv', dev, 1, q, k, v, do,
-        lse, delta, dk, dv, BH, L, L, D, 1, scale), iters=20, flush=flush)}
+    'dq': cs.time_ms(dq_run, iters=20, flush=flush),
+    'dkv': cs.time_ms(dkv_run, iters=20, flush=flush)}
 print('TIMES ' + json.dumps(out))
 """
 
@@ -345,146 +353,56 @@ def compare_decode(parent: Path) -> None:
     _in_turns(parent, DECODE, "decode op")
 
 
-# ------------------------------------------------------------- dq variants
+# ------------------------------------------------------ flash SASS
 
-SRC = REPO / "ray_tpu_torch" / "ops" / "csrc" / "flash_attention_bwd.cu"
-
-# (old, new) replacements, each of exactly one occurrence
-Q_IN_SHARED_MEMORY = [(
-    "    mma_rs_n64<0>(s, qf + 4 * kk, desc_k(k_tile, kBoxK, kk), kk > 0);",
-    "    mma_ss_n64(s, desc_k(doa - kDo + kQ, kBoxQ, kk),\n"
-    "               desc_k(k_tile, kBoxK, kk), kk > 0);")]
-PING_PONG = [
-    ("  auto edge = [&](int kt) {",
-     "  auto my_turn = [&] { named_sync(3 + w, 256); };\n"
-     "  auto your_turn = [&] { named_arrive(3 + (1 - w), 256); };\n"
-     "  if (w == 1) your_turn();\n"
-     "  auto edge = [&](int kt) {"),
-    ("    bar_wait(v_full(0), 0);\n    wgmma_fence();",
-     "    bar_wait(v_full(0), 0);\n    my_turn();\n    wgmma_fence();"),
-    ("    wgmma_commit();\n    wgmma_wait<0>();\n    fence_regs(s);",
-     "    wgmma_commit();\n    your_turn();\n    wgmma_wait<0>();\n"
-     "    fence_regs(s);"),
-    ("    bar_wait(v_full(r.slot), r.parity);\n    wgmma_fence();",
-     "    bar_wait(v_full(r.slot), r.parity);\n    my_turn();\n"
-     "    wgmma_fence();"),
-    ("    wgmma_commit();\n    wgmma_wait<1>();",
-     "    wgmma_commit();\n    your_turn();\n    wgmma_wait<1>();"),
-    ("    const Ring<kStages> last(n - 1);\n    wgmma_fence();",
-     "    const Ring<kStages> last(n - 1);\n    my_turn();\n"
-     "    wgmma_fence();"),
-    ("    dq_product(dq, dsa, k_tile(last.slot));\n    wgmma_commit();\n"
-     "    wgmma_wait<0>();",
-     "    dq_product(dq, dsa, k_tile(last.slot));\n    wgmma_commit();\n"
-     "    your_turn();\n    wgmma_wait<0>();"),
-    ("    bar_arrive(v_empty(r.slot));\n  }\n",
-     "    bar_arrive(v_empty(r.slot));\n    my_turn();\n    your_turn();\n"
-     "  }\n  if (w == 0) my_turn();\n"),
-]
+# the default variants' mangled template arguments, and what the same
+# kernel carries in a checkout from before the kernels took a tile
+SASS_DEFAULTS = [("flash_fwd_sm90_kernel", "ILi128ELi2EE", "kernelE14"),
+                 ("flash_dq_sm90_kernel", "ILi64ELi4ELb0EE", "ILb0EE"),
+                 ("flash_dq_sm90_kernel", "ILi64ELi4ELb1EE", "ILb1EE"),
+                 ("flash_dkv_sm90_kernel", "ILi64ELi2EE", "kernelE14")]
 
 
-def slots(n):
-    return [("constexpr int kStages = 4;", f"constexpr int kStages = {n};")]
+def flash_sass(root: Path) -> dict:
+    """{mangled kernel name: [instruction, ...]} of the flash libraries
+    of the checkout at root, built there."""
+    built = subprocess.run([sys.executable, "-c", (
+        "import sys; sys.path.insert(0, '.'); "
+        "from ray_tpu_torch.ops import _kernels; "
+        "names = ['flash_attention_fwd', 'flash_attention_bwd']; "
+        "_kernels.build(names); "
+        "print(*[_kernels.library_path(n) for n in names])")],
+        cwd=root, capture_output=True, text=True, check=True)
+    funcs, name = {}, None
+    for lib in built.stdout.split():
+        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for line in sass.splitlines():
+            head = re.match(r"\s+Function : (\S+)", line)
+            if head:
+                name = head.group(1)
+                funcs[name] = []
+                continue
+            ins = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if name and ins:
+                funcs[name].append(ins.group(1).strip())
+    return funcs
 
 
-# name: replacements; "design" is the source as it is
-VARIANTS = {
-    "design (4 slots, q in registers)": [],
-    "2 slots, q in shared memory": slots(2) + Q_IN_SHARED_MEMORY,
-    "3 slots, q in shared memory": slots(3) + Q_IN_SHARED_MEMORY,
-    "4 slots, q in shared memory": Q_IN_SHARED_MEMORY,
-    "2 slots, q in registers": slots(2),
-    "3 slots, q in registers": slots(3),
-    "4 slots, q in registers, ping-pong": PING_PONG,
-}
-
-
-def variant_source(replacements) -> str:
-    src = SRC.read_text()
-    for old, new in replacements:
-        assert src.count(old) == 1, f"not exactly once in the source: {old}"
-        src = src.replace(old, new)
-    return src
-
-
-def build_variants(out_dir: Path):
-    """One nvcc per variant, all started together; returns {name: (CDLL,
-    ptxas report)}."""
-    import chip_smoke
-    from ray_tpu_torch.ops import _kernels
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, repl) in enumerate(VARIANTS.items()):
-        src = out_dir / f"dq_variant_{i}.cu"
-        src.write_text(variant_source(repl))
-        lib = out_dir / f"libdq_variant_{i}.so"
-        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, f"-I{SRC.parent}",
-               "-o", str(lib), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    built = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        cdll = ctypes.CDLL(str(lib))
-        entry = cdll.flash_attention_dq
-        entry.argtypes = _kernels.KERNELS["flash_attention_bwd"][1][
-            "flash_attention_dq"]
-        entry.restype = ctypes.c_int
-        built[name] = (entry, chip_smoke.ptxas_report(
-            log, "flash_dq_sm90_kernel"))
-    return built
-
-
-def compare_dq() -> None:
-    import chip_smoke as cs
-    from ray_tpu_torch.ops import flash_attention as tfa
-
-    t0 = time.monotonic()
-    built = build_variants(REPO / "ray_tpu_torch" / "_build" / "variants")
-    print(f"variants built in {time.monotonic() - t0:.1f} s", flush=True)
-    dev = torch.device("cuda")
-    B, H, L, D = cs.FLASH_SHAPE
-    BH, scale = B * H, D ** -0.5
-    g = torch.Generator(device=dev).manual_seed(2)
-    q, k, v, do = (torch.randn(BH, L, D, generator=g, device=dev)
-                   .bfloat16() for _ in range(4))
-    o, lse = tfa._fwd_reference(q, k, v, True, scale)
-    delta = (do.float() * o.float()).sum(-1)
-    want = tfa._bwd_reference(q, k, v, lse, do, delta, True, scale)[0]
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call(entry, dq):
-        rc = entry(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                   dq.data_ptr(), BH, L, L, D, 1, scale, stream)
-        assert rc == 0, f"launch failed: cudaError {rc}"
-
-    for name, (entry, ptxas) in built.items():
-        a, b = torch.empty_like(q), torch.empty_like(q)
-        call(entry, a)
-        call(entry, b)
-        torch.cuda.synchronize()
-        ratio = cs.flash_ratios(a, want).max().item()
-        assert ratio <= 1, f"{name}: {ratio} x the limit"
-        print(f"{name}: worst {ratio:.3f} x the limit, repeatable "
-              f"{torch.equal(a, b)}; ptxas: {ptxas}", flush=True)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    names = list(built)
-    times = {n: [] for n in names}
-    dq = torch.empty_like(q)
-    for order in (names, names[::-1]):
-        for name in order:
-            times[name].append(cs.time_ms(
-                lambda: call(built[name][0], dq), iters=20, flush=flush))
-    bound, _ = cs.flash_bound_ms("flash_attention_dq", BH, L, L, D, True, 2)
-    for name in names:
-        ts = times[name]
-        print(f"{name}: {' / '.join(f'{t:.4f}' for t in ts)} ms, "
-              f"{bound / min(ts):.1%} of the bound ({bound:.4f} ms)",
-              flush=True)
+def compare_sass(parent: Path) -> None:
+    this, before = flash_sass(REPO), flash_sass(parent)
+    for kernel, args, old_args in SASS_DEFAULTS:
+        mine = [n for n in this if kernel in n and args in n]
+        theirs = [n for n in before if kernel in n
+                  and (args in n or old_args in n)]
+        assert len(mine) == len(theirs) == 1, (kernel, mine, theirs)
+        a, b = before[theirs[0]], this[mine[0]]
+        differ = [(i, x, y) for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        print(f"{kernel} {args}: parent {len(a)}, this {len(b)} "
+              f"instructions, {len(differ)} differ", flush=True)
+        for i, x, y in differ:
+            print(f"  {i}: parent {x!r} | this {y!r}", flush=True)
 
 
 RING = REPO / "ray_tpu_torch" / "ops" / "csrc" / "paged_ring.cuh"
@@ -695,13 +613,12 @@ def main() -> int:
         _in_turns(Path(sys.argv[2]).resolve(), FLASH, "flash")
     elif sys.argv[1:2] == ["phase6"] and len(sys.argv) == 3:
         _in_turns(Path(sys.argv[2]).resolve(), PHASE6, "phase 6")
+    elif sys.argv[1:2] == ["sass"] and len(sys.argv) == 3:
+        compare_sass(Path(sys.argv[2]).resolve())
     elif sys.argv[1:] == ["mixtral"]:
         compare_mixtral()
     elif sys.argv[1:] == ["ring"]:
         compare_ring()
-    elif sys.argv[1:] == ["dq"]:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        compare_dq()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -9,8 +9,10 @@ result line is printed):
   2. build every CUDA kernel from the sources in this checkout (one nvcc
      per source, all started together), print the build time and what
      ``-Xptxas -v`` says of the bf16 kernels redesigned for Hopper (the
-     flash forward, dq and dk/dv, the ragged kernel, the decode op's ring
-     walk and its merge: registers, barriers, stack and spill bytes);
+     flash forward, dq and dk/dv, each tile variant on its own line, the
+     ragged kernel, the decode op's ring walk and its merge: registers,
+     barriers, stack and spill bytes), and each flash tile variant's
+     shared memory, the libraries' count held equal to the tuner's model;
   3. hold each kernel against its plain PyTorch version at the main
      path's shapes (Llama-3-8B attention: Hq 32, Hkv 8, D 128, page 16),
      bf16 and int8 pools, and time kernel, plain version and the PyTorch
@@ -55,16 +57,17 @@ result line is printed):
      time, recorder off and on, printed), and ``LLMBatchPredictor`` over
      8 rows (fp32), whose tokens and finish reasons must equal the
      engine's ``generate`` on the same prompts;
-  6. hold the three flash-attention kernels (forward, dq, dk/dv) against
-     their plain versions at the training path's shape (B 8, H 24, L 2048,
-     D 128, bf16; causal, non-causal, and causal with an lse cotangent),
-     catch two planted faults on every 64-row query tile, check that the
-     backward repeats bit for bit, and time kernels, plain versions and
-     the PyTorch library call, each kernel with its achieved TFLOP/s and
-     its share of the bound, and dq + dk/dv against the library's whole
-     backward; then the same checks at lengths no kernel tile divides (L
-     72, 200 and 1000, and Lq 72 against Lk 200), the planted causal fault
-     included;
+  6. hold the three flash-attention kernels (forward, dq, dk/dv), every
+     tile variant each is built for, against their plain versions at the
+     training path's shape (B 8, H 24, L 2048, D 128, bf16; causal,
+     non-causal, and causal with an lse cotangent), catch two planted
+     faults on every 64-row query tile, check that each variant repeats
+     bit for bit, and time kernels (every variant), plain versions and the
+     PyTorch library call, each kernel with its achieved TFLOP/s and its
+     share of the bound, and dq + dk/dv against the library's whole
+     backward; then the same checks, every variant, at lengths no kernel
+     tile divides (L 72, 200 and 1000, and Lq 72 against Lk 200), the
+     planted causal fault included;
   7. the training main path: ``make_train_step`` over ``loss_fn`` at the
      JAX package's bench widths (vocab 32000, dim 3072, 8 layers, 24/12
      heads, ffn 12288: 1,230,818,304 parameters; flash attention, selective
@@ -75,6 +78,15 @@ result line is printed):
      phases and the gauges it sets, and the device's busy share of one
      step; then AdamW (optax.adamw's defaults, the earlier optimizer), 2
      warm-up and 3 timed steps on the same configuration, for comparison;
+ 7b. the sweep bench.py runs before its steps: ``autotune_blocks`` at
+     phase 7's attention shape (L 2048, D 128, bf16), measured on the card
+     (each kernel's variants timed one kernel at a time; every time and
+     the pick printed), then phase 7's Adafactor run with the picked
+     tiles, which Llama's flash path reads from the cache, and again with
+     every kernel's second variant: losses within ``TUNED_LOSS_RTOL`` of
+     the untuned run's (the defaults to the bit's limit), every flash
+     launch at the cached tiles and as many as the path's count; the
+     cache is emptied after;
   8. training oracle on the card: bench widths, 2 layers, fp32, B 1 x L
      256: loss and every gradient with the flash kernels against plain
      full attention;
@@ -449,6 +461,48 @@ def attention_bound_ms(q, k_pages, q_len, kv_len, token_vis, scales):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_instantiations(build_log, kernel):
+    """What ``-Xptxas -v`` says of each instantiation of a kernel template:
+    [(its template arguments as the mangled name gives them, e.g. "128,
+    2" or "64, 4, 1", its lines joined)]."""
+    out, inside = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+            if inside:
+                args = re.search(kernel + r"I(.*?)EEv", line)
+                out.append((", ".join(re.findall(r"L[ib](\d+)E",
+                                                 args.group(1) + "E"))
+                            if args else "", []))
+        elif inside and ("spill" in line or "Used" in line):
+            out[-1][1].append(line.replace("ptxas info    :", "").strip())
+    assert out and all(lines for _, lines in out), \
+        f"no ptxas report for {kernel}"
+    return [(args, "; ".join(lines)) for args, lines in out]
+
+
+def flash_variant_smem():
+    """Each built flash tile's dynamic shared memory as its library counts
+    it ({(dtype, D, kernel, tile): bytes}), held equal to the tuner's model
+    (``_est_smem_bytes``)."""
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops import flash_attention as tfa
+    fwd = _kernels.load("flash_attention_fwd")
+    bwd = _kernels.load("flash_attention_bwd")
+    out = {}
+    for (dtype, D), table in tfa.KERNEL_TILES.items():
+        code = tfa._DTYPE_CODES[dtype]
+        for kernel, tiles in table.items():
+            for tile in tiles:
+                got = (fwd.flash_attention_fwd_smem(code, D, *tile)
+                       if kernel == "fwd" else bwd.flash_attention_bwd_smem(
+                           int(kernel == "dkv"), code, D, *tile))
+                want = tfa._est_smem_bytes(kernel, *tile, D, dtype)
+                assert got == want, (dtype, D, kernel, tile, got, want)
+                out[dtype, D, kernel, tile] = got
+    return out
 
 
 def ptxas_report(build_log, kernel):
@@ -1349,37 +1403,46 @@ def phase_flash(device):
     dlse = torch.randn(BH, L, generator=g, device=device)
     names = ("flash_attention_fwd", "flash_attention_dq",
              "flash_attention_dkv")
-    err = dict.fromkeys(names, 0.0)
-    worst = dict.fromkeys(names, 0.0)
+    variants = tfa.tile_variants(q.dtype, D)
+    # per (kernel, its tile): the largest error and the worst ratio
+    err, worst = {}, {}
     for case, causal, cot in (("causal", True, None),
                               ("non-causal", False, None),
                               ("causal, lse cotangent", True, dlse)):
-        o, lse = tfa._fwd_call(q, k, v, causal, scale)
         o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
         delta = (do.float() * o_ref.float()).sum(-1)
         if cot is not None:
             delta = delta - cot
-        grads = tfa._bwd_call(q, k, v, o_ref, lse_ref, do, causal, scale,
-                              dlse=cot)
         grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
                                        scale)
-        torch.cuda.synchronize()
-        lse_err = (lse - lse_ref).abs().max().item()
-        assert lse_err <= LSE_ATOL, f"{case}: lse off by {lse_err}"
-        checks = [("flash_attention_fwd", "o", o, o_ref)] + [
-            (kern, name, got, want) for kern, name, got, want in zip(
-                names[1:] + names[2:], ("dq", "dk", "dv"), grads, grads_ref)]
-        line = []
-        for kern, name, got, want in checks:
-            assert torch.isfinite(got).all(), f"{case}: {name} not finite"
-            ratio = flash_ratios(got, want).max().item()
-            assert ratio <= 1, f"{case}: {name} at {ratio} x the limit"
-            err[kern] = max(err[kern], (got.float() - want.float()).abs()
-                            .max().item())
-            worst[kern] = max(worst[kern], ratio)
-            line.append(f"{name} {ratio:.3f}")
-        log(f"flash kernels vs plain, {case}: worst ratio to the limit "
-            f"{', '.join(line)}; lse max diff {lse_err:.2e}")
+        for tiles in variants:
+            o, lse = tfa._fwd_call(q, k, v, causal, scale, tiles=tiles)
+            grads = tfa._bwd_call(q, k, v, o_ref, lse_ref, do, causal,
+                                  scale, dlse=cot, tiles=tiles)
+            torch.cuda.synchronize()
+            lse_err = (lse - lse_ref).abs().max().item()
+            assert lse_err <= LSE_ATOL, \
+                f"{case}, {tiles}: lse off by {lse_err}"
+            checks = [("flash_attention_fwd", "o", o, o_ref)] + [
+                (kern, name, got, want) for kern, name, got, want in zip(
+                    names[1:] + names[2:], ("dq", "dk", "dv"), grads,
+                    grads_ref)]
+            line = []
+            for kern, name, got, want in checks:
+                tile = tiles[names.index(kern)]
+                assert torch.isfinite(got).all(), \
+                    f"{case}, {tiles}: {name} not finite"
+                ratio = flash_ratios(got, want).max().item()
+                assert ratio <= 1, \
+                    f"{case}, {tiles}: {name} at {ratio} x the limit"
+                at = (kern, tile)
+                err[at] = max(err.get(at, 0.0), (got.float() - want.float())
+                              .abs().max().item())
+                worst[at] = max(worst.get(at, 0.0), ratio)
+                line.append(f"{name} {ratio:.3f}")
+            log(f"flash kernels vs plain, {case}, tiles fwd {tiles.fwd} dq "
+                f"{tiles.dq} dk/dv {tiles.dkv}: worst ratio to the limit "
+                f"{', '.join(line)}; lse max diff {lse_err:.2e}")
     # planted faults, each must fail on every query tile
     o_ref, lse_ref = tfa._fwd_reference(q, k, v, True, scale)
     caught = tiles_caught(causal_off_by_one(q, k, v, scale)[0], o_ref)
@@ -1396,29 +1459,33 @@ def phase_flash(device):
         f"query tiles of dq fail, the weakest at "
         f"{caught.min().item():.1f} x the limit")
 
-    # no atomics: the backward repeats bit for bit
-    delta = (do.float() * o_ref.float()).sum(-1)
-    runs = [tfa._bwd_cuda(q, k, v, lse_ref, do, delta - dlse, True, scale)
-            for _ in range(2)]
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(*runs)), "not repeatable"
-    log("flash backward: two calls give the same bits (dq, dk, dv)")
-    del runs
+    # no atomics: every variant repeats bit for bit
+    for tiles in variants:
+        runs = [(*tfa._fwd_cuda(q, k, v, True, scale, tiles.fwd),
+                 *tfa._bwd_cuda(q, k, v, lse_ref, do, delta - dlse, True,
+                                scale, tiles)) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+            f"{tiles}: not repeatable"
+        log(f"flash kernels, tiles fwd {tiles.fwd} dq {tiles.dq} dk/dv "
+            f"{tiles.dkv}: two calls give the same bits (o, lse, dq, dk, "
+            f"dv)")
+        del runs
 
-    # times at the training path's shape, causal
+    # times at the training path's shape, causal, of every variant
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    code = tfa._DTYPE_CODES[q.dtype]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    kern_ms = {
-        "flash_attention_fwd": time_ms(
-            lambda: tfa._fwd_cuda(q, k, v, True, scale), flush=flush),
-        "flash_attention_dq": time_ms(lambda: tfa._launch(
-            "flash_attention_bwd", "flash_attention_dq", device, code, q, k,
-            v, do, lse_ref, delta, dq, BH, L, L, D, 1, scale), flush=flush),
-        "flash_attention_dkv": time_ms(lambda: tfa._launch(
-            "flash_attention_bwd", "flash_attention_dkv", device, code, q,
-            k, v, do, lse_ref, delta, dk, dv, BH, L, L, D, 1, scale),
-            flush=flush)}
+    kern_ms = {}
+    for kern in names:
+        for tile in dict.fromkeys(t[names.index(kern)] for t in variants):
+            kern_ms[kern, tile] = time_ms({
+                "flash_attention_fwd": lambda: tfa._fwd_cuda(
+                    q, k, v, True, scale, tile),
+                "flash_attention_dq": lambda: tfa._launch_dq(
+                    q, k, v, do, lse_ref, delta, dq, True, scale, tile),
+                "flash_attention_dkv": lambda: tfa._launch_dkv(
+                    q, k, v, do, lse_ref, delta, dk, dv, True, scale,
+                    tile)}[kern], flush=flush)
     fwd_plain = time_ms(lambda: tfa._fwd_reference(q, k, v, True, scale),
                         iters=3, flush=flush)
     bwd_plain = time_ms(lambda: tfa._bwd_reference(
@@ -1439,23 +1506,26 @@ def phase_flash(device):
     library = {"flash_attention_fwd": lib_fwd, "flash_attention_dq": lib_bwd,
                "flash_attention_dkv": lib_bwd}
     out = {}
-    for kern in names:
+    for (kern, tile), ms in kern_ms.items():
+        default = tile == variants[0][names.index(kern)]
         bound, by = flash_bound_ms(kern, BH, L, L, D, True, q.element_size())
-        tflops = flash_flops(kern, BH, L, L, D, True) / kern_ms[kern] / 1e9
-        out[kern] = dict(max_abs_err=err[kern], ms=kern_ms[kern],
-                         plain_ms=plain[kern], library_ms=library[kern],
-                         bound_ms=bound, bound_by=by)
-        log(f"{kern} B {B} H {H} L {L} D {D} bf16 causal: kernel "
-            f"{kern_ms[kern]:.4f} ms = {tflops:.1f} TFLOP/s, "
-            f"{bound / kern_ms[kern]:.1%} of its bound; plain "
+        tflops = flash_flops(kern, BH, L, L, D, True) / ms / 1e9
+        if default:
+            out[kern] = dict(max_abs_err=err[kern, tile], ms=ms,
+                             plain_ms=plain[kern], library_ms=library[kern],
+                             bound_ms=bound, bound_by=by)
+        log(f"{kern} tile {tile}{' (default)' if default else ''} B {B} H "
+            f"{H} L {L} D {D} bf16 causal: kernel {ms:.4f} ms = "
+            f"{tflops:.1f} TFLOP/s, {bound / ms:.1%} of its bound; plain "
             f"{plain[kern]:.4f} ms, sdpa {library[kern]:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}); max_abs_err {err[kern]:.3e}, worst "
-            f"{worst[kern]:.3f} x the tolerance")
+            f"{bound:.4f} ms ({by}); max_abs_err {err[kern, tile]:.3e}, "
+            f"worst {worst[kern, tile]:.3f} x the tolerance")
     log("flash plain and sdpa times: the backward's (dq and dk/dv "
         "together) stand for both dq and dkv")
-    bwd_ms = kern_ms["flash_attention_dq"] + kern_ms["flash_attention_dkv"]
-    log(f"flash backward kernels, dq + dk/dv: {bwd_ms:.4f} ms = "
-        f"{bwd_ms / lib_bwd:.2f} x SDPA's whole backward ({lib_bwd:.4f} ms)")
+    bwd_ms = out["flash_attention_dq"]["ms"] + out["flash_attention_dkv"]["ms"]
+    log(f"flash backward kernels (default tiles), dq + dk/dv: {bwd_ms:.4f} "
+        f"ms = {bwd_ms / lib_bwd:.2f} x SDPA's whole backward "
+        f"({lib_bwd:.4f} ms)")
     del flush
     return out
 
@@ -1467,15 +1537,16 @@ FLASH_LENGTHS = ((72, 72), (200, 200), (1000, 1000), (72, 200))
 
 
 def phase_flash_lengths(device):
-    """The three flash kernels at FLASH_LENGTHS (B 2, H 24, D 128, bf16,
-    causal and not, with an lse cotangent) against their plain versions at
-    the default blocks, where the last q tile and key tile run past the
-    end of every sequence; the planted causal fault must fail on every
-    query tile (Lq = Lk)."""
+    """The three flash kernels, every tile variant, at FLASH_LENGTHS (B 2,
+    H 24, D 128, bf16, causal and not, with an lse cotangent) against
+    their plain versions at the default blocks, where the last q tile and
+    key tile run past the end of every sequence; the planted causal fault
+    must fail on every query tile (Lq = Lk)."""
     from ray_tpu_torch.ops import flash_attention as tfa
 
     B, H, D = 2, 24, 128
     BH, scale = B * H, D ** -0.5
+    variants = tfa.tile_variants(torch.bfloat16, D)
     worst = 0.0
     for Lq, Lk in FLASH_LENGTHS:
         g = torch.Generator(device=device).manual_seed(Lq + Lk)
@@ -1486,25 +1557,29 @@ def phase_flash_lengths(device):
         dlse = torch.randn(BH, Lq, generator=g, device=device)
         line = []
         for causal in (True, False):
-            o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
             o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
             delta = (do.float() * o_ref.float()).sum(-1) - dlse
-            grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
             grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta,
                                            causal, scale)
-            torch.cuda.synchronize()
-            lse_err = (lse - lse_ref).abs().max().item()
-            assert lse_err <= LSE_ATOL, f"L {Lq}/{Lk}: lse off by {lse_err}"
-            for name, got, want in zip(("o", "dq", "dk", "dv"),
-                                       (o, *grads), (o_ref, *grads_ref)):
-                assert got.shape == want.shape and \
-                    torch.isfinite(got).all(), f"L {Lq}/{Lk}: {name}"
-                ratio = flash_ratios(got, want).max().item()
-                assert ratio <= 1, \
-                    f"L {Lq}/{Lk} causal {causal}: {name} at {ratio} x"
-                worst = max(worst, ratio)
-                line.append(f"{'causal' if causal else 'full'} {name} "
-                            f"{ratio:.3f}")
+            for i, tiles in enumerate(variants):
+                o, lse = tfa._fwd_cuda(q, k, v, causal, scale, tiles.fwd)
+                grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal,
+                                      scale, tiles)
+                torch.cuda.synchronize()
+                lse_err = (lse - lse_ref).abs().max().item()
+                assert lse_err <= LSE_ATOL, \
+                    f"L {Lq}/{Lk}, {tiles}: lse off by {lse_err}"
+                for name, got, want in zip(("o", "dq", "dk", "dv"),
+                                           (o, *grads), (o_ref, *grads_ref)):
+                    assert got.shape == want.shape and \
+                        torch.isfinite(got).all(), \
+                        f"L {Lq}/{Lk}, {tiles}: {name}"
+                    ratio = flash_ratios(got, want).max().item()
+                    assert ratio <= 1, (f"L {Lq}/{Lk} causal {causal}, "
+                                        f"{tiles}: {name} at {ratio} x")
+                    worst = max(worst, ratio)
+                    line.append(f"{'causal' if causal else 'full'} "
+                                f"variant {i} {name} {ratio:.3f}")
         fault = ""
         if Lq == Lk:
             o_ref, _ = tfa._fwd_reference(q, k, v, True, scale)
@@ -1515,8 +1590,10 @@ def phase_flash_lengths(device):
             fault = (f"; planted fault (causal off by one) fails on all "
                      f"{caught.numel()} query tiles, the weakest at "
                      f"{caught.min().item():.1f} x the limit")
-        log(f"flash kernels at Lq {Lq} Lk {Lk} (BH {BH}, D {D}, bf16): "
-            f"worst ratio to the limit {', '.join(line)}{fault}")
+        names = ", ".join(f"{i}: {t}" for i, t in enumerate(variants))
+        log(f"flash kernels at Lq {Lq} Lk {Lk} (BH {BH}, D {D}, bf16; "
+            f"variants {names}): worst ratio to the limit "
+            f"{', '.join(line)}{fault}")
     return worst
 
 
@@ -1622,11 +1699,14 @@ def make_optimizer(name):
 
 
 def phase_train(device, config=None, batch=TRAIN_BATCH,
-                optimizer="adafactor", steps=TRAIN_STEPS, profile=True):
+                optimizer="adafactor", steps=TRAIN_STEPS, profile=True,
+                tag=None):
     """make_train_step at the bench widths; returns the flash launches
     counted over the warm-up and timed steps, the steps run, and the
-    layers. With ``profile``, then the step profiler (its gauges printed)
-    and one step under torch.profiler."""
+    layers (``tfa.variant_launches`` holds them by tile variant). With
+    ``profile``, then the step profiler (its gauges printed) and one step
+    under torch.profiler. The run is kept in ``TRAIN_RUNS`` under ``tag``
+    (default: the optimizer's name)."""
     from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                             init_params, loss_fn,
                                             num_params)
@@ -1655,6 +1735,7 @@ def phase_train(device, config=None, batch=TRAIN_BATCH,
         torch.cuda.reset_peak_memory_stats()
     for name in tfa.launch_counts:
         tfa.launch_counts[name] = 0
+    tfa.variant_launches.clear()
     metrics, times = [], []
     for i in range(TRAIN_WARMUP + steps):
         t_step = time.monotonic()
@@ -1681,9 +1762,11 @@ def phase_train(device, config=None, batch=TRAIN_BATCH,
         f"{mfu:.1%} of 989 TFLOP/s (H100 SXM dense bf16 peak), peak memory "
         f"{peak} bytes (torch.cuda.max_memory_allocated), optimizer state "
         f"{state_bytes} bytes on the card")
-    log(f"training: launches {launches} over {TRAIN_WARMUP + steps} steps")
-    TRAIN_RUNS[opt_name] = {"losses": losses, "step_s": step_s,
-                            "tok_s": tok_s, "mfu": mfu, "peak": peak}
+    log(f"training: launches {launches} over {TRAIN_WARMUP + steps} steps; "
+        f"by tile variant "
+        f"{ {f'{e} {t}': n for (e, t), n in tfa.variant_launches.items()} }")
+    TRAIN_RUNS[tag or opt_name] = {"losses": losses, "step_s": step_s,
+                                   "tok_s": tok_s, "mfu": mfu, "peak": peak}
     if profile:
         bd = profile_train_step(loss, optimizer, params, opt, tokens,
                                 steps=3, warmup=1, emit=True)
@@ -1714,6 +1797,88 @@ def expected_flash_launches(n_layers, steps):
             "flash_attention_dkv": n_layers * steps,
             "flash_attention_fwd_reference_cuda": 0,
             "flash_attention_bwd_reference_cuda": 0}
+
+
+# ------------------------------- phase 7b: the sweep, then tuned steps
+
+#: phase 7's step with other flash tiles against the untuned run: the
+#: losses of each step within this of the untuned run's. The variants
+#: round p and ds to bf16 at other points than the defaults (a bf16 step
+#: in some attention outputs and gradients: within FLASH_RTOL of each
+#: row), and 7 Adafactor steps carry that into the weights; the loss
+#: moves by 0.07-0.9 a step over those steps (10.87 -> 7.24, PERF.md), so
+#: 1e-3 of it stays far below one step's change. Tiles equal to the
+#: defaults launch the same kernels and must repeat the untuned run as
+#: phase 16b's trainer does (TRAINER_LOSS_RTOL).
+TUNED_LOSS_RTOL = 1e-3
+
+
+def phase_autotune(device, shape=FLASH_SHAPE):
+    """The sweep bench.py runs eagerly before its steps (bench.py:292-295):
+    ``autotune_blocks`` at phase 7's attention shape with ``measure``
+    None, which times on the card, each kernel's built variants one
+    kernel at a time. Logs every candidate's time and the pick; returns
+    the cached FlashTiles."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    _, _, L, D = shape
+    tfa.clear_block_cache()
+    tfa.last_sweep.clear()
+    t0 = time.monotonic()
+    tiles = tfa.autotune_blocks(L, L, D, torch.bfloat16, device=device)
+    sweep_s = time.monotonic() - t0
+    assert tiles is not None and tfa.get_tuned_blocks(
+        L, L, D, torch.bfloat16, device) == tiles, tiles
+    cands = tfa.kernel_candidates(D, torch.bfloat16,
+                                  tfa._platform(device))
+    if device.type == "cuda":
+        assert {k: list(ms) for k, ms in tfa.last_sweep.items()} == cands, \
+            (tfa.last_sweep, cands)
+    for kern, ms in tfa.last_sweep.items():
+        log(f"autotune_blocks({L}, {L}, {D}, bf16), {kern}: "
+            + ", ".join(f"tile {t} {x:.4f} ms" for t, x in ms.items())
+            + f" (median of 3 launches, {tfa.SWEEP_HEADS} heads); pick "
+            f"{getattr(tiles, kern)}")
+    log(f"autotune_blocks: picked fwd {tiles.fwd}, dq {tiles.dq}, dk/dv "
+        f"{tiles.dkv} in {sweep_s:.2f} s; defaults "
+        f"{tuple(tfa.default_tiles(torch.bfloat16, D))}")
+    return tiles
+
+
+def phase_train_tiles(device, tiles, tag, config=None, batch=TRAIN_BATCH):
+    """Phase 7's Adafactor run (2 warm-up and 5 timed steps, no profile)
+    with ``tiles`` the cached entry of its attention shape, which Llama's
+    flash path reads (blk None): its losses against the untuned run's
+    (``TRAIN_RUNS["adafactor"]``) within TUNED_LOSS_RTOL, to the bit's
+    TRAINER_LOSS_RTOL where the tiles are the defaults; every flash launch
+    at ``tiles``' variant, as many as the path's count. Returns the
+    launches."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops import flash_attention as tfa
+    cfg = LlamaConfig(**(config or TRAIN_CONFIG))
+    L = batch[1]
+    tfa._BLOCK_CACHE[tfa._block_cache_key(L, L, cfg.head_dim, cfg.dtype,
+                                          device)] = tiles
+    launches, steps, n_layers = phase_train(device, config, batch,
+                                            profile=False, tag=tag)
+    expected = expected_flash_launches(n_layers, steps)
+    if device.type != "cuda":   # the plain versions: no launch
+        expected = dict.fromkeys(expected, 0)
+    assert launches == expected, (launches, expected)
+    if device.type == "cuda":
+        assert tfa.variant_launches == {
+            (tfa._ENTRY[kern], getattr(tiles, kern)):
+            expected[tfa._ENTRY[kern]] for kern in tfa.FLASH_KERNELS}, \
+            tfa.variant_launches
+    got, want = TRAIN_RUNS[tag]["losses"], TRAIN_RUNS["adafactor"]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    default = tiles == tfa.default_tiles(cfg.dtype, cfg.head_dim)
+    limit = TRAINER_LOSS_RTOL if default else TUNED_LOSS_RTOL
+    log(f"training ({tag}: fwd {tiles.fwd}, dq {tiles.dq}, dk/dv "
+        f"{tiles.dkv}): losses at most {gap:.3e} of the untuned run's "
+        f"(limit {limit:g}); step {TRAIN_RUNS[tag]['step_s'] * 1e3:.1f} ms "
+        f"against {TRAIN_RUNS['adafactor']['step_s'] * 1e3:.1f}")
+    assert gap <= limit, (tag, got, want)
+    return launches
 
 
 # --------------------------------------------- phase 8: training oracle
@@ -3749,20 +3914,18 @@ def phase_flash_shards(device, full=None, shards=None, L=2048, D=128):
         assert lse_err <= LSE_ATOL, f"{name}: lse off by {lse_err}"
         caught = tiles_caught(causal_off_by_one(qb, kb, vb, scale)[0], o_ref)
         assert bool((caught > 1).all()), f"{name}: fault not caught {caught}"
-        code = tfa._DTYPE_CODES[qb.dtype]
+        tiles = tfa.default_tiles(qb.dtype, D)
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
         dq, dk, dv = (torch.empty_like(qb) for _ in range(3))
         ms = {"flash_attention_fwd": time_ms(
                   lambda: tfa._fwd_cuda(qb, kb, vb, True, scale),
                   flush=flush),
-              "flash_attention_dq": time_ms(lambda: tfa._launch(
-                  "flash_attention_bwd", "flash_attention_dq", device, code,
-                  qb, kb, vb, dob, lse_ref, delta, dq, BH, L, L, D, 1,
-                  scale), flush=flush),
-              "flash_attention_dkv": time_ms(lambda: tfa._launch(
-                  "flash_attention_bwd", "flash_attention_dkv", device,
-                  code, qb, kb, vb, dob, lse_ref, delta, dk, dv, BH, L, L, D,
-                  1, scale), flush=flush)}
+              "flash_attention_dq": time_ms(lambda: tfa._launch_dq(
+                  qb, kb, vb, dob, lse_ref, delta, dq, True, scale,
+                  tiles.dq), flush=flush),
+              "flash_attention_dkv": time_ms(lambda: tfa._launch_dkv(
+                  qb, kb, vb, dob, lse_ref, delta, dk, dv, True, scale,
+                  tiles.dkv), flush=flush)}
         del flush
         out[name] = {"ratios": ratios, "ms": ms}
         whole = "" if full is None else ", phase 6's whole shape (B 8 H 24) " \
@@ -4310,20 +4473,17 @@ def flash_kernel_ms(q, k, v, do, causal, scale):
                                                  scale))
         ms["dkv"] = 0.0
         return ms
-    BH, Lq, D = q.shape
-    Lk = k.shape[1]
+    _, Lq, D = q.shape
     delta = (do.float() * o.float()).sum(-1)
     pad = -Lq % tfa.LSE_PAD
     lse_p, delta_p = (torch.nn.functional.pad(t, (0, pad))
                       for t in (lse, delta))
-    code = tfa._DTYPE_CODES[q.dtype]
+    tiles = tfa.default_tiles(q.dtype, D)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ms["dq"] = time_ms(lambda: tfa._launch(
-        "flash_attention_bwd", "flash_attention_dq", q.device, code, q, k,
-        v, do, lse_p, delta_p, dq, BH, Lq, Lk, D, int(causal), scale))
-    ms["dkv"] = time_ms(lambda: tfa._launch(
-        "flash_attention_bwd", "flash_attention_dkv", q.device, code, q, k,
-        v, do, lse_p, delta_p, dk, dv, BH, Lq, Lk, D, int(causal), scale))
+    ms["dq"] = time_ms(lambda: tfa._launch_dq(
+        q, k, v, do, lse_p, delta_p, dq, causal, scale, tiles.dq))
+    ms["dkv"] = time_ms(lambda: tfa._launch_dkv(
+        q, k, v, do, lse_p, delta_p, dk, dv, causal, scale, tiles.dkv))
     return ms
 
 
@@ -6872,8 +7032,17 @@ def main():
     log(f"kernels built in {time.monotonic() - t0:.1f} s: "
         f"{sorted(built) or 'all up to date'}")
     for lib, kernel in SM90_KERNELS:
-        log(f"ptxas, {kernel}: "
-            f"{ptxas_report(built.get(lib) or _kernels.build_log(lib), kernel)}")
+        build_log = built.get(lib) or _kernels.build_log(lib)
+        if kernel.startswith("flash_"):   # each tile variant on its own
+            for args, report in ptxas_instantiations(build_log, kernel):
+                log(f"ptxas, {kernel}<{args}>: {report}")
+        else:
+            log(f"ptxas, {kernel}: {ptxas_report(build_log, kernel)}")
+    smem = flash_variant_smem()
+    log("flash tile variants' shared memory (bytes, the libraries' count "
+        "= the tuner's model): " + ", ".join(
+            f"{str(dt).removeprefix('torch.')} D{D} {kern} {tile} {n}"
+            for (dt, D, kern, tile), n in smem.items()))
 
     kern = phase_kernel(device)
     decode = phase_decode(device)
@@ -6923,6 +7092,17 @@ def main():
         device, optimizer="adamw", steps=3, profile=False)
     assert adamw_launches == expected_flash_launches(n_layers, adamw_steps), \
         adamw_launches
+    free_card()
+    # 7b: the sweep, eagerly, then phase 7's step with the picked tiles,
+    # and with every kernel's second variant; the cache is emptied after,
+    # so every later phase launches what it launched before
+    from ray_tpu_torch.ops import flash_attention as tfa
+    tuned_runs = [phase_train_tiles(device, phase_autotune(device), "tuned")]
+    free_card()
+    tuned_runs.append(phase_train_tiles(
+        device, tfa.tile_variants(torch.bfloat16, FLASH_SHAPE[3])[1],
+        "second variants"))
+    tfa.clear_block_cache()
     free_card()
     phase_train_oracle(device)
     phase_optimizer(device)
@@ -7029,6 +7209,7 @@ def main():
         "source": f"ray_tpu_torch/ops/csrc/{src}",
         "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
         "launches": flash_launches[name] + trainer_launches[name]
+        + sum(r[name] for r in tuned_runs)
         + sum(r["launches"][name] for r in ring.values())
         + (dag["launches"] if name == "flash_attention_fwd" else 0)
         + sum(m[name] for m in multi["flash"]),

@@ -417,7 +417,10 @@ def _make_attn_fn(cfg: LlamaConfig, mesh=None):
             flash_attention, flash_attention_sharded)
         if mesh is not None:
             return functools.partial(flash_attention_sharded, mesh=mesh)
-        return flash_attention
+        # blk None: the tuned entry of this shape when one is cached
+        # (autotune_blocks, run eagerly before the steps), else 256 and
+        # the kernels' default tiles
+        return functools.partial(flash_attention, blk_q=None, blk_k=None)
     raise ValueError(f"unknown attention {cfg.attention!r}")
 
 

@@ -47,15 +47,21 @@ KERNELS = {
         # ring::kSlots of paged_ring.cuh (no arguments)
         "paged_decode_stage_slots": []}),
     "flash_attention_fwd": ("flash_attention_fwd.cu", {
-        # dtype, q, k, v, o, lse, BH, Lq, Lk, D, causal, sm_scale, stream
-        "flash_attention_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P]}),
+        # dtype, q, k, v, o, lse, BH, Lq, Lk, D, causal, blk_q, blk_k,
+        # sm_scale, stream
+        "flash_attention_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_F, _P],
+        # a tile variant's shared memory: dtype, D, blk_q, blk_k
+        "flash_attention_fwd_smem": [_I] * 4}),
     "flash_attention_bwd": ("flash_attention_bwd.cu", {
         # dtype, q, k, v, do, lse, delta, dq, BH, Lq, Lk, D, causal,
-        # sm_scale, stream
-        "flash_attention_dq": [_I] + [_P] * 7 + [_I] * 5 + [_F, _P],
+        # blk_q, blk_k, sm_scale, stream
+        "flash_attention_dq": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
         # dtype, q, k, v, do, lse, delta, dk, dv, BH, Lq, Lk, D, causal,
-        # sm_scale, stream
-        "flash_attention_dkv": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P]}),
+        # blk_q, blk_k, sm_scale, stream
+        "flash_attention_dkv": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+        # a tile variant's shared memory: kernel (0 dq, 1 dk/dv), dtype,
+        # D, blk_q, blk_k
+        "flash_attention_bwd_smem": [_I] * 5}),
 }
 
 _lock = threading.Lock()

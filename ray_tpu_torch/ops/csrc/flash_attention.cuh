@@ -220,6 +220,31 @@ __host__ __device__ __forceinline__ int padded_rows(int Lq) {
   return (Lq + 63) & ~63;
 }
 
+// tags that carry a type or a head dim into a generic lambda
+template <typename T>
+struct Type {
+  using type = T;
+};
+template <int D>
+using Dim = std::integral_constant<int, D>;
+
+// The first designs: fp32 at D 64 and 128, bf16 at D 64. f(Type<T>,
+// Dim<D>) is called for a launch's dtype and head dim, and its result
+// returned; `none` for the others.
+template <typename F, typename R>
+R with_first_design(int dtype, int D, F f, R none) {
+  if (dtype == kF32 && D == 64) return f(Type<float>{}, Dim<64>{});
+  if (dtype == kF32 && D == 128) return f(Type<float>{}, Dim<128>{});
+  if (dtype == kBF16 && D == 64) return f(Type<__nv_bfloat16>{}, Dim<64>{});
+  return none;
+}
+
+// a first design's one tile (blk_q, blk_k): kBlock x kBlock
+template <typename T, int D>
+bool first_design_tile(int blk_q, int blk_k) {
+  return blk_q == Tiles<T, D>::kBlock && blk_k == Tiles<T, D>::kBlock;
+}
+
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,

@@ -89,6 +89,21 @@
 // keys at or past Lk. No two blocks write the same rows, nothing uses
 // atomics, and the output is bit-for-bit repeatable.
 //
+// Tile variants (the C entry points take the tile; autotune_blocks in
+// ops/flash_attention.py times them and picks one per shape), in the JAX
+// kernels' roles (blk_q, blk_k): dq (128, 64), the design above and the
+// default, and (128, 128): k/v tiles of 128 keys through a 2-slot ring
+// (the same 128 KB of ring), each tile taken in two 64-key steps of the
+// same products, so the registers stay those of the default (s, dp and
+// ds of 64 keys, dq, q's fragments), and a slot is released after the
+// last step a warpgroup takes in it. dk/dv (64, 128), the design above
+// and the default, and (128, 128): q/do tiles of 128 rows (with their
+// lse and delta) through 2 slots (195 KB), each taken in two 64-row
+// steps; a tile whose second half lies past the padded lse loads only
+// the rows up to it and never takes that step. Every variant keeps the
+// masks, the exact zeros past Lq and the fixed order of sums of the
+// default (no atomics).
+//
 // Plain C interface (loaded with ctypes): flash_attention_dq() and
 // flash_attention_dkv() launch on the given stream and return the
 // cudaError_t of the launch.
@@ -314,43 +329,52 @@ namespace dq90 {
 using namespace sm90;
 
 constexpr int kRows = 128;     // q rows of a block (64 per consumer warpgroup)
-constexpr int kKeys = 64;      // keys of a streamed k/v tile
-constexpr int kStages = 4;     // k/v ring slots
+constexpr int kKeys = 64;      // keys of one step of the products
 constexpr int kThreads = 384;  // producer + two consumer warpgroups
 constexpr uint32_t kBoxQ = kRows * 128;  // a [128][64] bf16 box: 16 KB
-constexpr uint32_t kBoxK = kKeys * 128;  // a [64][64] bf16 box: 8 KB
-// shared memory, from a 1024-byte aligned base: q and do (two boxes each),
-// lse and delta (128 fp32 each), the k ring and the v ring (two boxes a
-// slot), then the barriers (q/do full; k full, v full, k empty, v empty
-// per slot)
-constexpr uint32_t kQ = 0, kDo = 2 * kBoxQ;
-constexpr uint32_t kLse = 4 * kBoxQ, kDelta = kLse + 4 * kRows;
-constexpr uint32_t kK = kDelta + 4 * kRows;
-constexpr uint32_t kV = kK + kStages * 2 * kBoxK;
-constexpr uint32_t kBars = kV + kStages * 2 * kBoxK;
-constexpr size_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
-static_assert(kK % 1024 == 0, "the ring keeps the swizzle");
 
-// s = q.k^T and dp = do.v^T of one key tile: the warpgroup's 64 rows x
+// A tile variant: k/v tiles of kTileKeys keys (64, or 128 taken in two
+// 64-key steps) through a ring of kStages slots. Shared memory, from a
+// 1024-byte aligned base: q and do (two boxes each), lse and delta (128
+// fp32 each), the k ring and the v ring (two boxes a slot), then the
+// barriers (q/do full; k full, v full, k empty, v empty per slot).
+template <int kTileKeys, int kStages>
+struct Variant {
+  static constexpr int keys = kTileKeys, stages = kStages;
+  static constexpr int kSteps = kTileKeys / kKeys;  // 64-key steps a tile
+  static constexpr uint32_t kBoxK = kTileKeys * 128;  // a [keys][64] box
+  static constexpr uint32_t kQ = 0, kDo = 2 * kBoxQ;
+  static constexpr uint32_t kLse = 4 * kBoxQ, kDelta = kLse + 4 * kRows;
+  static constexpr uint32_t kK = kDelta + 4 * kRows;
+  static constexpr uint32_t kV = kK + kStages * 2 * kBoxK;
+  static constexpr uint32_t kBars = kV + kStages * 2 * kBoxK;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(kK % 1024 == 0, "the ring keeps the swizzle");
+  static_assert(kTileKeys == 64 || kTileKeys == 128, "key tiles");
+};
+
+// s = q.k^T and dp = do.v^T of one 64-key step: the warpgroup's 64 rows x
 // 64 keys, fp32; q from registers (qf: the A fragments of its 8 k steps),
-// do from shared memory, k and v K-major in shared memory
+// do from shared memory, k and v K-major in shared memory (k_step and
+// v_step: the step's first key row inside tiles of kBoxK-byte boxes)
+template <uint32_t kBoxK>
 __device__ __forceinline__ void products(float (&s)[32], float (&dp)[32],
                                          const uint32_t (&qf)[32],
-                                         uint32_t doa, uint32_t k_tile,
-                                         uint32_t v_tile) {
+                                         uint32_t doa, uint32_t k_step,
+                                         uint32_t v_step) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
-    mma_rs_n64<0>(s, qf + 4 * kk, desc_k(k_tile, kBoxK, kk), kk > 0);
+    mma_rs_n64<0>(s, qf + 4 * kk, desc_k(k_step, kBoxK, kk), kk > 0);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
-    mma_ss_n64(dp, desc_k(doa, kBoxQ, kk), desc_k(v_tile, kBoxK, kk),
+    mma_ss_n64(dp, desc_k(doa, kBoxQ, kk), desc_k(v_step, kBoxK, kk),
                kk > 0);
 }
 
 // ds = p (dp - delta) into s, p = 2^(s sm_scale log2e - lse log2e) for
 // the thread's two rows (row0, row0 + 8); on an edge tile p is 0 where
 // the row precedes the key (causal) and, with kPartial (Lk not a multiple
-// of the key tile), where the key is at or past Lk; keys counted from k0.
+// of the key step), where the key is at or past Lk; keys counted from k0.
 // Without kPartial an edge tile is a causal one, and the test is the one
 // the full-tile lengths always ran.
 template <bool kPartial>
@@ -372,15 +396,16 @@ __device__ __forceinline__ void form_ds(float (&s)[32], const float (&dp)[32],
 }
 
 // dq += bf16(ds) . k: 4 k steps of 16 keys, k read MN-major
+template <uint32_t kBoxK>
 __device__ __forceinline__ void dq_product(float (&dq)[64],
                                            const uint32_t (&dsa)[16],
-                                           uint32_t k_tile) {
+                                           uint32_t k_step) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    mma_rs_n128(dq, dsa + 4 * kk, desc_mn(k_tile, kBoxK, kk));
+    mma_rs_n128(dq, dsa + 4 * kk, desc_mn(k_step, kBoxK, kk));
 }
 
-template <bool kPartial>
+template <int kTileKeys, int kStages, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -389,6 +414,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_dq,
     const float* __restrict__ lse, const float* __restrict__ delta, int BH,
     int Lq, int Lk, int causal, float sm_scale) {
+  using V = Variant<kTileKeys, kStages>;
+  constexpr int kSteps = V::kSteps;
   const int n_tiles = (Lq + kRows - 1) / kRows;
   const TileOrder order = tile_order(BH, n_tiles);
   const int bh = order.bh;
@@ -397,27 +424,32 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
   // [BH, padded_rows(Lq)] arrays (zeros past Lq)
   const int Lp = padded_rows(Lq);
   const int rows = min(kRows, Lp - q0);
-  // the key tiles warpgroup w reads: causal, up to its own diagonal tile
+  // the 64-key steps warpgroup w takes: causal, up to its own diagonal
   const int nk_all = (Lk + kKeys - 1) / kKeys;
   auto tiles_of = [&](int w) {
     return causal ? min(nk_all, q0 / kKeys + w + 1) : nk_all;
   };
-  const int nk = tiles_of(1);  // the producer's: the longer of the two
+  const int nk = tiles_of(1);  // the longer of the two
+  // the ring tiles the producer loads: those holding the nk steps
+  const int n_loads = (nk + kSteps - 1) / kSteps;
 
   unsigned char* raw = dynamic_smem();
   const uint32_t raw_addr = smem_addr(raw);
   const uint32_t base = (raw_addr + 1023) & ~1023u;
   unsigned char* smem = raw + (base - raw_addr);
-  const uint32_t qd_full = base + kBars;
+  const uint32_t qd_full = base + V::kBars;
   auto bar = [&](int kind, int s) {  // kind: k full, v full, k / v empty
-    return base + kBars + 8 + 8 * (kind * kStages + s);
+    return base + V::kBars + 8 + 8 * (kind * kStages + s);
   };
   auto k_full = [&](int s) { return bar(0, s); };
   auto v_full = [&](int s) { return bar(1, s); };
   auto k_empty = [&](int s) { return bar(2, s); };
   auto v_empty = [&](int s) { return bar(3, s); };
-  auto k_tile = [&](int s) { return base + kK + s * 2 * kBoxK; };
-  auto v_tile = [&](int s) { return base + kV + s * 2 * kBoxK; };
+  auto k_tile = [&](int s) { return base + V::kK + s * 2 * V::kBoxK; };
+  auto v_tile = [&](int s) { return base + V::kV + s * 2 * V::kBoxK; };
+  // step kt lies in ring tile kt / kSteps, from key row 64 (kt % kSteps)
+  auto ring = [&](int kt) { return Ring<kStages>(kt / kSteps); };
+  auto step_row = [&](int kt) { return (kt % kSteps) * kKeys * 128; };
   if (threadIdx.x == 0) {
     bar_init(qd_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -435,25 +467,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
     regs_dec<24>();
     if (threadIdx.x == 0) {
       bar_expect_tx(qd_full, 4 * kBoxQ + 8 * rows);
-      tma_load(base + kQ, &tm_q, qd_full, 0, q0, bh);
-      tma_load(base + kQ + kBoxQ, &tm_q, qd_full, 64, q0, bh);
-      tma_load(base + kDo, &tm_do, qd_full, 0, q0, bh);
-      tma_load(base + kDo + kBoxQ, &tm_do, qd_full, 64, q0, bh);
-      bulk_load(base + kLse, lse + (size_t)bh * Lp + q0, 4 * rows, qd_full);
-      bulk_load(base + kDelta, delta + (size_t)bh * Lp + q0, 4 * rows,
+      tma_load(base + V::kQ, &tm_q, qd_full, 0, q0, bh);
+      tma_load(base + V::kQ + kBoxQ, &tm_q, qd_full, 64, q0, bh);
+      tma_load(base + V::kDo, &tm_do, qd_full, 0, q0, bh);
+      tma_load(base + V::kDo + kBoxQ, &tm_do, qd_full, 64, q0, bh);
+      bulk_load(base + V::kLse, lse + (size_t)bh * Lp + q0, 4 * rows,
                 qd_full);
-      for (int kt = 0; kt < nk; ++kt) {
-        const Ring<kStages> r(kt);
+      bulk_load(base + V::kDelta, delta + (size_t)bh * Lp + q0, 4 * rows,
+                qd_full);
+      for (int it = 0; it < n_loads; ++it) {
+        const Ring<kStages> r(it);
         bar_wait(k_empty(r.slot), r.parity ^ 1);
-        bar_expect_tx(k_full(r.slot), 2 * kBoxK);
-        tma_load(k_tile(r.slot), &tm_k, k_full(r.slot), 0, kt * kKeys, bh);
-        tma_load(k_tile(r.slot) + kBoxK, &tm_k, k_full(r.slot), 64,
-                 kt * kKeys, bh);
+        bar_expect_tx(k_full(r.slot), 2 * V::kBoxK);
+        tma_load(k_tile(r.slot), &tm_k, k_full(r.slot), 0, it * kTileKeys,
+                 bh);
+        tma_load(k_tile(r.slot) + V::kBoxK, &tm_k, k_full(r.slot), 64,
+                 it * kTileKeys, bh);
         bar_wait(v_empty(r.slot), r.parity ^ 1);
-        bar_expect_tx(v_full(r.slot), 2 * kBoxK);
-        tma_load(v_tile(r.slot), &tm_v, v_full(r.slot), 0, kt * kKeys, bh);
-        tma_load(v_tile(r.slot) + kBoxK, &tm_v, v_full(r.slot), 64,
-                 kt * kKeys, bh);
+        bar_expect_tx(v_full(r.slot), 2 * V::kBoxK);
+        tma_load(v_tile(r.slot), &tm_v, v_full(r.slot), 0, it * kTileKeys,
+                 bh);
+        tma_load(v_tile(r.slot) + V::kBoxK, &tm_v, v_full(r.slot), 64,
+                 it * kTileKeys, bh);
       }
     }
     return;
@@ -465,10 +500,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
   const int row0 = q0 + 64 * w + 16 * warp + g;    // rows row0, row0 + 8
-  const uint32_t qa = base + kQ + 64 * w * 128;    // this warpgroup's q rows
-  const uint32_t doa = base + kDo + 64 * w * 128;  // and do rows
+  const uint32_t qa = base + V::kQ + 64 * w * 128;    // this warpgroup's q
+  const uint32_t doa = base + V::kDo + 64 * w * 128;  // and do rows
   const int n = tiles_of(w);
   const float scale_log2 = sm_scale * kLog2e;
+  // a ring tile is released after its last step this warpgroup takes
+  auto releases = [&](int kt) {
+    return kt % kSteps == kSteps - 1 || kt == n - 1;
+  };
 
   float dq[64];
 #pragma unroll
@@ -480,8 +519,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = 64 * w + 16 * warp + g + 8 * h;
-    lse2[h] = reinterpret_cast<const float*>(smem + kLse)[r] * kLog2e;
-    dlt[h] = reinterpret_cast<const float*>(smem + kDelta)[r];
+    lse2[h] = reinterpret_cast<const float*>(smem + V::kLse)[r] * kLog2e;
+    dlt[h] = reinterpret_cast<const float*>(smem + V::kDelta)[r];
   }
   // this thread's share of its warpgroup's q rows, read once from the
   // swizzled tile as the A fragments of q.k^T's 8 k steps (an SS product
@@ -495,69 +534,70 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
       const int row = 64 * w + 16 * warp + g + 8 * (i & 1);
       const int col = 16 * kk + 8 * (i >> 1) + 2 * t;
       qf[4 * kk + i] = *reinterpret_cast<const uint32_t*>(
-          smem + kQ + (col >> 6) * kBoxQ + swizzled(row, col & 63));
+          smem + V::kQ + (col >> 6) * kBoxQ + swizzled(row, col & 63));
     }
-  // a key tile needs the mask where its last key passes the warpgroup's
-  // first row (causal: the warpgroup's diagonal tile) or Lk (the last
-  // tile, kPartial only)
+  // a key step needs the mask where its last key passes the warpgroup's
+  // first row (causal: the warpgroup's diagonal step) or Lk (the last
+  // step, kPartial only)
   auto edge = [&](int kt) {
     return (causal && kt * kKeys + kKeys - 1 > q0 + 64 * w) ||
            (kPartial && kt * kKeys + kKeys > Lk);
   };
 
-  uint32_t dsa[16];  // the last tile's ds in bf16: its dq product's A
+  uint32_t dsa[16];  // the last step's ds in bf16: its dq product's A
   {
     float s[32], dp[32];
     bar_wait(k_full(0), 0);
     bar_wait(v_full(0), 0);
     wgmma_fence();
-    products(s, dp, qf, doa, k_tile(0), v_tile(0));
+    products<V::kBoxK>(s, dp, qf, doa, k_tile(0), v_tile(0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
-    bar_arrive(v_empty(0));
+    if (releases(0)) bar_arrive(v_empty(0));
     form_ds<kPartial>(s, dp, lse2, dlt, edge(0), row0, 0, t, Lk, causal,
                       scale_log2);
     a_frag(dsa, s);
   }
-  // tile kt: its s and dp, then the last tile's dq product, issued back to
-  // back; ds of tile kt is formed while the dq product runs
+  // step kt: its s and dp, then the last step's dq product, issued back to
+  // back; ds of step kt is formed while the dq product runs
   for (int kt = 1; kt < n; ++kt) {
-    const Ring<kStages> r(kt), last(kt - 1);
+    const Ring<kStages> r = ring(kt), last = ring(kt - 1);
     float s[32], dp[32];
     bar_wait(k_full(r.slot), r.parity);
     bar_wait(v_full(r.slot), r.parity);
     wgmma_fence();
-    products(s, dp, qf, doa, k_tile(r.slot), v_tile(r.slot));
+    products<V::kBoxK>(s, dp, qf, doa, k_tile(r.slot) + step_row(kt),
+                       v_tile(r.slot) + step_row(kt));
     wgmma_commit();
-    dq_product(dq, dsa, k_tile(last.slot));
+    dq_product<V::kBoxK>(dq, dsa, k_tile(last.slot) + step_row(kt - 1));
     wgmma_commit();
     wgmma_wait<1>();  // s and dp done, the dq product may still run
     fence_regs(s);
     fence_regs(dp);
-    bar_arrive(v_empty(r.slot));
+    if (releases(kt)) bar_arrive(v_empty(r.slot));
     form_ds<kPartial>(s, dp, lse2, dlt, edge(kt), row0, kt * kKeys, t, Lk,
                       causal, scale_log2);
     wgmma_wait<0>();
     fence_regs(dq);
-    bar_arrive(k_empty(last.slot));
+    if (releases(kt - 1)) bar_arrive(k_empty(last.slot));
     a_frag(dsa, s);
   }
   {
-    const Ring<kStages> last(n - 1);
+    const Ring<kStages> last = ring(n - 1);
     wgmma_fence();
-    dq_product(dq, dsa, k_tile(last.slot));
+    dq_product<V::kBoxK>(dq, dsa, k_tile(last.slot) + step_row(n - 1));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
     bar_arrive(k_empty(last.slot));
   }
-  // causal: the tile on warpgroup 1's diagonal lies above every row of
-  // warpgroup 0, which releases it unread once it has arrived (arriving
-  // earlier could count towards the slot's previous phase)
-  for (int kt = n; kt < nk; ++kt) {
-    const Ring<kStages> r(kt);
+  // causal: the key tiles past warpgroup 0's own lie above every row of
+  // warpgroup 0, which releases them unread once they have arrived
+  // (arriving earlier could count towards the slot's previous phase)
+  for (int it = (n + kSteps - 1) / kSteps; it < n_loads; ++it) {
+    const Ring<kStages> r(it);
     bar_wait(k_full(r.slot), r.parity);
     bar_wait(v_full(r.slot), r.parity);
     bar_arrive(k_empty(r.slot));
@@ -567,7 +607,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
   // epilogue: dq * sm_scale as bf16 into this warpgroup's q rows (read by
   // no one now), then TMA stores, which drop rows at or past Lq
   const float dq_scale[2] = {sm_scale, sm_scale};
-  store_acc_bf16(smem + kQ + 64 * w * 128, kBoxQ, dq, dq_scale, warp, g, t);
+  store_acc_bf16(smem + V::kQ + 64 * w * 128, kBoxQ, dq, dq_scale, warp, g,
+                 t);
   fence_async_smem();
   named_sync(1 + w, 128);
   if (tid == 0 && q0 + 64 * w < Lq) {
@@ -577,34 +618,48 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_sm90_kernel(
   }
 }
 
+template <int kTileKeys, int kStages>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int BH, int Lq, int Lk, int causal,
                    float sm_scale, cudaStream_t stream) {
+  using V = Variant<kTileKeys, kStages>;
   const void* ptrs[] = {q, k, v, dout, lse, delta, dq};
   cudaError_t err = check_args(BH, Lq, Lk, ptrs, 7);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
   if ((err = make_tmap(&tm_q, q, BH, Lq, kRows)) != cudaSuccess ||
       (err = make_tmap(&tm_do, dout, BH, Lq, kRows)) != cudaSuccess ||
-      (err = make_tmap(&tm_k, k, BH, Lk, kKeys)) != cudaSuccess ||
-      (err = make_tmap(&tm_v, v, BH, Lk, kKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_k, k, BH, Lk, kTileKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_v, v, BH, Lk, kTileKeys)) != cudaSuccess ||
       (err = make_tmap(&tm_dq, dq, BH, Lq, 64)) != cudaSuccess)
     return err;
-  // a last key tile past Lk needs the key mask; full tiles run the
+  // a last key step past Lk needs the key mask; full steps run the
   // instantiation without it. The boxes fill k and v past Lk with zeros,
   // so such a key adds ds . 0 to dq, but p = 2^(-lse log2e) there, which
   // overflows to inf (and inf . 0 = NaN) for a row whose scores all lie
   // below about -88: the mask keeps that row finite.
-  auto kernel = Lk % kKeys ? flash_dq_sm90_kernel<true>
-                           : flash_dq_sm90_kernel<false>;
-  err = allow_smem(kernel, kSmem);
+  auto kernel = Lk % kKeys
+                    ? flash_dq_sm90_kernel<kTileKeys, kStages, true>
+                    : flash_dq_sm90_kernel<kTileKeys, kStages, false>;
+  err = allow_smem(kernel, V::kSmem);
   if (err != cudaSuccess) return err;
   const int blocks = BH * ((Lq + kRows - 1) / kRows);
-  kernel<<<blocks, kThreads, kSmem, stream>>>(
+  kernel<<<blocks, kThreads, V::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
       static_cast<const float*>(delta), BH, Lq, Lk, causal, sm_scale);
   return cudaGetLastError();
+}
+
+// The variants built, by tile (blk_q, blk_k) in the JAX kernel's roles:
+// blk_q query rows a block, blk_k keys a streamed tile; the first is the
+// default. f(Variant) is called with the tile's variant, and its result
+// returned; a tile not built gives `none`.
+template <typename F, typename R>
+R with_variant(int blk_q, int blk_k, F f, R none) {
+  if (blk_q == kRows && blk_k == 64) return f(Variant<64, 4>{});
+  if (blk_q == kRows && blk_k == 128) return f(Variant<128, 2>{});
+  return none;
 }
 
 }  // namespace dq90
@@ -616,24 +671,34 @@ namespace dkv90 {
 using namespace sm90;
 
 constexpr int kKeys = 128;    // keys of a block (64 per consumer warpgroup)
-constexpr int kQRows = 64;    // query rows of a streamed tile
-constexpr int kStages = 2;    // query-tile ring slots
+constexpr int kQRows = 64;    // query rows of one step of the products
 constexpr int kThreads = 384;  // producer + two consumer warpgroups
 constexpr uint32_t kBoxK = kKeys * 128;   // a [128][64] bf16 box: 16 KB
-constexpr uint32_t kBoxQ = kQRows * 128;  // a [64][64] bf16 box: 8 KB
-// shared memory, from a 1024-byte aligned base: k and v (two boxes each),
-// then per ring slot q, do (two boxes each), lse and delta (64 fp32 each),
-// then the barriers (k/v full; full and empty per slot)
 constexpr uint32_t kK = 0, kV = 2 * kBoxK;
 constexpr uint32_t kSlot0 = 4 * kBoxK;
-constexpr uint32_t kQ = 0, kDo = 2 * kBoxQ, kLse = 4 * kBoxQ;
-constexpr uint32_t kDelta = kLse + 4 * kQRows;
-constexpr uint32_t kSlotBytes = kDelta + 4 * kQRows + 512;  // 1024-aligned
-constexpr uint32_t kBars = kSlot0 + kStages * kSlotBytes;
-constexpr size_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
-constexpr uint32_t kSlotTx = 4 * kBoxQ + 8 * kQRows;  // bytes per q tile
-static_assert(kSlotBytes % 1024 == 0, "ring slots keep the swizzle");
 
+// A tile variant: query tiles of kTileRows rows (64, or 128 taken in two
+// 64-row steps) through a ring of kStages slots. Shared memory, from a
+// 1024-byte aligned base: k and v (two boxes each), then per ring slot q,
+// do (two boxes each), lse and delta (kTileRows fp32 each), then the
+// barriers (k/v full; full and empty per slot).
+template <int kTileRows, int kStages>
+struct Variant {
+  static constexpr int rows = kTileRows, stages = kStages;
+  static constexpr int kSteps = kTileRows / kQRows;  // 64-row steps a tile
+  static constexpr uint32_t kBoxQ = kTileRows * 128;  // a [rows][64] box
+  static constexpr uint32_t kQ = 0, kDo = 2 * kBoxQ, kLse = 4 * kBoxQ;
+  static constexpr uint32_t kDelta = kLse + 4 * kTileRows;
+  // 1024-aligned
+  static constexpr uint32_t kSlotBytes = (kDelta + 4 * kTileRows + 1023) &
+                                         ~1023u;
+  static constexpr uint32_t kBars = kSlot0 + kStages * kSlotBytes;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSlotBytes % 1024 == 0, "ring slots keep the swizzle");
+  static_assert(kTileRows == 64 || kTileRows == 128, "query tiles");
+};
+
+template <int kTileRows, int kStages>
 __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -643,22 +708,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_dv,
     const float* __restrict__ lse, const float* __restrict__ delta, int BH,
     int Lq, int Lk, int causal, float sm_scale) {
+  using V = Variant<kTileRows, kStages>;
+  constexpr int kSteps = V::kSteps;
   const TileOrder order = tile_order(BH, (Lk + kKeys - 1) / kKeys);
   const int bh = order.bh;
   const int k0 = order.rank * kKeys;  // causal: the first tiles see most rows
-  // causal: query tile qt sees a key of the block once qt * 64 + 63 >= k0
+  // causal: the 64-row step qt sees a key of the block once qt * 64 + 63
+  // >= k0 (k0 is a multiple of 128, so ring tiles of 128 rows start there)
   const int qt0 = causal ? k0 / kQRows : 0;
   const int n_iter = max((Lq + kQRows - 1) / kQRows - qt0, 0);
+  const int n_loads = (n_iter + kSteps - 1) / kSteps;
   const int Lp = padded_rows(Lq);  // the pitch of lse and delta
 
   unsigned char* raw = dynamic_smem();
   const uint32_t raw_addr = smem_addr(raw);
   const uint32_t base = (raw_addr + 1023) & ~1023u;
   unsigned char* smem = raw + (base - raw_addr);
-  const uint32_t kv_full = base + kBars;
-  auto full = [&](int s) { return base + kBars + 8 + 8 * s; };
-  auto empty = [&](int s) { return base + kBars + 8 + 8 * (kStages + s); };
-  auto slot = [&](int s) { return kSlot0 + s * kSlotBytes; };
+  const uint32_t kv_full = base + V::kBars;
+  auto full = [&](int s) { return base + V::kBars + 8 + 8 * s; };
+  auto empty = [&](int s) {
+    return base + V::kBars + 8 + 8 * (kStages + s);
+  };
+  auto slot = [&](int s) { return kSlot0 + s * V::kSlotBytes; };
   if (threadIdx.x == 0) {
     bar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -678,19 +749,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
       tma_load(base + kK + kBoxK, &tm_k, kv_full, 64, k0, bh);
       tma_load(base + kV, &tm_v, kv_full, 0, k0, bh);
       tma_load(base + kV + kBoxK, &tm_v, kv_full, 64, k0, bh);
-      for (int it = 0; it < n_iter; ++it) {
+      for (int it = 0; it < n_loads; ++it) {
         const Ring<kStages> r(it);
-        const int q0 = (qt0 + it) * kQRows;
+        const int q0 = (qt0 + it * kSteps) * kQRows;
+        // lse and delta: whole 64-row pieces of the padded arrays, up to
+        // their end (a 128-row tile may run 64 rows past it; its second
+        // step is then never taken)
+        int rows = kTileRows;
+        if constexpr (kSteps > 1) rows = min(kTileRows, Lp - q0);
         const uint32_t d = base + slot(r.slot);
         bar_wait(empty(r.slot), r.parity ^ 1);
-        bar_expect_tx(full(r.slot), kSlotTx);
-        tma_load(d + kQ, &tm_q, full(r.slot), 0, q0, bh);
-        tma_load(d + kQ + kBoxQ, &tm_q, full(r.slot), 64, q0, bh);
-        tma_load(d + kDo, &tm_do, full(r.slot), 0, q0, bh);
-        tma_load(d + kDo + kBoxQ, &tm_do, full(r.slot), 64, q0, bh);
-        bulk_load(d + kLse, lse + (size_t)bh * Lp + q0, 4 * kQRows,
+        bar_expect_tx(full(r.slot), 4 * V::kBoxQ + 8 * rows);
+        tma_load(d + V::kQ, &tm_q, full(r.slot), 0, q0, bh);
+        tma_load(d + V::kQ + V::kBoxQ, &tm_q, full(r.slot), 64, q0, bh);
+        tma_load(d + V::kDo, &tm_do, full(r.slot), 0, q0, bh);
+        tma_load(d + V::kDo + V::kBoxQ, &tm_do, full(r.slot), 64, q0, bh);
+        bulk_load(d + V::kLse, lse + (size_t)bh * Lp + q0, 4 * rows,
                   full(r.slot));
-        bulk_load(d + kDelta, delta + (size_t)bh * Lp + q0, 4 * kQRows,
+        bulk_load(d + V::kDelta, delta + (size_t)bh * Lp + q0, 4 * rows,
                   full(r.slot));
       }
     }
@@ -713,14 +789,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
   bar_wait(kv_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
-    const Ring<kStages> r(it);
+    // step it lies in ring tile it / kSteps, from query row 64 (it %
+    // kSteps) of it
+    const Ring<kStages> r(it / kSteps);
     const int q0 = (qt0 + it) * kQRows;
-    const uint32_t qb = base + slot(r.slot) + kQ;
-    const uint32_t dob = base + slot(r.slot) + kDo;
-    const float* lse_s =
-        reinterpret_cast<const float*>(smem + slot(r.slot) + kLse);
-    const float* delta_s =
-        reinterpret_cast<const float*>(smem + slot(r.slot) + kDelta);
+    const int step = it % kSteps;
+    const uint32_t qb = base + slot(r.slot) + V::kQ + step * kQRows * 128;
+    const uint32_t dob = base + slot(r.slot) + V::kDo + step * kQRows * 128;
+    const float* lse_s = reinterpret_cast<const float*>(
+                             smem + slot(r.slot) + V::kLse) +
+                         step * kQRows;
+    const float* delta_s = reinterpret_cast<const float*>(
+                               smem + slot(r.slot) + V::kDelta) +
+                           step * kQRows;
 
     // s^T = k . q^T and dp^T = v . do^T (64 keys x 64 queries, fp32)
     float st[32], dpt[32];
@@ -728,10 +809,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      mma_ss_n64(st, desc_k(ka, kBoxK, kk), desc_k(qb, kBoxQ, kk), kk > 0);
+      mma_ss_n64(st, desc_k(ka, kBoxK, kk), desc_k(qb, V::kBoxQ, kk),
+                 kk > 0);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      mma_ss_n64(dpt, desc_k(va, kBoxK, kk), desc_k(dob, kBoxQ, kk), kk > 0);
+      mma_ss_n64(dpt, desc_k(va, kBoxK, kk), desc_k(dob, V::kBoxQ, kk),
+                 kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -758,7 +841,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs_n128(dv, pa + 4 * kk, desc_mn(dob, kBoxQ, kk));
+      mma_rs_n128(dv, pa + 4 * kk, desc_mn(dob, V::kBoxQ, kk));
     wgmma_commit();
     // ds^T = p^T (dp^T - delta[query]); dk += bf16(ds^T) . q
 #pragma unroll
@@ -769,12 +852,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs_n128(dk, dsa + 4 * kk, desc_mn(qb, kBoxQ, kk));
+      mma_rs_n128(dk, dsa + 4 * kk, desc_mn(qb, V::kBoxQ, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
-    bar_arrive(empty(r.slot));
+    // a ring tile is released after its last step
+    if (step == kSteps - 1 || it == n_iter - 1) bar_arrive(empty(r.slot));
   }
 
   // epilogue: dk * sm_scale and dv as bf16 into this warpgroup's k and v
@@ -793,31 +877,54 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_sm90_kernel(
   }
 }
 
+template <int kTileRows, int kStages>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int BH, int Lq, int Lk, int causal,
                    float sm_scale, cudaStream_t stream) {
+  using V = Variant<kTileRows, kStages>;
   const void* ptrs[] = {q, k, v, dout, lse, delta, dk, dv};
   cudaError_t err = check_args(BH, Lq, Lk, ptrs, 8);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
-  if ((err = make_tmap(&tm_q, q, BH, Lq, kQRows)) != cudaSuccess ||
-      (err = make_tmap(&tm_do, dout, BH, Lq, kQRows)) != cudaSuccess ||
+  if ((err = make_tmap(&tm_q, q, BH, Lq, kTileRows)) != cudaSuccess ||
+      (err = make_tmap(&tm_do, dout, BH, Lq, kTileRows)) != cudaSuccess ||
       (err = make_tmap(&tm_k, k, BH, Lk, kKeys)) != cudaSuccess ||
       (err = make_tmap(&tm_v, v, BH, Lk, kKeys)) != cudaSuccess ||
       (err = make_tmap(&tm_dk, dk, BH, Lk, 64)) != cudaSuccess ||
       (err = make_tmap(&tm_dv, dv, BH, Lk, 64)) != cudaSuccess)
     return err;
-  err = allow_smem(flash_dkv_sm90_kernel, kSmem);
+  auto kernel = flash_dkv_sm90_kernel<kTileRows, kStages>;
+  err = allow_smem(kernel, V::kSmem);
   if (err != cudaSuccess) return err;
   const int blocks = BH * ((Lk + kKeys - 1) / kKeys);
-  flash_dkv_sm90_kernel<<<blocks, kThreads, kSmem, stream>>>(
+  kernel<<<blocks, kThreads, V::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, static_cast<const float*>(lse),
       static_cast<const float*>(delta), BH, Lq, Lk, causal, sm_scale);
   return cudaGetLastError();
 }
 
+// The variants built, by tile (blk_q, blk_k) in the JAX kernel's roles:
+// blk_k keys a block, blk_q query rows a streamed tile; the first is the
+// default. f(Variant) is called with the tile's variant, and its result
+// returned; a tile not built gives `none`.
+template <typename F, typename R>
+R with_variant(int blk_q, int blk_k, F f, R none) {
+  if (blk_q == 64 && blk_k == kKeys) return f(Variant<64, 2>{});
+  if (blk_q == 128 && blk_k == kKeys) return f(Variant<128, 2>{});
+  return none;
+}
+
 }  // namespace dkv90
+
+template <typename T, int D>
+size_t first_design_smem(bool dkv) {
+  using G = Tiles<T, D>;
+  return dkv ? 4 * G::kTileT + 2 * G::kTileS + 2 * G::kTileP +
+                   2 * G::kTileO + 2 * G::kRow
+             : 4 * G::kTileT + 2 * G::kTileS + G::kTileP + G::kTileO +
+                   2 * G::kRow;
+}
 
 }  // namespace
 
@@ -827,49 +934,89 @@ extern "C" {
 // [BH, Lq, D], k/v/dk/dv [BH, Lk, D], lse/delta fp32 [BH, Lp] with Lp = Lq
 // rounded up to 64 (the padding zeros); D 128 (bf16: the sm90 designs) or
 // 64 (the first designs); any Lq, Lk >= 1 (the last q tile and key tile
-// are masked). Each returns 0 on success, else the cudaError_t code.
+// are masked). (blk_q, blk_k) names the tile variant in the JAX kernels'
+// roles: bf16 at D 128, dq (128, 64) or (128, 128), dk/dv (64, 128) or
+// (128, 128); the first designs (64, 64) in bf16, (32, 32) in fp32. Each
+// returns 0 on success, else the cudaError_t code (cudaErrorInvalidValue
+// for a tile or head dim not built).
 int flash_attention_dq(int dtype, const void* q, const void* k,
                        const void* v, const void* dout, const void* lse,
                        const void* delta, void* dq, int BH, int Lq, int Lk,
-                       int D, int causal, float sm_scale, void* stream) {
+                       int D, int causal, int blk_q, int blk_k,
+                       float sm_scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
-  if (D == 64)  // the first design at head dim 64, both dtypes
-    return dtype == kF32
-               ? (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, BH,
+  const int bad = (int)cudaErrorInvalidValue;
+  if (dtype == kBF16 && D == 128)
+    return dq90::with_variant(
+        blk_q, blk_k,
+        [&](auto variant) {
+          using V = decltype(variant);
+          return (int)dq90::launch<V::keys, V::stages>(
+              q, k, v, dout, lse, delta, dq, BH, Lq, Lk, causal, sm_scale, s);
+        },
+        bad);
+  return with_first_design(
+      dtype, D,
+      [&](auto t, auto dim) {
+        using T = typename decltype(t)::type;
+        constexpr int kD = decltype(dim)::value;
+        return first_design_tile<T, kD>(blk_q, blk_k)
+                   ? (int)launch_dq<T, kD>(q, k, v, dout, lse, delta, dq, BH,
                                            Lq, Lk, causal, sm_scale, s)
-               : (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta,
-                                                   dq, BH, Lq, Lk, causal,
-                                                   sm_scale, s);
-  if (D != 128) return (int)cudaErrorInvalidValue;  // a head dim not built
-  if (dtype == kF32)
-    return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, BH, Lq,
-                                      Lk, causal, sm_scale, s);
-  return (int)dq90::launch(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, causal,
-                           sm_scale, s);
+                   : bad;
+      },
+      bad);
 }
 
 int flash_attention_dkv(int dtype, const void* q, const void* k,
                         const void* v, const void* dout, const void* lse,
                         const void* delta, void* dk, void* dv, int BH, int Lq,
-                        int Lk, int D, int causal, float sm_scale,
-                        void* stream) {
+                        int Lk, int D, int causal, int blk_q, int blk_k,
+                        float sm_scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return dtype == kF32
-               ? (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk,
-                                            dv, BH, Lq, Lk, causal, sm_scale,
-                                            s)
-               : (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse,
-                                                    delta, dk, dv, BH, Lq, Lk,
-                                                    causal, sm_scale, s);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32)
-    return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, BH,
-                                       Lq, Lk, causal, sm_scale, s);
-  return (int)dkv90::launch(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk,
-                            causal, sm_scale, s);
+  const int bad = (int)cudaErrorInvalidValue;
+  if (dtype == kBF16 && D == 128)
+    return dkv90::with_variant(
+        blk_q, blk_k,
+        [&](auto variant) {
+          using V = decltype(variant);
+          return (int)dkv90::launch<V::rows, V::stages>(
+              q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk, causal, sm_scale,
+              s);
+        },
+        bad);
+  return with_first_design(
+      dtype, D,
+      [&](auto t, auto dim) {
+        using T = typename decltype(t)::type;
+        constexpr int kD = decltype(dim)::value;
+        return first_design_tile<T, kD>(blk_q, blk_k)
+                   ? (int)launch_dkv<T, kD>(q, k, v, dout, lse, delta, dk, dv,
+                                            BH, Lq, Lk, causal, sm_scale, s)
+                   : bad;
+      },
+      bad);
+}
+
+// The dynamic shared memory, in bytes, that a launch of tile (blk_q,
+// blk_k) takes at (dtype, D): kernel 0 dq, 1 dk/dv; 0 for a tile or head
+// dim not built.
+int flash_attention_bwd_smem(int kernel, int dtype, int D, int blk_q,
+                             int blk_k) {
+  auto smem = [](auto variant) { return (int)decltype(variant)::kSmem; };
+  if (dtype == kBF16 && D == 128)
+    return kernel == 0 ? dq90::with_variant(blk_q, blk_k, smem, 0)
+                       : dkv90::with_variant(blk_q, blk_k, smem, 0);
+  return with_first_design(
+      dtype, D,
+      [&](auto t, auto dim) {
+        using T = typename decltype(t)::type;
+        constexpr int kD = decltype(dim)::value;
+        return first_design_tile<T, kD>(blk_q, blk_k)
+                   ? (int)first_design_smem<T, kD>(kernel == 1)
+                   : 0;
+      },
+      0);
 }
 
 const char* kernel_error_string(int code) {

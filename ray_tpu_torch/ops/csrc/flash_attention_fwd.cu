@@ -49,6 +49,15 @@
 // delivers its whole bytes (zeros past the end), which the full barrier
 // expects, and only the last key tile (the edge tile) pays for the mask.
 //
+// Tile variants (the C entry point takes the tile; autotune_blocks in
+// ops/flash_attention.py times them and picks one per shape): (blk_q,
+// blk_k) = (128, 128), the design above and the default; (128, 64), k/v
+// tiles of 64 keys through a 4-slot ring (q 32 KB + 4 x 32 KB, 161 KB):
+// s is an m64n64 product (32 scores a thread), p.v takes 4 k steps, and
+// the last two key tiles carry the mask (the block's 128-row diagonal
+// spans two; warpgroup 0's p on the second is 0). Both take the same
+// registers (168 at the launch bound) and neither spills.
+//
 // fp32 (the training oracle only; wgmma's fp32 input is TF32):
 // flash_fwd_kernel, one block per (bh, 32-row q tile) with m, l and the
 // accumulator in shared memory, products by flash::tile_mm on CUDA cores.
@@ -182,30 +191,40 @@ namespace fwd90 {
 
 using namespace sm90;
 
-constexpr int kRows = 128;             // q rows and keys of a tile
-constexpr int kStages = 2;             // k/v ring slots
-constexpr int kThreads = 384;          // producer + two consumer warpgroups
-constexpr uint32_t kBox = kRows * 128;  // one [128][64] bf16 box: 16 KB
-constexpr uint32_t kTile = 2 * kBox;    // a [128, 128] tile: 32 KB
-// shared memory, from a 1024-byte aligned base: q, the k ring, the v ring,
-// then the barriers (q full; k full, v full, k empty, v empty per slot)
-constexpr uint32_t kQ = 0, kK = kTile, kV = kK + kStages * kTile;
-constexpr uint32_t kBars = kV + kStages * kTile;
-constexpr size_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+constexpr int kRows = 128;               // q rows of a block
+constexpr int kThreads = 384;            // producer + two consumer warpgroups
+constexpr uint32_t kBoxQ = kRows * 128;  // one [128][64] bf16 box: 16 KB
+
+// A tile variant: k/v tiles of kKeys keys (128, or 64) through a ring of
+// kStages slots. Shared memory, from a 1024-byte aligned base: q, the k
+// ring, the v ring, then the barriers (q full; k full, v full, k empty,
+// v empty per slot).
+template <int kKeys, int kStages>
+struct Variant {
+  static constexpr uint32_t kBoxK = kKeys * 128;  // one [kKeys][64] box
+  static constexpr uint32_t kTile = 2 * kBoxK;    // a [kKeys, 128] tile
+  static constexpr uint32_t kQ = 0, kK = 2 * kBoxQ;
+  static constexpr uint32_t kV = kK + kStages * kTile;
+  static constexpr uint32_t kBars = kV + kStages * kTile;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+  static constexpr int keys = kKeys, stages = kStages;
+  static_assert(kKeys == 128 || kKeys == 64, "key tiles of 128 or 64");
+};
 
 // One tile's online-softmax step on this thread's scores s (two rows of
-// the m64n128 accumulator, q.k^T unscaled): s becomes p = 2^(s' - m) with
-// s' = s * sm_scale * log2(e) (-inf where masked: only on the edge tile),
-// m the running max (log2 units); l (this thread's share of the sum of the
-// unrounded p) is rescaled and added to; corr, the rescale of the o
-// accumulator, is returned.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+// the m64nN accumulator, N = 2 * R keys, q.k^T unscaled): s becomes p =
+// 2^(s' - m) with s' = s * sm_scale * log2(e) (-inf where masked: only on
+// an edge tile), m the running max (log2 units); l (this thread's share
+// of the sum of the unrounded p) is rescaled and added to; corr, the
+// rescale of the o accumulator, is returned.
+template <int R>
+__device__ __forceinline__ void softmax_tile(float (&s)[R], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              bool edge, int k0, int row0,
                                              int t, int Lk, int causal,
                                              float scale_log2) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < R; ++i) {
     float x = s[i] * scale_log2;
     if (edge) {
       const int col = k0 + acc_col(i, t);
@@ -216,7 +235,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
+  for (int i = 0; i < R; ++i) mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
   float base_m[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -229,40 +248,84 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     l[h] *= corr[h];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < R; ++i) {
     const float p = ex2(s[i] - base_m[acc_half(i)]);
     s[i] = p;
     l[acc_half(i)] += p;  // the unrounded p
   }
 }
 
+// s = q.k^T of one key tile (the warpgroup's 64 rows x kKeys keys, fp32),
+// both operands K-major in shared memory
+template <int kKeys>
+__device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
+                                           uint32_t qa, uint32_t k_tile) {
+  constexpr uint32_t kBoxK = kKeys * 128;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if constexpr (kKeys == 128)
+      mma_ss_n128(s, desc_k(qa, kBoxQ, kk), desc_k(k_tile, kBoxK, kk),
+                  kk > 0);
+    else
+      mma_ss_n64(s, desc_k(qa, kBoxQ, kk), desc_k(k_tile, kBoxK, kk),
+                 kk > 0);
+  }
+}
+
+// o += p.v of one key tile: p (bf16) the register A operand, v MN-major
+template <int kKeys>
+__device__ __forceinline__ void pv_product(float (&acc)[64],
+                                           const uint32_t (&pa)[kKeys / 4],
+                                           uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    mma_rs_n128(acc, pa + 4 * kk, desc_mn(v_tile, kKeys * 128, kk));
+}
+
+// whether key tile kt of the nk a block reads needs the mask: with 128-key
+// tiles the last one (keys past Lk; causal, the diagonal tile); with
+// 64-key tiles the last two (causal, the two tiles the block's 128-row
+// diagonal spans: the first lies on warpgroup 0's diagonal and on no key
+// past warpgroup 1's rows, the second on warpgroup 1's diagonal and past
+// every row of warpgroup 0, whose p there is 0)
+template <int kKeys>
+__device__ __forceinline__ bool edge_tile(int kt, int nk) {
+  if constexpr (kKeys == kRows)
+    return kt == nk - 1;
+  else
+    return kt >= nk - kRows / kKeys;
+}
+
+template <int kKeys, int kStages>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse,
     int BH, int Lq, int Lk, int causal, float sm_scale) {
+  using V = Variant<kKeys, kStages>;
   const int n_tiles = (Lq + kRows - 1) / kRows;
   const TileOrder order = tile_order(BH, n_tiles);
   const int bh = order.bh;
   const int q0 = (n_tiles - 1 - order.rank) * kRows;  // longest rows first
-  int nk = (Lk + kRows - 1) / kRows;
-  if (causal) nk = min(nk, q0 / kRows + 1);  // stop at the diagonal tile
+  int nk = (Lk + kKeys - 1) / kKeys;
+  // causal: stop at the last tile of the block's diagonal
+  if (causal) nk = min(nk, q0 / kKeys + kRows / kKeys);
 
   unsigned char* raw = dynamic_smem();
   const uint32_t raw_addr = smem_addr(raw);
   const uint32_t base = (raw_addr + 1023) & ~1023u;
   unsigned char* smem = raw + (base - raw_addr);
-  const uint32_t q_full = base + kBars;
+  const uint32_t q_full = base + V::kBars;
   auto bar = [&](int kind, int s) {  // kind: k full, v full, k / v empty
-    return base + kBars + 8 + 8 * (kind * kStages + s);
+    return base + V::kBars + 8 + 8 * (kind * kStages + s);
   };
   auto k_full = [&](int s) { return bar(0, s); };
   auto v_full = [&](int s) { return bar(1, s); };
   auto k_empty = [&](int s) { return bar(2, s); };
   auto v_empty = [&](int s) { return bar(3, s); };
-  auto k_tile = [&](int s) { return base + kK + s * kTile; };
-  auto v_tile = [&](int s) { return base + kV + s * kTile; };
+  auto k_tile = [&](int s) { return base + V::kK + s * V::kTile; };
+  auto v_tile = [&](int s) { return base + V::kV + s * V::kTile; };
   if (threadIdx.x == 0) {
     bar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -279,21 +342,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   if (wg == 0) {  // producer
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      bar_expect_tx(q_full, kTile);
-      tma_load(base + kQ, &tm_q, q_full, 0, q0, bh);
-      tma_load(base + kQ + kBox, &tm_q, q_full, 64, q0, bh);
+      bar_expect_tx(q_full, 2 * kBoxQ);
+      tma_load(base + V::kQ, &tm_q, q_full, 0, q0, bh);
+      tma_load(base + V::kQ + kBoxQ, &tm_q, q_full, 64, q0, bh);
       for (int kt = 0; kt < nk; ++kt) {
         const Ring<kStages> r(kt);
         bar_wait(k_empty(r.slot), r.parity ^ 1);
-        bar_expect_tx(k_full(r.slot), kTile);
-        tma_load(k_tile(r.slot), &tm_k, k_full(r.slot), 0, kt * kRows, bh);
-        tma_load(k_tile(r.slot) + kBox, &tm_k, k_full(r.slot), 64,
-                 kt * kRows, bh);
+        bar_expect_tx(k_full(r.slot), V::kTile);
+        tma_load(k_tile(r.slot), &tm_k, k_full(r.slot), 0, kt * kKeys, bh);
+        tma_load(k_tile(r.slot) + V::kBoxK, &tm_k, k_full(r.slot), 64,
+                 kt * kKeys, bh);
         bar_wait(v_empty(r.slot), r.parity ^ 1);
-        bar_expect_tx(v_full(r.slot), kTile);
-        tma_load(v_tile(r.slot), &tm_v, v_full(r.slot), 0, kt * kRows, bh);
-        tma_load(v_tile(r.slot) + kBox, &tm_v, v_full(r.slot), 64,
-                 kt * kRows, bh);
+        bar_expect_tx(v_full(r.slot), V::kTile);
+        tma_load(v_tile(r.slot), &tm_v, v_full(r.slot), 0, kt * kKeys, bh);
+        tma_load(v_tile(r.slot) + V::kBoxK, &tm_v, v_full(r.slot), 64,
+                 kt * kKeys, bh);
       }
     }
     return;
@@ -305,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
   const int row0 = q0 + 64 * w + 16 * warp + g;  // rows row0, row0 + 8
-  const uint32_t qa = base + kQ + 64 * w * 128;  // this warpgroup's q rows
+  const uint32_t qa = base + V::kQ + 64 * w * 128;  // this warpgroup's q rows
   const float scale_log2 = sm_scale * kLog2e;    // s in log2 units
 
   float acc[64];
@@ -314,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units)
   float l[2] = {0.f, 0.f};              // this thread's share of the sum
   float corr[2];
-  uint32_t pa[32];  // the last tile's p, bf16: the A operand of its p.v
+  uint32_t pa[kKeys / 4];  // the last tile's p, bf16: the A operand of p.v
   // ping-pong: the warpgroups issue their products in turns (named
   // barriers 3 + w), so one's products run under the other's softmax
   auto my_turn = [&] { named_sync(3 + w, 256); };
@@ -322,49 +385,41 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   if (w == 1) your_turn();  // warpgroup 0 goes first
   bar_wait(q_full, 0);
 
-  // tile 0: s = q.k^T (64 x 128, fp32), then its softmax
+  // tile 0: s = q.k^T (64 x kKeys, fp32), then its softmax
   {
-    float s[64];
+    float s[kKeys / 2];
     bar_wait(k_full(0), 0);
     my_turn();
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      mma_ss_n128(s, desc_k(qa, kBox, kk), desc_k(k_tile(0), kBox, kk),
-                  kk > 0);
+    qk_product<kKeys>(s, qa, k_tile(0));
     wgmma_commit();
     your_turn();
     wgmma_wait<0>();
     fence_regs(s);
     bar_arrive(k_empty(0));
-    softmax_tile(s, m, l, corr, nk == 1, 0, row0, t, Lk, causal,
-                 scale_log2);
+    softmax_tile(s, m, l, corr, edge_tile<kKeys>(0, nk), 0, row0, t, Lk,
+                 causal, scale_log2);
     a_frag(pa, s);
   }
   // tile kt: its q.k^T and the last tile's p.v issued back to back; the
   // softmax of tile kt runs while p.v does
   for (int kt = 1; kt < nk; ++kt) {
     const Ring<kStages> r(kt), last(kt - 1);
-    float s[64];
+    float s[kKeys / 2];
     bar_wait(k_full(r.slot), r.parity);
     bar_wait(v_full(last.slot), last.parity);
     my_turn();
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      mma_ss_n128(s, desc_k(qa, kBox, kk), desc_k(k_tile(r.slot), kBox, kk),
-                  kk > 0);
+    qk_product<kKeys>(s, qa, k_tile(r.slot));
     wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      mma_rs_n128(acc, pa + 4 * kk, desc_mn(v_tile(last.slot), kBox, kk));
+    pv_product<kKeys>(acc, pa, v_tile(last.slot));
     wgmma_commit();
     your_turn();
     wgmma_wait<1>();  // q.k^T done, p.v may still run
     fence_regs(s);
     bar_arrive(k_empty(r.slot));
-    softmax_tile(s, m, l, corr, kt == nk - 1, kt * kRows, row0, t, Lk,
-                 causal, scale_log2);
+    softmax_tile(s, m, l, corr, edge_tile<kKeys>(kt, nk), kt * kKeys, row0,
+                 t, Lk, causal, scale_log2);
     wgmma_wait<0>();
     fence_regs(acc);
     bar_arrive(v_empty(last.slot));
@@ -378,9 +433,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
     bar_wait(v_full(last.slot), last.parity);
     my_turn();
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      mma_rs_n128(acc, pa + 4 * kk, desc_mn(v_tile(last.slot), kBox, kk));
+    pv_product<kKeys>(acc, pa, v_tile(last.slot));
     wgmma_commit();
     your_turn();
     wgmma_wait<0>();
@@ -396,12 +449,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
     lsum[h] = fmaxf(quad_sum(l[h]), 1e-30f);
     inv[h] = 1.f / lsum[h];
   }
-  store_acc_bf16(smem + kQ + 64 * w * 128, kBox, acc, inv, warp, g, t);
+  store_acc_bf16(smem + V::kQ + 64 * w * 128, kBoxQ, acc, inv, warp, g, t);
   fence_async_smem();
   named_sync(1 + w, 128);
   if (tid == 0 && q0 + 64 * w < Lq) {
     tma_store(&tm_o, qa, 0, q0 + 64 * w, bh);
-    tma_store(&tm_o, qa + kBox, 64, q0 + 64 * w, bh);
+    tma_store(&tm_o, qa + kBoxQ, 64, q0 + 64 * w, bh);
     tma_store_wait();
   }
   if (t == 0) {
@@ -414,28 +467,48 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   }
 }
 
+template <int kKeys, int kStages>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int BH, int Lq, int Lk, int causal,
                    float sm_scale, cudaStream_t stream) {
+  using V = Variant<kKeys, kStages>;
   const void* ptrs[] = {q, k, v, o, lse};
   cudaError_t err = check_args(BH, Lq, Lk, ptrs, 5);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   if ((err = make_tmap(&tm_q, q, BH, Lq, kRows)) != cudaSuccess ||
-      (err = make_tmap(&tm_k, k, BH, Lk, kRows)) != cudaSuccess ||
-      (err = make_tmap(&tm_v, v, BH, Lk, kRows)) != cudaSuccess ||
+      (err = make_tmap(&tm_k, k, BH, Lk, kKeys)) != cudaSuccess ||
+      (err = make_tmap(&tm_v, v, BH, Lk, kKeys)) != cudaSuccess ||
       (err = make_tmap(&tm_o, o, BH, Lq, 64)) != cudaSuccess)
     return err;
-  err = allow_smem(flash_fwd_sm90_kernel, kSmem);
+  auto kernel = flash_fwd_sm90_kernel<kKeys, kStages>;
+  err = allow_smem(kernel, V::kSmem);
   if (err != cudaSuccess) return err;
   const int blocks = BH * ((Lq + kRows - 1) / kRows);
-  flash_fwd_sm90_kernel<<<blocks, kThreads, kSmem, stream>>>(
+  kernel<<<blocks, kThreads, V::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), BH, Lq, Lk, causal,
       sm_scale);
   return cudaGetLastError();
 }
 
+// The variants built, by tile (blk_q, blk_k) in the JAX kernel's roles:
+// blk_q query rows a block, blk_k keys a streamed tile. The first is the
+// default. f(Variant) is called with the tile's variant, and its result
+// returned; a tile not built gives `none`.
+template <typename F, typename R>
+R with_variant(int blk_q, int blk_k, F f, R none) {
+  if (blk_q == kRows && blk_k == 128) return f(Variant<128, 2>{});
+  if (blk_q == kRows && blk_k == 64) return f(Variant<64, 4>{});
+  return none;
+}
+
 }  // namespace fwd90
+
+template <typename T, int D>
+size_t first_design_smem() {
+  using G = Tiles<T, D>;
+  return 3 * G::kTileT + G::kTileS + G::kTileP + G::kTileO + 3 * G::kRow;
+}
 
 }  // namespace
 
@@ -444,25 +517,55 @@ extern "C" {
 // dtype: 0 fp32, 1 bf16 (q, k, v and o alike). q [BH, Lq, D], k/v
 // [BH, Lk, D], o [BH, Lq, D], lse fp32 [BH, Lq]; D 128 (bf16: the sm90
 // design) or 64 (the first design); any Lq, Lk >= 1 (the last q tile and
-// key tile are masked). Returns 0 on success, else the cudaError_t code.
+// key tile are masked). (blk_q, blk_k) names the tile variant: bf16 at D
+// 128 (128, 128) or (128, 64); the first design (64, 64) in bf16, (32, 32)
+// in fp32. Returns 0 on success, else the cudaError_t code
+// (cudaErrorInvalidValue for a tile or head dim not built).
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* o, void* lse, int BH, int Lq,
-                        int Lk, int D, int causal, float sm_scale,
-                        void* stream) {
+                        int Lk, int D, int causal, int blk_q, int blk_k,
+                        float sm_scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
-  if (D == 64)  // the first design at head dim 64, both dtypes
-    return dtype == kF32
-               ? (int)launch<float, 64>(q, k, v, o, lse, BH, Lq, Lk, causal,
+  const int bad = (int)cudaErrorInvalidValue;
+  if (dtype == kBF16 && D == 128)
+    return fwd90::with_variant(
+        blk_q, blk_k,
+        [&](auto variant) {
+          using V = decltype(variant);
+          return (int)fwd90::launch<V::keys, V::stages>(
+              q, k, v, o, lse, BH, Lq, Lk, causal, sm_scale, s);
+        },
+        bad);
+  return with_first_design(
+      dtype, D,
+      [&](auto t, auto dim) {
+        using T = typename decltype(t)::type;
+        constexpr int kD = decltype(dim)::value;
+        return first_design_tile<T, kD>(blk_q, blk_k)
+                   ? (int)launch<T, kD>(q, k, v, o, lse, BH, Lq, Lk, causal,
                                         sm_scale, s)
-               : (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, BH, Lq, Lk,
-                                                causal, sm_scale, s);
-  if (D != 128) return (int)cudaErrorInvalidValue;  // a head dim not built
-  if (dtype == kF32)
-    return (int)launch<float, 128>(q, k, v, o, lse, BH, Lq, Lk, causal,
-                                   sm_scale, s);
-  return (int)fwd90::launch(q, k, v, o, lse, BH, Lq, Lk, causal, sm_scale,
-                            s);
+                   : bad;
+      },
+      bad);
+}
+
+// The dynamic shared memory, in bytes, that a launch of tile (blk_q,
+// blk_k) takes at (dtype, D); 0 for a tile or head dim not built.
+int flash_attention_fwd_smem(int dtype, int D, int blk_q, int blk_k) {
+  if (dtype == kBF16 && D == 128)
+    return fwd90::with_variant(
+        blk_q, blk_k,
+        [](auto variant) { return (int)decltype(variant)::kSmem; }, 0);
+  return with_first_design(
+      dtype, D,
+      [&](auto t, auto dim) {
+        using T = typename decltype(t)::type;
+        constexpr int kD = decltype(dim)::value;
+        return first_design_tile<T, kD>(blk_q, blk_k)
+                   ? (int)first_design_smem<T, kD>()
+                   : 0;
+      },
+      0);
 }
 
 const char* kernel_error_string(int code) {

@@ -85,11 +85,18 @@ def _merge_blocks(o1, lse1, o2, lse2):
     return o1 * wt1 + o2 * wt2, m + torch.log(denom)
 
 
-def fused_blocks(Lq: int, Lk: int):
-    """(blk_q, blk_k) that block the plain flash versions per rotation:
-    the JAX interpret-mode choice (the largest divisor up to 256, no
-    floor). The CUDA kernels tile their own way."""
-    from ray_tpu_torch.ops.flash_attention import pick_block
+def fused_blocks(Lq: int, Lk: int, head_dim: int, dtype, device=None):
+    """The fused ring's blocks per rotation, as the JAX package's
+    ``_resolve_fused_blocks``: the tuned entry of the shard's shape
+    (``ops.flash_attention.autotune_blocks``, the shared cache) when one
+    is cached, a ``FlashTiles``; otherwise the divisor heuristic of
+    interpret mode, (blk_q, blk_k): the largest divisor up to 256, no
+    floor, which blocks the plain versions (the CUDA kernels then launch
+    their default tiles)."""
+    from ray_tpu_torch.ops.flash_attention import get_tuned_blocks, pick_block
+    tuned = get_tuned_blocks(Lq, Lk, head_dim, dtype, device)
+    if tuned is not None:
+        return tuned
     return pick_block(Lq, min_block=1), pick_block(Lk, min_block=1)
 
 
@@ -100,13 +107,18 @@ def ring_rotation(q, kt, vt, o, lse, src: int, idx: int, causal: bool,
     attended and merged in. Causal: the diagonal block (src == idx)
     attends causally, an earlier one (src < idx) fully, a later one is
     skipped (o and lse come back as they were). o: [B, Lq, H, D] fp32,
-    lse: [B, H, Lq] fp32 (-inf before the first block)."""
+    lse: [B, H, Lq] fp32 (-inf before the first block). ``blocks``: what
+    ``fused_blocks`` gives (a tuned ``FlashTiles``, or a pair)."""
     if causal and src > idx:
         return o, lse
-    blk_q, blk_k = blocks or fused_blocks(q.shape[1], kt.shape[1])
-    from ray_tpu_torch.ops.flash_attention import flash_attention_block
+    from ray_tpu_torch.ops.flash_attention import (FlashTiles,
+                                                   flash_attention_block)
+    blocks = blocks or fused_blocks(q.shape[1], kt.shape[1], q.shape[-1],
+                                    q.dtype, q.device)
+    tiles = blocks if isinstance(blocks, FlashTiles) else None
+    blk_q, blk_k = tiles.fwd if tiles else blocks
     ob, lb = flash_attention_block(q, kt, vt, causal and src == idx,
-                                   sm_scale, blk_q, blk_k)
+                                   sm_scale, blk_q, blk_k, tiles=tiles)
     return _merge_blocks(o, lse, ob.float(), lb)
 
 
@@ -114,7 +126,7 @@ def _ring_fused(q, k, v, mesh, axis_name, causal, sm_scale):
     n = axis_size(mesh, axis_name)
     idx = axis_index(mesh, axis_name)
     B, Lq, H, D = q.shape
-    blocks = fused_blocks(Lq, k.shape[1])
+    blocks = fused_blocks(Lq, k.shape[1], D, q.dtype, q.device)
     o = torch.zeros(B, Lq, H, D, dtype=torch.float32, device=q.device)
     lse = torch.full((B, H, Lq), _NEG_INF, device=q.device)
     kv = torch.stack([k, v])

@@ -107,9 +107,11 @@ def _worst_ratio(got, want, rtol):
     return float((err / (rtol * np.abs(want).max(-1) + 1e-5)).max())
 
 
-# the bf16 CUDA kernels' tiles: the forward's 128 q rows x 128 keys, the
-# dk/dv kernel's 64 q rows x 128 keys, the dq kernel's 128 q rows x 64 keys
-FWD_TILES, BWD_TILES, DQ_TILES = (128, 128), (64, 128), (128, 64)
+# the bf16 CUDA kernels' default tiles: the forward's 128 q rows x 128
+# keys, the dk/dv kernel's 64 q rows x 128 keys, the dq kernel's 128 q rows
+# x 64 keys (their variants: VARIANT_CASES below)
+_DEFAULT = tfa.default_tiles(torch.bfloat16, 128)
+FWD_TILES, BWD_TILES, DQ_TILES = _DEFAULT.fwd, _DEFAULT.dkv, _DEFAULT.dq
 CARD_RTOL = 2.0 ** -6   # chip_smoke.py's and the card tests' per-row limit
 
 
@@ -185,6 +187,58 @@ def test_plain_dq_at_the_dq_kernel_tiles_holds_the_card_limit(causal):
                         *DQ_TILES, dlse=torch.from_numpy(dlse))[0]
     ratio = _worst_ratio(tdq, jdq, BF16_RTOL["grad"])
     assert ratio <= 1, f"dq vs Pallas at the dq tiles: {ratio}"
+
+
+# the bf16 kernels' variant tiles beyond the defaults above (KERNEL_TILES):
+# the forward's 128 q rows x 64 keys, dq's 128 x 128 keys, dk/dv's 128 q
+# rows x 128 keys
+VARIANT_CASES = [(kernel, tile) for kernel, tiles in
+                 tfa.KERNEL_TILES[(torch.bfloat16, 128)].items()
+                 for tile in tiles[1:]]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel,tile", VARIANT_CASES,
+                         ids=[f"{k}-{q}x{kk}" for k, (q, kk) in VARIANT_CASES])
+def test_plain_versions_at_the_variant_tiles_hold_the_card_limit(
+        kernel, tile, causal):
+    """Each kernel's second variant as the tests above hold the defaults,
+    at the smallest lengths where its last q tile and key tile are both
+    partial, (Lq, Lk) = (136, 72): the plain version at the variant's tile
+    (a shorter last block, as the kernel masks its last tiles) against the
+    default blocks (one here) within CARD_RTOL, and against the Pallas
+    kernels in interpret mode at their default blocks within this
+    module's limits."""
+    BH, D, Lq, Lk = 2, 128, 136, 72
+    scale = D ** -0.5
+    q, do = _arrays((BH, Lq, D), 30, 2)
+    k, v = _arrays((BH, Lk, D), 31, 2)
+    dlse = _arrays((BH, Lq), 32)[0]
+    tq, tk, tv, tdo = (_torch(a, "bfloat16") for a in (q, k, v, do))
+    jq, jk, jv, jdo = (_jax(a, "bfloat16") for a in (q, k, v, do))
+    o_d, lse_d = tfa._fwd_reference(tq, tk, tv, causal, scale)
+    jo, jlse = jfa._fwd_call(jq, jk, jv, causal, scale, 256, 256, True)
+    if kernel == "fwd":
+        o_t, lse_t = tfa._fwd_reference(tq, tk, tv, causal, scale, *tile)
+        assert _worst_ratio(o_t, o_d, CARD_RTOL) <= 1, "o vs blocks"
+        assert _worst_ratio(o_t, jo, BF16_RTOL["out"]) <= 1, "o vs Pallas"
+        for want in (lse_d, _np(jlse)[:, 0]):
+            np.testing.assert_allclose(_np(lse_t), _np(want), rtol=1e-5,
+                                       atol=1e-5)
+        return
+    delta = (tdo.float() * o_d.float()).sum(-1) - torch.from_numpy(dlse)
+    g_t = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale,
+                             *tile)
+    g_d = tfa._bwd_reference(tq, tk, tv, lse_d, tdo, delta, causal, scale)
+    jgrads = jfa._bwd_call(jq, jk, jv, jo, jlse, jdo, causal, scale, 256,
+                           256, True, dlse=jnp.asarray(dlse))
+    names = ("dq",) if kernel == "dq" else ("dk", "dv")
+    for name, got, want, pal in zip(("dq", "dk", "dv"), g_t, g_d, jgrads):
+        if name in names:
+            assert _worst_ratio(got, want, CARD_RTOL) <= 1, \
+                f"{name} vs blocks"
+            assert _worst_ratio(got, pal, BF16_RTOL["grad"]) <= 1, \
+                f"{name} vs Pallas"
 
 
 # sequences the kernels' 128-row tiles do not divide: the last q tile and

@@ -396,48 +396,53 @@ def _flash_inputs(device, dtype, BH, Lq, Lk, seed, D=128):
 def test_flash_kernels_match_plain_versions(cuda, dtype, causal, BH, Lq,
                                             Lk, D):
     # bf16 at D 128: the Hopper designs (dq among them, with the lse
-    # cotangent folded into delta); D 64 and fp32: the first designs
+    # cotangent folded into delta), every tile variant; D 64 and fp32:
+    # the first designs
     q, k, v, do, dlse = _flash_inputs(cuda, dtype, BH, Lq, Lk,
                                       BH * Lq + Lk, D)
     scale = D ** -0.5
     # the plain versions' blocks must divide L (64 for 192 and 320)
     blocks = (tfa.pick_block(Lq), tfa.pick_block(Lk))
-    before = dict(tfa.launch_counts)
-    o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
     o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale, *blocks)
     delta = (do.float() * o_ref.float()).sum(-1) - dlse
-    grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
     grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
                                    scale, *blocks)
-    torch.cuda.synchronize()
-    for name in ("flash_attention_fwd", "flash_attention_dq",
-                 "flash_attention_dkv"):
-        assert tfa.launch_counts[name] == before[name] + 1, name
-    assert o.dtype == dtype and lse.dtype == F32
-    assert tolerance_ratio(o, o_ref, FLASH_TOL) <= 1
-    # fp32 sums of up to L terms in another order
-    assert (lse - lse_ref).abs().max().item() <= 2.0 ** -12
-    for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
-        assert got.dtype == dtype and torch.isfinite(got).all(), name
-        assert tolerance_ratio(got, want, FLASH_TOL) <= 1, name
+    for tiles in tfa.tile_variants(dtype, D):
+        before = dict(tfa.launch_counts)
+        o, lse = tfa._fwd_cuda(q, k, v, causal, scale, tiles.fwd)
+        grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale,
+                              tiles)
+        torch.cuda.synchronize()
+        for name in ("flash_attention_fwd", "flash_attention_dq",
+                     "flash_attention_dkv"):
+            assert tfa.launch_counts[name] == before[name] + 1, name
+        assert o.dtype == dtype and lse.dtype == F32
+        assert tolerance_ratio(o, o_ref, FLASH_TOL) <= 1, tiles
+        # fp32 sums of up to L terms in another order
+        assert (lse - lse_ref).abs().max().item() <= 2.0 ** -12, tiles
+        for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+            assert got.dtype == dtype and torch.isfinite(got).all(), name
+            assert tolerance_ratio(got, want, FLASH_TOL) <= 1, (name, tiles)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_are_repeatable(cuda, causal):
     # no atomics and a fixed order of sums: two calls on the same inputs
-    # give the same bits (the bf16 path's Hopper forward, dq and dk/dv)
+    # give the same bits (the bf16 path's Hopper forward, dq and dk/dv,
+    # every tile variant)
     q, k, v, do, dlse = _flash_inputs(cuda, BF16, 3, 320, 192, 7)
     scale = 128 ** -0.5
-    runs = []
-    for _ in range(2):
-        o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
-        delta = (do.float() * o.float()).sum(-1) - dlse
-        runs.append((o, lse, *tfa._bwd_cuda(q, k, v, lse, do, delta, causal,
-                                             scale)))
-    torch.cuda.synchronize()
-    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
-        assert torch.equal(a, b), name
+    for tiles in tfa.tile_variants(BF16, 128):
+        runs = []
+        for _ in range(2):
+            o, lse = tfa._fwd_cuda(q, k, v, causal, scale, tiles.fwd)
+            delta = (do.float() * o.float()).sum(-1) - dlse
+            runs.append((o, lse, *tfa._bwd_cuda(q, k, v, lse, do, delta,
+                                                 causal, scale, tiles)))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+            assert torch.equal(a, b), (name, tiles)
 
 
 @pytest.mark.cuda
@@ -452,33 +457,85 @@ def test_flash_kernels_at_lengths_no_tile_divides(cuda, dtype, causal, Lq,
     # 1000 at blocks of 8) that no kernel tile divides: the last q tile
     # and key tile run past the end of each sequence and are masked. The
     # plain versions at their default 256-row blocks (a shorter last
-    # block) hold the kernels; the lse and delta padding never shows, and
-    # two calls repeat bit for bit. dk/dv masks no query row past Lq: the
-    # boxes fill q and do with zeros there and lse and delta are padded
-    # with zeros, so those rows add exactly 0 (the CPU test
+    # block) hold every tile variant; the lse and delta padding never
+    # shows, and two calls repeat bit for bit. dk/dv masks no query row
+    # past Lq: the boxes fill q and do with zeros there and lse and delta
+    # are padded with zeros, so those rows add exactly 0 (the CPU test
     # test_query_rows_past_lq_add_nothing_to_dk_dv checks the arithmetic)
     q, k, v, do, dlse = _flash_inputs(cuda, dtype, 3, Lq, Lk, Lq + 7 * Lk,
                                       D)
     scale = D ** -0.5
-    runs = []
-    for _ in range(2):
-        o, lse = tfa._fwd_cuda(q, k, v, causal, scale)
-        delta = (do.float() * o.float()).sum(-1) - dlse
-        runs.append((o, lse, *tfa._bwd_cuda(q, k, v, lse, do, delta, causal,
-                                             scale)))
     o_ref, lse_ref = tfa._fwd_reference(q, k, v, causal, scale)
-    delta = (do.float() * o_ref.float()).sum(-1) - dlse
-    grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta, causal, scale)
-    grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta, causal,
+    delta_ref = (do.float() * o_ref.float()).sum(-1) - dlse
+    grads_ref = tfa._bwd_reference(q, k, v, lse_ref, do, delta_ref, causal,
                                    scale)
-    torch.cuda.synchronize()
-    assert tolerance_ratio(runs[0][0], o_ref, FLASH_TOL) <= 1
-    assert (runs[0][1] - lse_ref).abs().max().item() <= 2.0 ** -12
-    for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
-        assert got.shape == want.shape and torch.isfinite(got).all(), name
-        assert tolerance_ratio(got, want, FLASH_TOL) <= 1, name
-    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
-        assert torch.equal(a, b), name
+    for tiles in tfa.tile_variants(dtype, D):
+        runs = []
+        for _ in range(2):
+            o, lse = tfa._fwd_cuda(q, k, v, causal, scale, tiles.fwd)
+            delta = (do.float() * o.float()).sum(-1) - dlse
+            runs.append((o, lse, *tfa._bwd_cuda(q, k, v, lse, do, delta,
+                                                 causal, scale, tiles)))
+        grads = tfa._bwd_cuda(q, k, v, lse_ref, do, delta_ref, causal,
+                              scale, tiles)
+        torch.cuda.synchronize()
+        assert tolerance_ratio(runs[0][0], o_ref, FLASH_TOL) <= 1, tiles
+        assert (runs[0][1] - lse_ref).abs().max().item() <= 2.0 ** -12
+        for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+            assert got.shape == want.shape and torch.isfinite(got).all(), \
+                (name, tiles)
+            assert tolerance_ratio(got, want, FLASH_TOL) <= 1, (name, tiles)
+        for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+            assert torch.equal(a, b), (name, tiles)
+
+
+@pytest.mark.cuda
+def test_flash_variant_shared_memory_matches_the_model(cuda):
+    # the tuner's shared-memory model (_est_smem_bytes) against each
+    # library's own count of every variant it is built for; a tile not
+    # built counts 0
+    fwd = tfa._kernels.load("flash_attention_fwd")
+    bwd = tfa._kernels.load("flash_attention_bwd")
+    for (dtype, D), table in tfa.KERNEL_TILES.items():
+        code = tfa._DTYPE_CODES[dtype]
+        for kernel, tiles in table.items():
+            for tile in tiles:
+                got = (fwd.flash_attention_fwd_smem(code, D, *tile)
+                       if kernel == "fwd" else bwd.flash_attention_bwd_smem(
+                           int(kernel == "dkv"), code, D, *tile))
+                assert got == tfa._est_smem_bytes(kernel, *tile, D, dtype), \
+                    (dtype, D, kernel, tile)
+                assert got <= tfa.HOPPER_SMEM_OPTIN
+    assert fwd.flash_attention_fwd_smem(1, 128, 64, 64) == 0
+    assert bwd.flash_attention_bwd_smem(1, 1, 128, 64, 64) == 0
+
+
+@pytest.mark.cuda
+def test_autotune_on_the_card_launches_the_picked_variants(cuda):
+    # a measured sweep at a small shape: each kernel's pick among its
+    # built variants, cached under the card's name; flash_attention with
+    # blk None then launches exactly the picked variants
+    tfa.clear_block_cache()
+    try:
+        assert tfa.kernels_supported()
+        tiles = tfa.autotune_blocks(256, 256, 128, BF16)
+        cands = tfa.kernel_candidates(128, BF16,
+                                      torch.cuda.get_device_name(0))
+        assert all(getattr(tiles, k) in cands[k] for k in cands)
+        assert set(tfa.last_sweep) == set(tfa.FLASH_KERNELS)
+        assert tfa.get_tuned_blocks(256, 256, 128, BF16, cuda) == tiles
+        g = torch.Generator(device=cuda).manual_seed(3)
+        q, k, v = (torch.randn(2, 256, 4, 128, generator=g, device=cuda)
+                   .bfloat16().requires_grad_() for _ in range(3))
+        tfa.variant_launches.clear()
+        out = tfa.flash_attention(q, k, v, blk_q=None, blk_k=None)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert tfa.variant_launches == {
+            (tfa._ENTRY[kern], getattr(tiles, kern)): 1
+            for kern in tfa.FLASH_KERNELS}
+    finally:
+        tfa.clear_block_cache()
 
 
 @pytest.mark.cuda
@@ -530,6 +587,27 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     lse = torch.zeros(2, 128, device=cuda)
     with pytest.raises(ValueError, match="lse"):
         tfa._bwd_cuda(q, q, q, lse.bfloat16(), q, lse, True, 0.1)
+    # a tile no variant was built for: the wrappers raise before a
+    # launch, and the C entry points refuse it themselves
+    for tiles in ((64, 64), (256, 256)):
+        with pytest.raises(ValueError, match="not built"):
+            tfa._fwd_cuda(q, q, q, True, 0.1, tiles)
+        with pytest.raises(ValueError, match="not built"):
+            tfa._bwd_cuda(q, q, q, lse, q, lse, True, 0.1,
+                          tfa.FlashTiles.uniform(tiles))
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tfa._launch("flash_attention_fwd", "flash_attention_fwd", cuda,
+                        1, q, q, q, torch.empty_like(q), lse, 2, 128, 128,
+                        128, 1, *tiles, 0.1)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tfa._launch("flash_attention_bwd", "flash_attention_dq", cuda,
+                        1, q, q, q, q, lse, lse, torch.empty_like(q), 2, 128,
+                        128, 128, 1, *tiles, 0.1)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tfa._launch("flash_attention_bwd", "flash_attention_dkv", cuda,
+                        1, q, q, q, q, lse, lse, torch.empty_like(q),
+                        torch.empty_like(q), 2, 128, 128, 128, 1, *tiles,
+                        0.1)
 
 
 @pytest.mark.cuda
@@ -573,25 +651,26 @@ def test_int8_matmul_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_dq_at_a_training_shape(cuda, causal, D):
     # dq alone at a cut of the training path's shape (L 1024, BH 9: the
-    # block order's last group of 8 bh holds one), with an lse cotangent;
-    # one launch per call, and the result repeats bit for bit
+    # block order's last group of 8 bh holds one), with an lse cotangent,
+    # every tile variant; one launch per call, and the result repeats bit
+    # for bit
     q, k, v, do, dlse = _flash_inputs(cuda, BF16, 9, 1024, 1024, 5 + D, D)
     scale = D ** -0.5
     o, lse = tfa._fwd_reference(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1) - dlse
-    before = tfa.launch_counts["flash_attention_dq"]
-    runs = []
-    for _ in range(2):
-        dq = torch.empty_like(q)
-        tfa._launch("flash_attention_bwd", "flash_attention_dq", cuda, 1, q,
-                    k, v, do, lse, delta, dq, 9, 1024, 1024, D, int(causal),
-                    scale)
-        runs.append(dq)
     want = tfa._bwd_reference(q, k, v, lse, do, delta, causal, scale)[0]
-    torch.cuda.synchronize()
-    assert tfa.launch_counts["flash_attention_dq"] == before + 2
-    assert torch.equal(runs[0], runs[1])
-    assert tolerance_ratio(runs[0], want, FLASH_TOL) <= 1
+    for tiles in tfa.tile_variants(BF16, D):
+        before = tfa.launch_counts["flash_attention_dq"]
+        runs = []
+        for _ in range(2):
+            dq = torch.empty_like(q)
+            tfa._launch_dq(q, k, v, do, lse, delta, dq, causal, scale,
+                           tiles.dq)
+            runs.append(dq)
+        torch.cuda.synchronize()
+        assert tfa.launch_counts["flash_attention_dq"] == before + 2
+        assert torch.equal(runs[0], runs[1]), tiles
+        assert tolerance_ratio(runs[0], want, FLASH_TOL) <= 1, tiles
 
 
 @pytest.mark.cuda
