@@ -317,6 +317,28 @@ result line is printed):
      group whose peer stays away ended within its timeout; 20g. phase
      4's server at tp=4 with a shard on each card; 20h. phase 13's PBT
      with a card per trial.
+ 21. the engine under memory pressure, Llama-3-8B widths, all 32 layers,
+     phase 4's weights drawn once and handed to every engine: 21a. phase
+     4's server, requests and checks with an int8 pool in the bytes of
+     phase 4's bf16 pool (pages and their ratio, at least 1.9), its
+     ragged launches all on int8 pools (counted apart) and the engine's
+     step count, each stream equal to phase 4's up to a parting where the
+     bf16 forward's top-2 margin is under INT8_MARGIN_FLOOR or twice the
+     bf16 noise (most of the wave's tokens compared), the kernel against
+     its plain version on the engine's live quantized pools in every
+     layer (2^-7 of each row's scale), the prefix hit under the profiler;
+     then with bf16 and with int8 pools: 21b. a request whose prompt is
+     the published 256-token prefix: one copy-on-write, the copy equal to
+     its source to the bit (slots 0-14 still after the request), the
+     stream against no prefix cache; 21c. after the wave on a 128-page
+     pool, a 1500-token prompt admitted by evicting cached pages, its
+     stream against the full pool's; 21d. the wave on a 68-page pool that
+     its decode outgrows: preemptions, none finished "evict", the flight
+     recorder's preempts and stalls, the gauge, every stream against the
+     uncontended run's; 21e. phase 17a's tp=2 server over int8 pools on
+     the one card, held against 21a by TP_MARGIN_FLOOR's rule, its int8
+     launches twice 21a's. Every stream comparison under the margin rule,
+     every engine's launches its step count.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3341,6 +3363,17 @@ def ppo_split(rl_case, device, runner_device):
             "learn_ms": sum(r["time_learn_s"] for r in results) / n * 1e3}
 
 
+def node_cards(cuda, num_gpus):
+    """The cards phases 14 and 15 tell their node of: ``num_gpus`` where
+    given; else none, so that the node counts them, on a machine of one
+    card, and one on a machine of several (their checks are of one card:
+    a second lease waits for the card the first holds, the replica takes
+    the node's only card)."""
+    if cuda and num_gpus is None and torch.cuda.device_count() > 1:
+        return 1
+    return num_gpus
+
+
 def phase_cluster(model_config=None, engine_config=None, main_streams=None,
                   num_gpus=None, big_bytes=BIG_TENSOR_BYTES,
                   rl_case=None, card="the CPU"):
@@ -3349,8 +3382,8 @@ def phase_cluster(model_config=None, engine_config=None, main_streams=None,
     runs in a GPU-leased worker, a second lease waits for the card,
     tensors cross processes, and PPO's runners run as processes.
     ``main_streams`` (phase 4's) must equal the worker's token streams;
-    ``num_gpus`` tells the node its cards (None: it counts them).
-    Returns a summary."""
+    ``num_gpus`` tells the node its cards (``node_cards``). Returns a
+    summary."""
     import os
     import ray_tpu_torch as rt
     from ray_tpu_torch.core.worker import global_worker
@@ -3374,8 +3407,8 @@ def phase_cluster(model_config=None, engine_config=None, main_streams=None,
 
     # 14a: boot
     t0 = time.monotonic()
-    rt.init(num_cpus=CLUSTER_CPUS, num_gpus=num_gpus, _system_config={
-        "object_store_memory_bytes": store})
+    rt.init(num_cpus=CLUSTER_CPUS, num_gpus=node_cards(cuda, num_gpus),
+            _system_config={"object_store_memory_bytes": store})
     boot_s = time.monotonic() - t0
     summary = {"boot_s": boot_s}
     try:
@@ -3665,7 +3698,7 @@ def phase_serve(model_config=None, engine_config=None, main_streams=None,
     handle and its prefix hit through the HTTP proxy (streams equal to
     ``main_streams``, phase 4's, when given), the replica's launches, the
     request records at the head, and the teardown. ``num_gpus`` tells the
-    node its cards (None: it counts them). Returns a summary."""
+    node its cards (``node_cards``). Returns a summary."""
     import os
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
@@ -3680,9 +3713,9 @@ def phase_serve(model_config=None, engine_config=None, main_streams=None,
     if cuda:
         gc.collect()
         torch.cuda.empty_cache()
-    rt.init(num_cpus=CLUSTER_CPUS, num_gpus=num_gpus, _system_config={
-        "object_store_memory_bytes": SERVE_STORE_BYTES,
-        "metrics_export_period_s": 1.0})
+    rt.init(num_cpus=CLUSTER_CPUS, num_gpus=node_cards(cuda, num_gpus),
+            _system_config={"object_store_memory_bytes": SERVE_STORE_BYTES,
+                            "metrics_export_period_s": 1.0})
     summary = {}
     try:
         assert rt.cluster_resources().get("GPU") == 1.0, \
@@ -4280,7 +4313,8 @@ def margin_and_noise(params, cfg, tokens):
 
 def phase_tp_serving(model_config=None, engine_config=None,
                      main_streams=None, main_launches=None, main_peak=None,
-                     devices=TP_DEVICES, card=""):
+                     devices=TP_DEVICES, card="", params=None,
+                     ref="phase 4"):
     """17a: phase 4's server with a tp=2 engine (both shards on the card),
     phase 4's requests (the wave admitted at one step, then the prefix
     hit twice, the second under the profiler, as phase 4 sends it; the
@@ -4289,12 +4323,16 @@ def phase_tp_serving(model_config=None, engine_config=None,
     top-2 margin there under the bf16 noise (``margin_and_noise``); the
     ragged launches tp x phase 4's; peak memory (over what was allocated
     before the phase, ``main_peak``: phase 4's (before, peak)) and wall
-    times beside phase 4's."""
+    times beside phase 4's. ``params``: the whole model's weights, handed
+    to the engine (which shards them) and read for the margins; ``ref``
+    names the run ``main_streams`` and ``main_launches`` come from."""
     from ray_tpu_torch.llm.serve_llm import LLMServer
     from ray_tpu_torch.ops import paged_attention as tpa
     tp = len(devices)
     engine_config = dict(engine_config or MAIN_ENGINE, tp=tp,
                          devices=list(devices))
+    if params is not None:
+        engine_config["params"] = params
     on_card = engine_config.get("device", "cuda") == "cuda"
     base = memory_baseline() if on_card else None
     t0 = time.monotonic()
@@ -4352,6 +4390,8 @@ def phase_tp_serving(model_config=None, engine_config=None,
     assert launches["ragged_paged_attention"] == expected, \
         (launches, expected)
     assert launches["ragged_paged_attention_reference_cuda"] == 0
+    assert launches["ragged_paged_attention_int8"] == (
+        expected if eng.kv_dtype == "int8" else 0), launches
     if main_launches is not None:
         assert launches["ragged_paged_attention"] == tp * main_launches, \
             (launches, main_launches)
@@ -4369,9 +4409,10 @@ def phase_tp_serving(model_config=None, engine_config=None,
             step = next(i for i, (a, b) in enumerate(zip(got, want))
                         if a != b)
             if full is None:    # the tp=1 weights, from the shards
-                full = eng._fns.gather_params(eng.params)
+                full = params if params is not None else \
+                    eng._fns.gather_params(eng.params)
             margin, noise = margin_and_noise(full, cfg, prompt + want[:step])
-            log(f"tp serving: request {j} parts from phase 4's stream at "
+            log(f"tp serving: request {j} parts from {ref}'s stream at "
                 f"step {step} of {len(want)}: tp=1 top-2 margin {margin:.5f}"
                 f", bf16 noise of the logits {noise:.5f}")
             assert margin < max(TP_MARGIN_FLOOR, 2 * noise), \
@@ -4379,8 +4420,8 @@ def phase_tp_serving(model_config=None, engine_config=None,
             parted.append((j, step, margin, noise))
         del full
     n_tok = sum(len(t) for t in results)
-    ref = "" if "wave_s" not in (main_streams or {}) else (
-        f"; phase 4: wave {main_streams['wave_s']:.2f} s, hit "
+    ref_times = "" if "wave_s" not in (main_streams or {}) else (
+        f"; {ref}: wave {main_streams['wave_s']:.2f} s, hit "
         f"{main_streams['hit_ms']:.1f} ms")
     mem = "" if peak is None else (
         f", peak memory {peak - base} bytes over the {base} held before "
@@ -4389,11 +4430,13 @@ def phase_tp_serving(model_config=None, engine_config=None,
             f" (phase 4: {main_peak[1] - main_peak[0]} over "
             f"{main_peak[0]})"))
     log(f"tp serving: tp={tp} on {list(devices)}, {cfg.n_layers} layers dim "
-        f"{cfg.dim}: set-up {setup_s:.1f} s, wave {n_tok} tokens in "
-        f"{wave_s:.2f} s, prefix hit alone {hit_ms:.1f} ms{ref}{mem}; "
-        f"ragged launches {launches['ragged_paged_attention']} = {tp} x "
-        f"{launches['ragged_paged_attention'] // tp} (phase 4: "
-        f"{main_launches}); streams equal to phase 4's: "
+        f"{cfg.dim}, {eng.kv_dtype} pools: set-up {setup_s:.1f} s, wave "
+        f"{n_tok} tokens in {wave_s:.2f} s, prefix hit alone {hit_ms:.1f} "
+        f"ms{ref_times}{mem}; ragged launches "
+        f"{launches['ragged_paged_attention']} = {tp} x "
+        f"{launches['ragged_paged_attention'] // tp} (int8 pools "
+        f"{launches['ragged_paged_attention_int8']}; {ref}: "
+        f"{main_launches}); streams equal to {ref}'s: "
         f"{len(reqs) + 1 - len(parted)} of {len(reqs) + 1}; {card}")
     log(f"tp serving: the prefix-hit request under the profiler: {busy}")
     return {"launches": launches["ragged_paged_attention"],
@@ -7006,6 +7049,450 @@ def phase_multicard(main_streams=None, main_launches=None, main_peak=None,
     return launches
 
 
+# ---------------------------------- phase 21: the engine under pressure
+
+#: below this top-2 logit margin of the bf16 forward (at the context where
+#: two streams part) a stream over int8 pools may part from the bf16
+#: pool's, and a copied, re-admitted or recomputed stream from the same
+#: request's uncontended run: int8 rounds each K/V element to within 1/254
+#: of its (token, head) row's largest magnitude, about four times bf16's
+#: relative rounding (2^-9) on a typical element, so the int8 pools' logit
+#: noise is taken as four times tp's floor (TP_MARGIN_FLOOR, 2^-5); a
+#: recompute re-prefills through the prefill tiles what the first run
+#: wrote through decode rows (another order of summation, bf16 noise,
+#: under the same floor). Besides it, a margin under twice the logits'
+#: bf16 noise at that step passes, as in 17a.
+INT8_MARGIN_FLOOR = 2.0 ** -3
+#: the int8 pool's page count at phase 4's pool bytes over the bf16 page
+#: count: the JAX package's capacity claim (tests/test_llm.py
+#: test_int8_kv_capacity_ratio); at head dim 128 it is 256 / 130
+INT8_CAPACITY_RATIO = 1.9
+#: 21c: a pool the wave fits in (74 pages at most), whose free pages after
+#: it (127 - the 62 it publishes) cannot take the long prompt's 94
+EVICT_PAGES = 128
+EVICT_PROMPT = 1500
+#: 21d: a pool the wave is admitted into (66 pages with headroom) and
+#: whose decode outgrows it (up to 74 pages); the schedule does not depend
+#: on the tokens (no EOS), so it is the same on every card: 3 preemptions,
+#: no sequence at PREEMPT_CAP (69 pages would drive one there, 70 preempt
+#: once, 71 not at all)
+PREEMPT_PAGES = 68
+#: tokens of 21b's copy-on-write request and 21c's long request
+PRESSURE_TOKENS = 16
+
+
+def int8_pages_at_bytes(cfg, pages, page_size):
+    """The int8 pool's page count in the bytes of a ``cfg.dtype`` pool of
+    ``pages`` pages -> (int8 pages, bytes a page of each)."""
+    from ray_tpu_torch.llm.cache import make_kv_cache
+
+    def page_bytes(kv_dtype):
+        pool = make_kv_cache(cfg, 1, page_size, kv_dtype=kv_dtype,
+                             device="meta")
+        return sum(t.numel() * t.element_size() for t in pool.values())
+    fp, q8 = page_bytes(None), page_bytes("int8")
+    return pages * fp // q8, fp, q8
+
+
+def hold_streams(what, pairs, params, cfg, floor=INT8_MARGIN_FLOOR):
+    """Each (prompt, got, want) of ``pairs``: ``got`` equal to ``want`` up
+    to their first parting, where the top-2 margin of the plain forward on
+    ``params`` at want's context must sit under max(``floor``, twice the
+    logits' bf16 noise) (``margin_and_noise``). -> (tokens compared equal,
+    tokens in all, [(pair, step, margin, noise)] at each parting)."""
+    compared, total, parted = 0, 0, []
+    for j, (prompt, got, want) in enumerate(pairs):
+        assert len(got) == len(want), (what, j, got, want)
+        total += len(want)
+        step = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                    None)
+        if step is None:
+            compared += len(want)
+            continue
+        compared += step
+        margin, noise = margin_and_noise(params, cfg, prompt + want[:step])
+        log(f"{what}: stream {j} parts at step {step} of {len(want)}: bf16 "
+            f"top-2 margin {margin:.5f}, bf16 noise of the logits "
+            f"{noise:.5f}, limit {max(floor, 2 * noise):.5f}")
+        assert margin < max(floor, 2 * noise), \
+            f"{what}: stream {j} parts at a clear margin {margin}"
+        parted.append((j, step, margin, noise))
+    return compared, total, parted
+
+
+def engine_launches_expected(eng, since=None):
+    """The ragged launches an engine's run makes (since the stats
+    ``since``): one per layer per ragged step (decode_chunk steps a decode
+    dispatch), as phase 4 counts."""
+    s, b = eng.stats, since or {}
+    return eng.cfg.n_layers * (
+        s["ragged_dispatches"] - b.get("ragged_dispatches", 0)
+        + eng.decode_chunk * (s["decode_dispatches"]
+                              - b.get("decode_dispatches", 0)))
+
+
+def counted_run(eng, requests, launches):
+    """Send (prompt, max_tokens) ``requests`` to ``eng`` at once (held to
+    one admission step, ``admit_together``) and step it until they finish,
+    the launch counters set to 0 before and read after: each must be the
+    engine's step count (``engine_launches_expected``, int8 pools counted
+    apart), the plain version never on CUDA tensors; the ragged launches
+    are added to ``launches["ragged"]``. -> the streams, in order."""
+    from ray_tpu_torch.ops import paged_attention as tpa
+    for name in tpa.launch_counts:
+        tpa.launch_counts[name] = 0
+    since = dict(eng.stats)
+    admit_together(eng, len(requests))
+    rids = [eng.add_request(p, n) for p, n in requests]
+    done = {}
+    deadline = time.monotonic() + 600
+    while not all(r in done for r in rids):
+        assert time.monotonic() < deadline, "requests never finished"
+        done.update(eng.step())
+    got = dict(tpa.launch_counts)
+    n = engine_launches_expected(eng, since)
+    assert got["ragged_paged_attention"] == n, (got, n)
+    assert got["ragged_paged_attention_int8"] == (
+        n if eng.kv_dtype == "int8" else 0), got
+    assert got["ragged_paged_attention_reference_cuda"] == 0, got
+    launches["ragged"] += n
+    return [done[r] for r in rids]
+
+
+def cached_pages(eng, prompt):
+    """The pages the engine's prefix cache holds for ``prompt``'s leading
+    whole blocks, read without touching its counts or references."""
+    from ray_tpu_torch.llm.cache import hash_token_blocks
+    pages = []
+    for h in hash_token_blocks(prompt, eng.page_size, eng.prefix.kv_tag):
+        page = eng.prefix._pages.get(h)
+        if page is None:
+            break
+        pages.append(page)
+    return pages
+
+
+def live_pool_check(eng, prompts, seed=21):
+    """21a: the ragged kernel against its plain version on the engine's own
+    pools (quantized by the engine on write when int8), every layer, on one
+    mixed batch of the engine's geometry: a decode row over the cached
+    pages of each prompt that has any, at their length, and a prefill row
+    of up to a chunk ending there for the two longest; q from ``seed``.
+    Each (token, head) within KERNEL_RTOL of its row's scale (phase 3's
+    ``tolerance_ratios``), padding 0. -> (worst ratio, max abs error)."""
+    from ray_tpu_torch.ops import paged_attention as tpa
+    dev, cfg, ps = eng.device, eng.cfg, eng.page_size
+    B, C = eng.max_batch, eng.prefill_chunk
+    R, T = eng.ragged_rows, eng.ragged_tokens
+    lists = [p for p in (cached_pages(eng, pr) for pr in prompts) if p]
+    assert len(lists) >= 2, "the run published too few pages"
+    pt = torch.zeros(R, eng.max_pages_per_seq, dtype=torch.int32)
+    qs, ql, kl = (torch.zeros(R, dtype=torch.int32) for _ in range(3))
+    for r, pages in enumerate(lists[:B]):
+        pt[r, :len(pages)] = torch.tensor(pages)
+        qs[r], ql[r], kl[r] = r, 1, len(pages) * ps
+    t0 = B
+    longest = sorted(lists, key=len, reverse=True)[:R - B]
+    for j, pages in enumerate(longest):
+        L = len(pages) * ps
+        n = min(C, L)
+        pt[B + j, :len(pages)] = torch.tensor(pages)
+        qs[B + j], ql[B + j], kl[B + j] = t0, n, L
+        t0 += n
+    pt, qs, ql, kl = (x.to(dev) for x in (pt, qs, ql, kl))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(T, cfg.n_heads, cfg.head_dim, generator=g,
+                    device=dev).to(cfg.dtype)
+    owned = torch.zeros(T, dtype=torch.bool, device=dev)
+    for s0, n in zip(qs.tolist(), ql.tolist()):
+        owned[s0:s0 + n] = True
+    hints = dict(decode_rows=B, max_q_len=C)
+    worst, err = 0.0, 0.0
+    for i in range(cfg.n_layers):
+        pools = {k: v[i] for k, v in eng.kv.items()}
+        sc = dict(k_scale=pools.get("k_scale"), v_scale=pools.get("v_scale"))
+        got = tpa.ragged_paged_attention(q, pools["k"], pools["v"], pt, qs,
+                                         ql, kl, **sc, **hints)
+        ref = tpa.ragged_paged_attention_reference(
+            q, pools["k"], pools["v"], pt, qs, ql, kl, **sc, **hints)
+        assert torch.isfinite(got).all(), f"layer {i}: non-finite output"
+        assert bool((got[~owned] == 0).all()), f"layer {i}: padding not 0"
+        worst = max(worst, tolerance_ratios(got, ref)[owned].max().item())
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+    log(f"21a: the ragged kernel on the engine's live {eng.kv_dtype} pools, "
+        f"{cfg.n_layers} layers, rows of kv {kl.tolist()} (q_len "
+        f"{ql.tolist()}): worst {worst:.3f} x the tolerance (KERNEL_RTOL "
+        f"2^-7 of each row's scale), max_abs_err {err:.3e}")
+    assert worst <= 1, f"live pools: kernel vs plain at {worst} x the limit"
+    return worst, err
+
+
+def phase_int8_serving(params, main_streams, main_launches,
+                       model_config=None, engine_config=None):
+    """21a: phase 4's server and requests (``MainServer``: the wave
+    admitted at one step, then the prefix hit, and the hit again under the
+    profiler, as phase 4 sends it) on phase 4's weights with an int8 pool
+    in the bytes of phase 4's bf16 pool (the page counts and their ratio
+    printed, the ratio at least INT8_CAPACITY_RATIO): its ragged launches
+    all on int8 pools and equal to the engine's step count; each stream
+    equal to phase 4's up to a parting under ``hold_streams``' rule, most
+    of the wave's tokens compared; then the kernel on the engine's live
+    pools (``live_pool_check``). -> {"streams", "launches", "pages",
+    "live_err"}."""
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    from ray_tpu_torch.ops import paged_attention as tpa
+    model_config = model_config or MAIN_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    cfg = model_config_from_dict(model_config)
+    ps, pages = engine_config["page_size"], engine_config["total_pages"]
+    pages8, fp_page, q8_page = int8_pages_at_bytes(cfg, pages, ps)
+    ratio = pages8 / pages
+    log(f"21a: {pages} {str(cfg.dtype).removeprefix('torch.')} pages of "
+        f"{fp_page} bytes = {pages * fp_page} bytes; int8 pages of "
+        f"{q8_page} bytes (scales included) in those bytes: {pages8} "
+        f"({pages8 * q8_page} bytes), {ratio:.4f} x the pages")
+    assert ratio >= INT8_CAPACITY_RATIO, ratio
+    here = MainServer(model_config, dict(engine_config, kv_dtype="int8",
+                                         total_pages=pages8, params=params))
+    srv, eng = here.srv, here.srv.engine
+    assert eng.kv["k"].dtype == torch.int8 and len(eng.kv) == 4
+    reqs, hit_req = main_requests(cfg.vocab_size, eng.prefill_chunk)
+    try:
+        t0 = time.monotonic()
+        streams = here.answer()
+        wave_hit_s = time.monotonic() - t0
+        hit_s = streams["e2e_s"][len(reqs)]
+        again, busy = profile_device(lambda: srv(hit_req), eng.device,
+                                     hit_s * 1e3, focus=("ragged",))
+        assert again["token_ids"] == streams["hit"]
+        srv.check_health()
+    finally:
+        srv.shutdown()
+    launches = dict(tpa.launch_counts)
+    expected = engine_launches_expected(eng)
+    n8 = launches["ragged_paged_attention_int8"]
+    log(f"21a: wave and hit in {wave_hit_s:.2f} s (phase 4: wave "
+        f"{main_streams.get('wave_s', float('nan')):.2f} s, hit "
+        f"{main_streams.get('hit_ms', float('nan')):.1f} ms), the hit alone "
+        f"{hit_s * 1e3:.1f} ms; the same request under the profiler: "
+        f"{busy}")
+    log(f"21a: ragged launches {launches['ragged_paged_attention']}, on "
+        f"int8 pools {n8}, expected n_layers x (ragged dispatches + "
+        f"decode_chunk x decode dispatches) = {expected}; phase 4's "
+        f"{main_launches}")
+    assert n8 == launches["ragged_paged_attention"] == expected, \
+        (launches, expected)
+    assert launches["ragged_paged_attention_reference_cuda"] == 0
+    prompts = [p for _, p, _ in reqs] + [hit_req["prompt_ids"]]
+    live = live_pool_check(eng, prompts)
+    del here, srv, eng
+    pairs = list(zip(prompts, streams["wave"] + [streams["hit"]],
+                     main_streams["wave"] + [main_streams["hit"]]))
+    compared, total, parted = hold_streams(
+        "21a int8 against phase 4's bf16", pairs[:len(reqs)], params, cfg)
+    hc, ht, _ = hold_streams("21a int8 against phase 4's bf16 (the hit)",
+                             pairs[len(reqs):], params, cfg)
+    log(f"21a: int8 streams against phase 4's bf16 streams: {compared} of "
+        f"the wave's {total} tokens compared equal before a parting "
+        f"({len(parted)} of {len(reqs)} streams part), the hit {hc} of "
+        f"{ht}")
+    assert 2 * compared > total, (compared, total)
+    return {"streams": streams, "launches": n8, "pages": pages8,
+            "live_err": live[1]}
+
+
+def phase_cow(params, cfg, engine_config, launches):
+    """21b: after the request that publishes phase 4's 256-token prefix
+    (16 whole pages), a request whose prompt is exactly that prefix: the
+    match caps at 255 tokens, so the engine copies the last shared page
+    (``copy_page``) and recomputes its slot 15. ``cow_copies`` rises by
+    one; right after the copy the two pages are equal in every layer
+    (pages, and scales of int8 pools), and after the request their slots
+    0-14 still are, bit for bit; the stream equals, under
+    ``hold_streams``' rule, the same prompt's on an engine with
+    ``prefix_cache=False``. -> the stream."""
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    reqs, _ = main_requests(cfg.vocab_size, engine_config["prefill_chunk"])
+    publisher, n_pub = reqs[1][1], reqs[1][2]
+    prefix = publisher[:256]
+    eng = InferenceEngine(cfg, params, **engine_config)
+    counted_run(eng, [(publisher, n_pub)], launches)
+    copies = []
+    inner = eng._fns.copy_page
+
+    def copy_page(kv, src, dst):
+        out = inner(kv, src, dst)
+        copies.append((src, dst, all(torch.equal(t[:, dst], t[:, src])
+                                     for t in kv.values())))
+        return out
+    eng._fns.copy_page = copy_page
+    cow0, cached0 = eng.stats["cow_copies"], eng.stats["cached_tokens"]
+    (got,) = counted_run(eng, [(prefix, PRESSURE_TOKENS)], launches)
+    assert eng.stats["cow_copies"] == cow0 + 1, eng.stats
+    assert eng.stats["cached_tokens"] - cached0 == len(prefix) - 1
+    assert len(copies) == 1 and copies[0][2], copies
+    src, dst, _ = copies[0]
+    assert src == cached_pages(eng, prefix)[-1], (src, dst)
+    slots = all(torch.equal(t[:, dst, :, :15], t[:, src, :, :15])
+                for t in eng.kv.values())
+    assert slots, "the copy's slots 0-14 moved"
+    leaves = sorted(eng.kv)
+    del eng
+    ref = InferenceEngine(cfg, params, **dict(engine_config,
+                                              prefix_cache=False))
+    (want,) = counted_run(ref, [(prefix, PRESSURE_TOKENS)], launches)
+    del ref
+    kv = kv_label(cfg, engine_config)
+    compared, total, parted = hold_streams(
+        f"21b {kv} COW against no prefix cache", [(prefix, got, want)],
+        params, cfg)
+    log(f"21b ({kv} pools, {engine_config['total_pages']} pages): "
+        f"cow_copies +1 (page {src} -> {dst}), the copy equal to its source "
+        f"in all {cfg.n_layers} layers ({', '.join(leaves)}) and its slots "
+        f"0-14 still after the request; the stream against prefix_cache="
+        f"False: {compared} of {total} tokens equal"
+        + (f", parts at step {parted[0][1]}" if parted else ""))
+    return got
+
+
+def kv_label(cfg, engine_config):
+    """The pool's storage: "int8", or the model's dtype."""
+    return "int8" if engine_config.get("kv_dtype") == "int8" else \
+        str(cfg.dtype).removeprefix("torch.")
+
+
+def phase_evict(params, cfg, engine_config, wave, launches):
+    """21c: phase 4's wave on a pool of EVICT_PAGES, then a prompt of
+    EVICT_PROMPT tokens that only fits once the wave's unreferenced cached
+    pages are evicted: ``prefix.evictions`` rises; its stream equals the
+    same request's on the full pool, and the wave's streams the
+    uncontended ``wave``'s, under ``hold_streams``' rule."""
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    reqs, _ = main_requests(cfg.vocab_size, engine_config["prefill_chunk"])
+    long = _prompt(7, EVICT_PROMPT, cfg.vocab_size)
+    kv = kv_label(cfg, engine_config)
+    eng = InferenceEngine(cfg, params, **dict(engine_config,
+                                              total_pages=EVICT_PAGES))
+    got_wave = counted_run(eng, [(p, n) for _, p, n in reqs], launches)
+    free, cached = eng.allocator.num_free, eng.prefix.num_evictable
+    need = -(-(len(long) + 1) // eng.page_size)
+    assert need > free, (need, free)
+    ev0 = eng.prefix.evictions
+    (got,) = counted_run(eng, [(long, PRESSURE_TOKENS)], launches)
+    evictions = eng.prefix.evictions - ev0
+    assert evictions >= need - free >= 1, (evictions, need, free)
+    del eng
+    ref = InferenceEngine(cfg, params, **engine_config)
+    (want,) = counted_run(ref, [(long, PRESSURE_TOKENS)], launches)
+    del ref
+    c, t, parted = hold_streams(f"21c {kv} long prompt after evictions",
+                                [(long, got, want)], params, cfg)
+    wc, wt, wparted = hold_streams(
+        f"21c {kv} wave on {EVICT_PAGES} pages",
+        [(p, a, b) for (_, p, _), a, b in zip(reqs, got_wave, wave)],
+        params, cfg)
+    log(f"21c ({kv} pools, {EVICT_PAGES} pages): after the wave {free} "
+        f"pages free and {cached} cached and unreferenced; the "
+        f"{len(long)}-token prompt needs {need}: {evictions} evictions, its "
+        f"stream against the {engine_config['total_pages']}-page pool's: "
+        f"{c} of {t} tokens equal; the wave against the uncontended run: "
+        f"{wc} of {wt} ({len(wparted)} streams part)")
+    return evictions
+
+
+def phase_preempt(params, cfg, engine_config, wave, launches):
+    """21d: phase 4's wave on a pool of PREEMPT_PAGES, which its decode
+    outgrows: ``preemptions`` at least 1, no request finished "evict"
+    (``PREEMPT_CAP``), the flight recorder's records holding each preempt
+    and a stall before it, the ``llm_preemptions_total`` gauge equal to
+    the stat after a forced update, every stream equal to the uncontended
+    ``wave``'s under ``hold_streams``' rule. Pages a preemption or an
+    eviction frees go to another sequence only in the host code of a
+    later step, after the readback that ended the dispatch which read
+    them, and every dispatch runs on the one stream in order, so no freed
+    page is written before its last reader has run (a stream that read a
+    page rewritten early would part at a clear margin)."""
+    from ray_tpu_torch.llm.engine import InferenceEngine
+    from ray_tpu_torch.util import metrics
+    reqs, _ = main_requests(cfg.vocab_size, engine_config["prefill_chunk"])
+    kv = kv_label(cfg, engine_config)
+    eng = InferenceEngine(cfg, params, **dict(engine_config,
+                                              total_pages=PREEMPT_PAGES))
+    rids0 = set(eng.request_log._records) if eng.request_log else set()
+    got = counted_run(eng, [(p, n) for _, p, n in reqs], launches)
+    n_pre = eng.stats["preemptions"]
+    assert n_pre >= 1, eng.stats
+    recs = [r for rid, r in eng.request_log._records.items()
+            if rid not in rids0]
+    reasons = [r.finish_reason for r in recs]
+    assert "evict" not in reasons and len(recs) == len(reqs), reasons
+    assert sum(len(r.preempt_ts) for r in recs) == n_pre
+    assert all(r.stalls >= len(r.preempt_ts) for r in recs)
+    eng._update_metrics(force=True)
+    gauge = metrics.snapshot()["llm_preemptions_total"]["values"][()]
+    assert gauge == n_pre, (gauge, n_pre)
+    del eng
+    c, t, parted = hold_streams(
+        f"21d {kv} wave with preemptions",
+        [(p, a, b) for (_, p, _), a, b in zip(reqs, got, wave)], params, cfg)
+    log(f"21d ({kv} pools, {PREEMPT_PAGES} pages): {n_pre} preemptions "
+        f"(per request {[len(r.preempt_ts) for r in recs]}, stalls "
+        f"{[r.stalls for r in recs]}), finish reasons {reasons}, gauge "
+        f"llm_preemptions_total {gauge}; the wave against the uncontended "
+        f"run: {c} of {t} tokens equal ({len(parted)} streams part)")
+    return n_pre
+
+
+def phase_pressure(main_streams, main_launches, model_config=None,
+                   engine_config=None, card=""):
+    """Phase 21: the engine under memory pressure at Llama-3-8B widths,
+    all 32 layers, phase 4's weights drawn once from seed 0 and handed to
+    every engine (``InferenceEngine(cfg, params)``, no copy): 21a int8
+    pools at phase 4's traffic (``phase_int8_serving``); then for bf16
+    and int8 pools 21b copy-on-write (``phase_cow``), 21c eviction
+    (``phase_evict``), 21d recompute preemption (``phase_preempt``); 21e
+    phase 17a's tp=2 server on one card with int8 pools, held against
+    21a's streams by TP_MARGIN_FLOOR's rule, its launches twice 21a's.
+    Nothing is cut. -> {"launches": the ragged launches of the phase's
+    engines, "max_abs_err": the live-pool check's}."""
+    from ray_tpu_torch.llm.serve_llm import model_config_from_dict
+    from ray_tpu_torch.models.llama import init_params
+    t_phase = time.monotonic()
+    model_config = model_config or MAIN_MODEL
+    engine_config = dict(engine_config or MAIN_ENGINE)
+    engine_config.setdefault("prefill_chunk", 512)
+    cfg = model_config_from_dict(model_config)
+    t0 = time.monotonic()
+    params = init_params(cfg, engine_config["seed"],
+                         engine_config.get("device", "cuda"))
+    log(f"21: {cfg.n_layers} layers dim {cfg.dim}, weights drawn once from "
+        f"seed {engine_config['seed']} in {time.monotonic() - t0:.1f} s")
+    a = phase_int8_serving(params, main_streams, main_launches,
+                           model_config, engine_config)
+    launches = {"ragged": a["launches"]}
+    waves = {"model": main_streams["wave"], "int8": a["streams"]["wave"]}
+    for kv, pages in (("model", engine_config["total_pages"]),
+                      ("int8", a["pages"])):
+        ec = dict(engine_config, kv_dtype=kv, total_pages=pages)
+        phase_cow(params, cfg, ec, launches)
+        phase_evict(params, cfg, ec, waves[kv], launches)
+        phase_preempt(params, cfg, ec, waves[kv], launches)
+        free_card()
+    on_card = engine_config.get("device", "cuda") == "cuda"
+    tp = phase_tp_serving(
+        model_config, dict(engine_config, kv_dtype="int8",
+                           total_pages=a["pages"]),
+        main_streams=a["streams"], main_launches=a["launches"],
+        devices=TP_DEVICES if on_card else ("cpu", "cpu"), card=card,
+        params=params, ref="21a")
+    launches["ragged"] += tp["launches"]
+    del params
+    log(f"phase 21: {time.monotonic() - t_phase:.1f} s, ragged launches "
+        f"{launches['ragged']} (21a {a['launches']}, 21e "
+        f"{tp['launches']}); {card}")
+    return {"launches": launches["ragged"], "max_abs_err": a["live_err"]}
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -7181,6 +7668,11 @@ def main():
     multi = phase_multicard(main_streams=main_streams,
                             main_launches=launches["ragged_paged_attention"],
                             main_peak=main_peak, card=card)
+    # the engine under memory pressure: int8 pools at phase 4's traffic,
+    # copy-on-write, eviction and recompute preemption, tp=2 over int8
+    free_card()
+    pressure = phase_pressure(main_streams,
+                              launches["ragged_paged_attention"], card=card)
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -7191,9 +7683,10 @@ def main():
         "replaces": "ray_tpu/ops/paged_attention.py:340",
         "launches": launches["ragged_paged_attention"]
         + tp_serving["launches"] + tp4["launches"] + tracker_launches
-        + ops["launches"] + multi["ragged"],
-        "max_abs_err": max(k["max_abs_err"] for k in [
-            *kern.values(), *kern_bench.values(), *kern_shards]),
+        + ops["launches"] + multi["ragged"] + pressure["launches"],
+        "max_abs_err": max([k["max_abs_err"] for k in [
+            *kern.values(), *kern_bench.values(), *kern_shards]]
+            + [pressure["max_abs_err"]]),
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"]}, {

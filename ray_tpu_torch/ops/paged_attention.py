@@ -61,8 +61,11 @@ from ray_tpu_torch.ops.int8 import KV_SCALE_DTYPE, quantize_kv
 _NEG_INF = float("-inf")
 
 #: kernel launches made by the wrapper, and calls of the plain version on
-#: CUDA tensors (a run that should only use the kernel checks it stays 0)
+#: CUDA tensors (a run that should only use the kernel checks it stays 0);
+#: "ragged_paged_attention_int8" counts the ragged launches on int8 pools
+#: again, apart (they are in "ragged_paged_attention" as well)
 launch_counts = {"ragged_paged_attention": 0,
+                 "ragged_paged_attention_int8": 0,
                  "ragged_paged_attention_reference_cuda": 0,
                  "paged_attention": 0,
                  "paged_attention_reference_cuda": 0}
@@ -365,6 +368,8 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_table, q_start,
         plan.q_blocks, pages_per_split, float(sm_scale))
     if T:
         _count("ragged_paged_attention")
+        if scales:
+            _count("ragged_paged_attention_int8")
     return out
 
 

@@ -234,11 +234,19 @@ class _TaskSubmitter:
             return None
 
     def _request_lease(self) -> None:
+        unserved = False    # a request of this thread recorded demand
         try:
             while not self.backend._closed:
                 with self.lock:
-                    if not self.pending:
-                        return
+                    drained = not self.pending
+                if drained:
+                    if unserved:
+                        # after this thread's last request, on its
+                        # connection: the head retires the demand it
+                        # recorded, as a grant would have
+                        self.backend.head.oneway(
+                            "retire_demand", {"resources": self.resources})
+                    return
                 grant = self._fast_acquire()
                 if grant is not None:
                     lease = _Lease(grant["lease_id"], grant["worker_addr"],
@@ -268,6 +276,9 @@ class _TaskSubmitter:
                 except RpcError:
                     time.sleep(0.2)
                     continue
+                # (a placement group's bundle records no demand)
+                unserved = self.pg is None and bool(
+                    grant.get("infeasible") or grant.get("retry"))
                 if grant.get("infeasible"):
                     # infeasible NOW is the autoscaler's signal to add a
                     # node (the head recorded the demand): keep waiting
@@ -859,6 +870,7 @@ class ClusterBackend:
         # (reference: metrics agent push + TaskEventBuffer→GcsTaskManager)
         from ray_tpu_torch.runtime.events import TaskEventBuffer
         self.event_buffer = TaskEventBuffer()
+        self._telemetry_stop = threading.Event()
         self._telemetry = threading.Thread(target=self._telemetry_loop,
                                            daemon=True,
                                            name=f"{role}-telemetry")
@@ -929,8 +941,10 @@ class ClusterBackend:
     def _telemetry_loop(self) -> None:
         from ray_tpu_torch.core.config import GlobalConfig
         interval = max(GlobalConfig.metrics_export_period_s, 0.1)
-        while not self._closed:
-            time.sleep(interval)
+        # woken by shutdown(), which makes the last flush itself: a flush
+        # from here after it would drain the process's live recorders
+        # (request records, log and profile windows) into a closed head
+        while not self._telemetry_stop.wait(interval):
             self._flush_telemetry()
 
     def _flush_telemetry(self) -> None:
@@ -1568,6 +1582,9 @@ class ClusterBackend:
         if self._closed:
             return
         self._closed = True
+        self._telemetry_stop.set()
+        if threading.current_thread() is not self._telemetry:
+            self._telemetry.join(timeout=10.0)
         self._flush_telemetry()  # last-interval metrics/spans must land
         # stop the flush loop before the final drain: a concurrent drain
         # could split one owner's add/remove pair across two in-flight

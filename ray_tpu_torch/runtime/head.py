@@ -387,6 +387,7 @@ class Head:
             "kv_del": self._h_kv_del,
             "kv_keys": self._h_kv_keys,
             "request_lease": self._h_request_lease,
+            "retire_demand": self._h_retire_demand,
             "release_lease": self._h_release_lease,
             "create_actor": self._h_create_actor,
             "actor_ready": self._h_actor_ready,
@@ -814,6 +815,17 @@ class Head:
             "name": name, "task_id": "", "kind": "sched",
             "start": start, "end": time.time(), "ok": True,
             "worker": "head", "node": "head"})
+
+    def _h_retire_demand(self, p, ctx):
+        """The requester has nothing left pending for this shape (its
+        tasks went to leases it already held): retire the demand its
+        failed requests recorded, which no grant will now pop. Left in
+        place it stays in the autoscaler's window and launches a node for
+        work that is done."""
+        key = (str(ctx.peer), tuple(sorted(p["resources"].items())))
+        with self._lock:
+            self._demand.pop(key, None)
+        return True
 
     def _h_request_lease(self, p, ctx):
         """Grant (node, worker) for a resource shape; None if infeasible now.

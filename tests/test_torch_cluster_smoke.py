@@ -31,3 +31,16 @@ def test_chip_smoke_cluster_phase_on_the_cpu():
     assert out["expected"] > 0 and not any(out["launches"].values())
     assert out["ppo_iterations"] >= 1
     assert not ray_tpu_torch.is_initialized()
+
+
+def test_node_cards_tells_phases_14_and_15_of_one_card_of_several(
+        monkeypatch):
+    """On a machine of several cards the node of phases 14 and 15 is told
+    of one (their checks are of one card); on one card it counts them."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert chip_smoke.node_cards(True, None) == 1
+    assert chip_smoke.node_cards(True, 2) == 2
+    assert chip_smoke.node_cards(False, None) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert chip_smoke.node_cards(True, None) is None

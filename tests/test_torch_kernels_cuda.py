@@ -1157,3 +1157,90 @@ def test_operations_surface_on_the_card(cuda):
     out = chip_smoke.phase_ops_cluster(model, chip_smoke.MAIN_ENGINE,
                                        main_streams=streams)
     assert out["job_launches"] == out["job_expected"] > 0
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+#: Llama-3-8B's attention geometry (32 query / 8 kv heads of 128, pages of
+#: 16) at 2 narrow layers
+GEOMETRY_8B = dict(vocab_size=1024, dim=4096, n_heads=32, n_kv_heads=8,
+                   ffn_dim=1024, n_layers=2, dtype=BF16)
+
+
+@pytest.mark.cuda
+def test_int8_engine_live_pools_through_the_kernel(cuda):
+    """chip_smoke.py 21a's pool check at 8B attention geometry, 2 layers:
+    phase 4's wave and prefix hit on an int8 pool that the engine
+    quantized on write (every ragged launch on int8 pools, as many as the
+    engine's steps), then the kernel against its plain version on those
+    live pools in every layer, each (token, head) within 2^-7 of its
+    row's scale."""
+    cs = _chip_smoke()
+    cfg = LlamaConfig.tiny(**GEOMETRY_8B)
+    eng = InferenceEngine(cfg, kv_dtype="int8",
+                          **dict(cs.MAIN_ENGINE, total_pages=256))
+    assert eng.kv["k"].dtype == I8 and len(eng.kv) == 4
+    reqs, hit = cs.main_requests(cfg.vocab_size, eng.prefill_chunk)
+    launches = {"ragged": 0}
+    cs.counted_run(eng, [(p, n) for _, p, n in reqs], launches)
+    cs.counted_run(eng, [(hit["prompt_ids"], hit["max_tokens"])], launches)
+    assert launches["ragged"] > 0
+    worst, err = cs.live_pool_check(
+        eng, [p for _, p, _ in reqs] + [hit["prompt_ids"]])
+    assert worst <= 1 and err > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_copy_page_on_the_card_is_exact(cuda, kv_dtype):
+    """``copy_page`` (the engine's copy-on-write) on pools on the card:
+    the destination page equal to the source's to the bit in every layer,
+    pages and int8 scales, and every other page untouched."""
+    from ray_tpu_torch.llm import model as tmodel
+    from ray_tpu_torch.llm.cache import make_kv_cache
+    cfg = LlamaConfig.tiny(**GEOMETRY_8B)
+    kv = make_kv_cache(cfg, 8, 16, kv_dtype=kv_dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for t in kv.values():
+        if t.dtype == I8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=cuda, dtype=I8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    before = {k: t.clone() for k, t in kv.items()}
+    assert tmodel.copy_page(kv, 3, 5) is kv
+    torch.cuda.synchronize()
+    others = [p for p in range(8) if p != 5]
+    for name, t in kv.items():
+        assert torch.equal(t[:, 5], before[name][:, 3]), name
+        assert torch.equal(t[:, others], before[name][:, others]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_cow_eviction_and_preemption_on_the_card(cuda, kv_dtype):
+    """chip_smoke.py's 21b-21d at 8B attention geometry, 2 layers: a
+    copy-on-write equal to its source to the bit, a long prompt admitted
+    by evicting cached pages, and the wave preempted and recomputed, each
+    stream against its uncontended run under phase 21's margin rule, each
+    engine's launches its step count."""
+    cs = _chip_smoke()
+    from ray_tpu_torch.models.llama import init_params
+    cfg = LlamaConfig.tiny(**GEOMETRY_8B)
+    params = init_params(cfg, 0, cuda)
+    base = dict(cs.MAIN_ENGINE, prefill_chunk=512, kv_dtype=kv_dtype)
+    reqs, _ = cs.main_requests(cfg.vocab_size, 512)
+    launches = {"ragged": 0}
+    wave = cs.counted_run(InferenceEngine(cfg, params, **base),
+                          [(p, n) for _, p, n in reqs], launches)
+    cs.phase_cow(params, cfg, base, launches)
+    assert cs.phase_evict(params, cfg, base, wave, launches) >= 1
+    assert cs.phase_preempt(params, cfg, base, wave, launches) >= 1
+    assert tpa.launch_counts["ragged_paged_attention_reference_cuda"] == 0
