@@ -338,7 +338,29 @@ result line is printed):
      uncontended run's; 21e. phase 17a's tp=2 server over int8 pools on
      the one card, held against 21a by TP_MARGIN_FLOOR's rule, its int8
      launches twice 21a's. Every stream comparison under the margin rule,
-     every engine's launches its step count.
+     every engine's launches its step count;
+ 22. the runtime's failures with card workers: 22a phase 4's server as a
+     named detached ``num_gpus=1`` actor behind a head started with a
+     persist path, the head SIGKILLed and restarted on its address, the
+     node re-registering and handing the actor over: its streams equal
+     before and after and to phase 4's, its launches its steps, a second
+     card actor pending until the survivor's kill, the card's memory
+     back; 22d (while 22a serves, profiles on) the worker's
+     gpu_memory_used_bytes at the head within three export periods and
+     equal to its memory_allocated at a quiet point, a print with its pid
+     at the driver, the methods' spans under one trace, a burst capture
+     naming a step function; 22b a card task's flash forward (phase 6's
+     shape) rebuilt through lineage after its primary is deleted, equal
+     to the bit and within flash's limit of the plain version, puts past
+     an arena of 2.5 outputs spilled and read back, a spilled output as a
+     card task's argument, a spilled output rebuilt after its spill file
+     is deleted; 22c a per-worker RSS cap above the card worker's RSS
+     measured in 22b: a hog's OutOfMemoryError, the card's memory and GPU
+     back, the cause in the journal, the retry on the card, an actor's
+     worker_death then actor_restarting under one trace id; 22e (two
+     cards) tests/test_train_straggler.py's program a rank a card, a
+     flash forward and backward a step: one train_straggler event naming
+     host 1, the skew gauges.
 Each phase from 12 on prints its time, and the script its whole time.
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3233,6 +3255,29 @@ class MainServer:
         out["hit"] = srv(hit_req)["token_ids"]
         out["e2e_s"][len(reqs)] = time.monotonic() - t
         return out
+
+    def identity(self):
+        """-> pid, runtime worker id, and the bytes torch has allocated on
+        the card (0 before the engine touched it)."""
+        import os
+        import ray_tpu_torch as rt
+        return {"pid": os.getpid(),
+                "worker": rt.get_runtime_context().worker_id.hex(),
+                "allocated": torch.cuda.memory_allocated()
+                if torch.cuda.is_initialized() else 0}
+
+    def say(self, text):
+        """Print ``text`` in this process (its stdout is the runtime's)."""
+        print(text, flush=True)
+        return len(text)
+
+    def forget_prefixes(self):
+        """Drop every cached prefix page (none is in use between waves),
+        so that phase 4's requests run again as on a fresh engine: -> the
+        pages freed."""
+        eng = self.srv.engine
+        with self.srv._lock:
+            return eng.prefix.evict(eng.prefix.num_cached)
 
     def one(self, prompt, max_tokens):
         """One request through ``__call__``: -> its tokens."""
@@ -7493,6 +7538,838 @@ def phase_pressure(main_streams, main_launches, model_config=None,
     return {"launches": launches["ragged"], "max_abs_err": a["live_err"]}
 
 
+
+# ---------------------- phase 22: the runtime's failures with card workers
+
+#: phase 22's clusters: telemetry periods short enough that a reading
+#: lands within a second or two, the stack sampler on, and an arena no
+#: large object of 22a crosses
+FAULTS_CONFIG = {"metrics_export_period_s": 1.0, "hw_sampler_period_s": 0.5,
+                 "profile_enabled": True,
+                 "object_store_memory_bytes": 256 << 20}
+FAULTS_CPUS = 4
+#: 22a: the named detached server, and the actor that waits for its card
+SURVIVOR_NAME = "faults-llm8b"
+PENDING_NAME = "faults-pending"
+#: the bounds phase 22 holds the runtime to, in seconds: the restarted
+#: head's node re-registration; a card lease placed after its holder ended;
+#: a card's memory returned, and its GPU back in the head's books, after
+#: its worker's end
+REREGISTER_BOUND_S = 30.0
+LEASE_BOUND_S = 60.0
+MEMORY_BOUND_S = 30.0
+#: 22d: the worker's gpu_memory_used_bytes must reach the head within this
+#: many export periods of the engine's construction; the burst capture of
+#: the serving worker, and the top frames (by cumulative samples) of its
+#: engine thread that must name a step function
+GAUGE_PERIODS = 3
+BURST = {"seconds": 1.0, "hz": 99.0}
+PROFILE_TOP = 12
+STEP_FUNCTIONS = ("ragged_step", "ragged_decode_loop", "decode_loop")
+#: 22b: the seed of the flash output's q, k, v; the arena holds 2.5 of its
+#: outputs ("under three")
+FAULT_FLASH_SEED = 22
+#: 22c: the per-worker cap above the card worker's host RSS measured in
+#: 22b, and the ballast a hog holds beyond the cap
+OOM_HEADROOM_BYTES = 1 << 30
+OOM_BALLAST_BYTES = 512 << 20
+#: 22e: tests/test_train_straggler.py's program: rank 1's report sleeps
+#: this long; each rank's step sleeps the fast time, then runs flash
+#: forward and backward at STRAGGLER_QKV (B, L, H, D), for run_s
+STRAGGLER_SLEEP_S = 0.4
+STRAGGLER_FAST_S = 0.05
+STRAGGLER_RUN_S = 6.0
+STRAGGLER_QKV = (1, 256, 8, 128)
+
+
+def rss_bytes():
+    """This process's resident set, from /proc."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def fault_record(path, **fields):
+    """Append one JSON line for this card task execution to ``path``: the
+    fields, its pid, runtime worker id, CUDA_VISIBLE_DEVICES and RSS."""
+    import os
+    import ray_tpu_torch as rt
+    fields.update(pid=os.getpid(), rss=rss_bytes(),
+                  worker=rt.get_runtime_context().worker_id.hex(),
+                  visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+    with open(path, "a") as f:
+        f.write(json.dumps(fields) + "\n")
+
+
+def read_records(path):
+    """The lines ``fault_record`` appended to ``path``, in order."""
+    try:
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+    except FileNotFoundError:
+        return []
+
+
+def fault_flash_inputs(shape, dtype, device):
+    """q, k, v [B, L, H, D] of ``shape`` (B, H, L, D) from FAULT_FLASH_SEED
+    on ``device``: the same values in every process of one device type."""
+    B, H, L, D = shape
+    g = torch.Generator(device=device).manual_seed(FAULT_FLASH_SEED)
+    return [torch.randn(B, L, H, D, generator=g, device=device).to(dtype)
+            for _ in range(3)]
+
+
+def card_flash(shape, dtype, device, record, what):
+    """In a card worker: the flash forward on ``fault_flash_inputs``, one
+    line in ``record`` (its launches counted from before the call, the RSS
+    after the kernel library's load and the launch); -> {"o", "lse"} on
+    the device (they cross as host bytes)."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    dev = torch.device(device)
+    before = dict(tfa.launch_counts)
+    q, k, v = fault_flash_inputs(shape, dtype, dev)
+    o, lse = tfa.flash_attention_block(q, k, v, causal=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    fault_record(record, what=what, device=dev.type,
+                 name=torch.cuda.get_device_name(0) if dev.type == "cuda"
+                 else "cpu",
+                 launches={n: tfa.launch_counts[n] - before[n]
+                           for n in before})
+    return {"o": o, "lse": lse}
+
+
+def card_digest(x, device):
+    """In a card worker: ``x`` through the card and back: -> the sha256 of
+    its bytes and the device it visited."""
+    import hashlib
+    y = x.to(torch.device(device)).cpu().contiguous()
+    return hashlib.sha256(y.view(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest(), str(x.to(device).device)
+
+
+def card_hog(shape, dtype, device, record, ballast_bytes, marker=None):
+    """In a card worker: the flash forward, then ``ballast_bytes`` of host
+    memory held for a minute (the memory monitor kills the worker before).
+    With ``marker``, only the attempt that finds no marker file hogs (it
+    leaves one): a retry returns the flash output."""
+    import os
+
+    import numpy as np
+    hog = marker is None or not os.path.exists(marker)
+    if marker is not None and hog:
+        open(marker, "w").close()
+    out = card_flash(shape, dtype, device, record, "hog" if hog else "retry")
+    if not hog:
+        return out
+    ballast = np.ones(ballast_bytes // 8)
+    time.sleep(60)
+    return int(ballast.nbytes)
+
+
+class CardHog:
+    """22c's actor (``num_gpus=1, max_restarts=1``): ``hog`` is
+    ``card_hog`` in the actor's worker."""
+
+    def __init__(self, shape, dtype, device, record):
+        self.args = (shape, dtype, device, record)
+
+    def pid(self):
+        import os
+        return os.getpid()
+
+    def hog(self, ballast_bytes):
+        return card_hog(*self.args, ballast_bytes)
+
+
+def flash_against_plain(out, shape, dtype, device):
+    """The card task's {"o", "lse"} against the plain flash forward on the
+    same inputs on ``device``, flash's per-row limit: -> the worst ratio."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    q, k, v = fault_flash_inputs(shape, dtype, device)
+    B, H, L, D = shape
+    o_ref, lse_ref = tfa._fwd_reference(tfa._bhl(q), tfa._bhl(k),
+                                        tfa._bhl(v), True, D ** -0.5)
+    o = tfa._bhl(out["o"].to(device))
+    ratio = flash_ratios(o, o_ref).max().item()
+    lse_err = (out["lse"].to(device).reshape(B * H, L) - lse_ref) \
+        .abs().max().item()
+    assert torch.isfinite(o).all() and ratio <= 1, ratio
+    assert lse_err <= LSE_ATOL, lse_err
+    return ratio
+
+
+def same_output(a, b):
+    """Two {"o", "lse"} equal to the bit."""
+    return all(same_bytes(a[n].cpu(), b[n]) for n in ("o", "lse"))
+
+
+def wait_alive_nodes(address, n, timeout):
+    """Wait until the head at ``address`` lists ``n`` live nodes: -> the
+    seconds it took."""
+    from ray_tpu_torch.runtime.protocol import RpcClient, RpcError
+    c = RpcClient(address, name="faults-probe")
+
+    def alive():
+        try:
+            return sum(x["alive"] for x in c.call("list_nodes",
+                                                  timeout=2)) >= n
+        except RpcError:
+            return False
+
+    try:
+        return poll(f"{n} live nodes at {address}", alive, timeout,
+                    period=0.05)[1]
+    finally:
+        c.close()
+
+
+class LineTap:
+    """A write-through tap on a text stream that keeps the lines holding
+    ``needle`` (22d reads the driver's stdout)."""
+
+    def __init__(self, stream, needle):
+        self.stream, self.needle, self.lines = stream, needle, []
+
+    def write(self, text):
+        self.lines += [ln for ln in text.splitlines() if self.needle in ln]
+        return self.stream.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
+def stop_procs(*procs):
+    """Terminate daemons this phase started, and wait for their end."""
+    for proc in procs:
+        if proc is None or proc.poll() is not None:
+            continue
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def free_memory(cuda):
+    """The card's free bytes (``mem_get_info``), or None off the card."""
+    return torch.cuda.mem_get_info()[0] if cuda else None
+
+
+def memory_back(cuda, before):
+    """Wait until the card's free memory is back within
+    MEMORY_RETURN_SLACK of ``before``: -> (free bytes, seconds)."""
+    if not cuda:
+        return None, 0.0
+    return poll("the card's memory back",
+                 lambda: (f := free_memory(True))
+                 >= before - MEMORY_RETURN_SLACK and f,
+                 MEMORY_BOUND_S)
+
+
+def phase_head_restart(model_config=None, engine_config=None,
+                       main_streams=None, num_gpus=None, card=""):
+    """22a and 22d: phase 4's server (``MainServer``, ``num_gpus=1``,
+    named and detached) behind a head started with a persist path
+    (``start_head``) and a node told of its card, the driver connected by
+    address. 22d, while it answers phase 4's requests under one ambient
+    trace: the worker's ``gpu_memory_used_bytes`` reaches the head within
+    GAUGE_PERIODS export periods of the engine's construction and agrees
+    with the worker's own ``memory_allocated`` at a quiet point, a print in
+    the actor reaches the driver with its pid, the timeline holds the
+    methods' spans under that trace, and a burst capture of the worker
+    names a step function among its engine thread's top frames. 22a: the
+    head SIGKILLed and restarted at its address on the same persist path;
+    the node re-registers and hands the actor over; ``get_actor`` resolves
+    it and it answers phase 4's requests again (its prefix cache dropped
+    first) with its streams phase 4's and its ragged launches the engine's
+    steps; a second ``num_gpus=1`` actor stays pending while the survivor
+    lives, and after its kill gets the card within LEASE_BOUND_S, the card's
+    memory back. -> {"launches": the survivor's ragged launches}."""
+    import os
+    import signal
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.config import GlobalConfig, reset_to_defaults
+    from ray_tpu_torch.core.worker import global_worker
+    from ray_tpu_torch.runtime.cluster_backend import start_head, start_node
+    from ray_tpu_torch.util import stack_profiler as sp
+    from ray_tpu_torch.util import state as state_api
+    from ray_tpu_torch.util import trace_context
+    model_config = model_config or MAIN_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    cuda = engine_config.get("device", "cuda") == "cuda"
+    t_phase = time.monotonic()
+    period = FAULTS_CONFIG["metrics_export_period_s"]
+    tmp = Path(tempfile.mkdtemp(prefix="phase22a-"))
+    persist = str(tmp / "head.pkl")
+    session = "faults" + os.urandom(3).hex()
+    resources = {"CPU": float(FAULTS_CPUS)}
+    gpus = node_cards(cuda, num_gpus)
+    if gpus is not None:
+        resources["GPU"] = float(gpus)
+    # the daemons take this process's settings: a fresh table, as init()
+    # makes, with phase 22's over it (the restarted head reads the table
+    # init() leaves, the same)
+    reset_to_defaults()
+    GlobalConfig.apply(FAULTS_CONFIG)
+    head, address = start_head(session, persist_path=persist)
+    node = start_node(address, session, resources=resources)
+    port = int(address.rsplit(":", 1)[1])
+    head2 = None
+    out = {}
+    try:
+        wait_alive_nodes(address, 1, REREGISTER_BOUND_S)
+        rt.init(address=address, _system_config=FAULTS_CONFIG)
+        backend = global_worker.backend
+        assert rt.cluster_resources().get("GPU") == 1.0, \
+            rt.cluster_resources()
+        free_before = free_memory(cuda)
+        server_cls = rt.remote(num_gpus=1)(MainServer)
+        t0 = time.monotonic()
+        a = server_cls.options(name=SURVIVOR_NAME,
+                               lifetime="detached").remote(
+            model_config, engine_config)
+        where = rt.get(a.where.remote(), timeout=600)
+        built = time.time()
+        create_s = time.monotonic() - t0
+        ident = rt.get(a.identity.remote(), timeout=60)
+        wid12 = ident["worker"][:12]
+        log(f"22a: the server actor built in {create_s:.2f} s (its "
+            f"construction {where['build_s']:.2f} s), pid {where['pid']}, "
+            f"CUDA_VISIBLE_DEVICES {where['visible']!r}; head pid "
+            f"{head.pid}, node pid {node.pid}, persist path {persist}")
+        assert where["visible"] == "0", where
+
+        # 22d: the hw gauge from the serving worker
+        def gauge(since):
+            for s in backend.head.call("timeseries_dump", {
+                    "metric": "gpu_memory_used_bytes"}, timeout=10):
+                if s["tags"].get("worker") == wid12:
+                    pts = [p for p in s["points"] if p[0] >= since]
+                    if pts:
+                        return pts[-1]
+            return None
+
+        if cuda:
+            _, gauge_s = poll(
+                "the worker's gpu_memory_used_bytes at the head",
+                lambda: gauge(built - period), GAUGE_PERIODS * period,
+                period=0.05)
+            log(f"22d: the serving worker's gpu_memory_used_bytes reached "
+                f"the head {gauge_s:.2f} s after its construction returned "
+                f"(bound {GAUGE_PERIODS} export periods of {period} s)")
+        # 22d: a print, the method spans under one trace, a burst capture
+        trace_id = trace_context.new_trace_id()
+        token = trace_context.activate(trace_id, trace_context.new_span_id())
+        marker = f"faults-22d-{os.urandom(4).hex()}"
+        tap = LineTap(sys.stdout, marker)
+        sys.stdout = tap
+        try:
+            rt.get(a.say.remote(marker), timeout=60)
+            pending = a.answer.remote()
+            time.sleep(0.3)
+            burst = backend.head.call("profiles_record", dict(
+                BURST, role="worker", worker=wid12),
+                timeout=BURST["seconds"] + 60)
+            got = rt.get(pending, timeout=900)
+            launches, expected, _ = rt.get(a.counts.remote(), timeout=60)
+            poll("the actor's print at the driver", lambda: tap.lines, 30)
+        finally:
+            sys.stdout = tap.stream
+            trace_context.deactivate(token)
+        check_streams(got, main_streams)
+        assert launches["ragged_paged_attention"] == (
+            expected if cuda else 0), (launches, expected)
+        assert launches["ragged_paged_attention_reference_cuda"] == 0
+        line = tap.lines[0]
+        assert f"pid={where['pid']}" in line, line
+
+        def traced():
+            names = {e["name"].rsplit(".", 1)[-1] for e in backend.head.call(
+                "timeline_dump", timeout=10)
+                if e.get("trace_id") == trace_id}
+            return names if {"say", "answer", "counts"} <= names else None
+
+        spans, spans_s = poll(
+            "the server's method spans under the driver's trace", traced,
+            10 * period)
+        procs = [p for p in burst["procs"] if p.get("worker") == wid12]
+        assert procs and procs[0]["samples"] > 0, burst["procs"]
+        stacks = procs[0]["stacks"]
+        engine = {s: n for s, n in stacks.items() if "llm.engine" in s}
+        top = sorted(sp.top_frames(engine, 0), key=lambda r: -r["cum"])
+        names = [r["frame"].rsplit(":", 1)[0] for r in top[:PROFILE_TOP]]
+        assert any(n.startswith("ray_tpu_torch.llm.") and n.rsplit(
+            ".", 1)[-1] in STEP_FUNCTIONS for n in names), names
+        # the gauge against the worker's own reading at a quiet point
+        quiet = rt.get(a.identity.remote(), timeout=60)
+        if cuda:
+            t_quiet = time.time()
+            (_, value), _ = poll(
+                "a gauge sample after the quiet reading",
+                lambda: gauge(t_quiet), GAUGE_PERIODS * period,
+                period=0.05)
+            assert int(value) == quiet["allocated"], (value, quiet)
+            log(f"22d: at a quiet point the gauge reads {int(value)} bytes, "
+                f"equal to the worker's torch.cuda.memory_allocated")
+        log(f"22d: the actor's print reached the driver as {line!r}; "
+            f"spans {sorted(spans)} under trace {trace_id[:12]} "
+            f"({spans_s:.2f} s after the calls); the burst capture "
+            f"({BURST['seconds']} s at {BURST['hz']} Hz) of the serving "
+            f"worker: {procs[0]['samples']} samples, its engine thread's "
+            f"top frames by cumulative samples {names[:6]}; {card}")
+        log(f"22a: before the restart the worker's {len(got['wave']) + 1} "
+            f"streams " + ("equal phase 4's" if main_streams is not None
+                           else "(no phase 4 run to compare)")
+            + f", ragged launches {launches['ragged_paged_attention']} = "
+            f"the engine's steps")
+
+        # 22a: SIGKILL the head mid-workload, restart it on its address
+        t_kill = time.monotonic()
+        os.kill(head.pid, signal.SIGKILL)
+        head.wait(timeout=30)
+        head2, address2 = start_head(session, port=port,
+                                     persist_path=persist)
+        assert address2 == address, (address, address2)
+        wait_alive_nodes(address, 1, REREGISTER_BOUND_S)
+        reg_s = time.monotonic() - t_kill
+
+        def resolve():
+            try:
+                b = rt.get_actor(SURVIVOR_NAME)
+                return b, rt.get(b.identity.remote(), timeout=10)
+            except Exception:  # noqa: BLE001 — not yet reconciled
+                return None
+
+        (b, ident_b), _ = poll("get_actor through the new head", resolve,
+                               REREGISTER_BOUND_S, period=0.2)
+        answer_s = time.monotonic() - t_kill
+        assert ident_b["pid"] == where["pid"], (ident_b, where)
+        freed = rt.get(b.forget_prefixes.remote(), timeout=60)
+        got2 = rt.get(b.answer.remote(), timeout=900)
+        launches2, expected2, _ = rt.get(b.counts.remote(), timeout=60)
+        check_streams(got2, main_streams)
+        assert got2["wave"] == got["wave"] and got2["hit"] == got["hit"], \
+            "the restart moved a token"
+        assert launches2["ragged_paged_attention"] == (
+            expected2 if cuda else 0), (launches2, expected2)
+        assert launches2["ragged_paged_attention_reference_cuda"] == 0
+        assert expected2 == 2 * expected, (expected, expected2)
+        log(f"22a: head SIGKILLed and restarted on {address}: the node "
+            f"re-registered {reg_s:.2f} s after the kill, get_actor "
+            f"resolved the same worker (pid {ident_b['pid']}) and it "
+            f"answered {answer_s:.2f} s after the kill; {freed} cached "
+            f"pages dropped, then its streams equal its first wave's"
+            + (" and phase 4's" if main_streams is not None else "")
+            + f", ragged launches {launches2['ragged_paged_attention']} = "
+            f"the engine's steps ({expected2})")
+
+        # 22a: the card's books survived the re-registration
+        assert rt.available_resources().get("GPU", 0.0) == 0.0, \
+            rt.available_resources()
+        c = server_cls.options(name=PENDING_NAME).remote(
+            model_config, engine_config, build=False)
+        placed = c.where.remote()
+        ready, _ = rt.wait([placed], timeout=3)
+        state = {x["actor_id"]: x["state"] for x in
+                 state_api.list_actors()}.get(c.actor_id.hex())
+        assert ready == [] and state != "ALIVE", (ready, state)
+        t0 = time.monotonic()
+        rt.kill(b)
+        gone_s = wait_gone(where["pid"])
+        c_where = rt.get(placed, timeout=LEASE_BOUND_S)
+        lease_s = time.monotonic() - t0
+        free_after, mem_s = memory_back(cuda, free_before)
+        assert c_where["visible"] == "0" and c_where["pid"] != where["pid"]
+        log(f"22a: a second num_gpus=1 actor stayed pending while the "
+            f"survivor lived (GPU available 0.0, its state {state}); "
+            f"kill -> the survivor's process gone in {gone_s:.2f} s, the "
+            f"pending actor placed "
+            f"{lease_s:.2f} s after the kill (bound {LEASE_BOUND_S} s, pid "
+            f"{c_where['pid']})" + (
+                f"; free device memory {free_before} bytes before the "
+                f"survivor, {free_after} {mem_s:.2f} s after its end"
+                if cuda else "") + f"; {card}")
+        rt.kill(c)
+        out.update(launches=launches2["ragged_paged_attention"],
+                   restart_s=(reg_s, answer_s))
+    finally:
+        rt.shutdown()
+        stop_procs(node, head2, head)
+    log(f"22a, 22d: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def phase_lineage_spill(shape=FLASH_SHAPE, dtype=torch.bfloat16,
+                        device="cuda", num_gpus=None, card=""):
+    """22b: a ``num_gpus=1`` task draws q, k, v from a seeded generator on
+    the card and returns the flash forward's (o, lse) (``card_flash``);
+    its primary copy deleted out of band, ``get`` rebuilds it by running
+    the task again, equal to the bit, and it agrees with the plain version;
+    then in an arena of 2.5 outputs, puts spill and read back equal, a
+    spilled output crosses a card task as its argument, and a spilled task
+    output whose spill file is deleted rebuilds through lineage. Every
+    execution launches the flash forward once. -> {"launches": the flash
+    forward's, "rss": the card workers' largest host RSS}."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.config import GlobalConfig
+    from ray_tpu_torch.core.worker import global_worker
+    from ray_tpu_torch.runtime.object_plane import spill_file_path
+    t_phase = time.monotonic()
+    cuda = device == "cuda"
+    B, H, L, D = shape
+    out_bytes = B * L * H * D * dtype.itemsize
+    arena = 5 * out_bytes // 2
+    record = str(Path(tempfile.mkdtemp(prefix="phase22b-")) / "runs.jsonl")
+    rt.init(num_cpus=FAULTS_CPUS, num_gpus=node_cards(cuda, num_gpus),
+            _system_config={"object_store_memory_bytes": arena})
+    try:
+        store = global_worker.backend.object_plane.store
+        make = rt.remote(num_gpus=1)(card_flash)
+        t0 = time.monotonic()
+        ref_a = make.remote(shape, dtype, device, record, "first")
+        # a private copy: a view of the arena would pin the object there
+        first = {n: t.clone() for n, t in rt.get(ref_a, timeout=600).items()}
+        first_s = time.monotonic() - t0
+        ratio = flash_against_plain(first, shape, dtype, device)
+        key = ref_a.id().binary()
+        assert store.contains(key), "the output is not in the arena"
+        store.release(key)
+        store.delete(key)
+        assert not store.contains(key)
+        t0 = time.monotonic()
+        rebuilt = rt.get(ref_a, timeout=600)
+        rebuild_s = time.monotonic() - t0
+        assert same_output(rebuilt, first), "the rebuilt output differs"
+        del rebuilt
+        # puts past the arena spill to disk and read back equal
+        puts = [rt.put(first["o"]) for _ in range(2)]
+        for ref in puts:
+            assert same_bytes(first["o"], rt.get(ref, timeout=120))
+
+        def spilled(refs):
+            return [r for r in refs if os.path.exists(spill_file_path(
+                GlobalConfig.session_dir, store.name, r.id().hex()))]
+
+        assert spilled(puts), "no put spilled past the arena"
+        digest = rt.remote(num_gpus=1)(card_digest)
+        got, visited = rt.get(digest.remote(spilled(puts)[0], device),
+                              timeout=600)
+        want, _ = card_digest(first["o"], "cpu")
+        assert got == want and visited.startswith(device), (got, visited)
+        # a task's output spilled, its spill file lost
+        ref_b = make.remote(shape, dtype, device, record, "into spill")
+        rt.wait([ref_b], timeout=600)
+        lost = spilled([ref_b, ref_a])
+        assert lost, "no task output spilled past the arena"
+        victim = lost[0]
+        os.unlink(spill_file_path(GlobalConfig.session_dir, store.name,
+                                  victim.id().hex()))
+        vkey = victim.id().binary()
+        if store.contains(vkey):
+            store.release(vkey)
+            store.delete(vkey)
+        t0 = time.monotonic()
+        back = rt.get(victim, timeout=600)
+        spill_rebuild_s = time.monotonic() - t0
+        assert same_output(back, first), "the rebuilt spilled output differs"
+        del back, puts, ref_a, ref_b, victim
+    finally:
+        rt.shutdown()
+    runs = read_records(record)
+    assert [r["what"] for r in runs] == [
+        "first", "first", "into spill", "into spill"], runs
+    for r in runs:
+        assert r["launches"]["flash_attention_fwd"] == (1 if cuda else 0), r
+        assert r["launches"]["flash_attention_fwd_reference_cuda"] == 0, r
+        assert r["visible"] == "0" and r["device"] == device, r
+    launches = sum(r["launches"]["flash_attention_fwd"] for r in runs)
+    rss = max(r["rss"] for r in runs)
+    log(f"22b: the flash output (o {out_bytes} bytes, lse "
+        f"{B * H * L * 4} bytes) of a card task in {first_s:.2f} s, within "
+        f"{ratio:.3f} of flash's limit of the plain version; its primary "
+        f"deleted, get rebuilt it by running the task again in "
+        f"{rebuild_s:.2f} s, equal to the bit; in an arena of {arena} "
+        f"bytes two puts of o read back equal, a spilled one crossed a card "
+        f"task equal (sha256 {got[:12]}), and a spilled task output whose "
+        f"file was deleted rebuilt in {spill_rebuild_s:.2f} s, equal to the "
+        f"bit; {len(runs)} executions, {launches} flash launches; the card "
+        f"workers' host RSS {min(r['rss'] for r in runs)}-{rss} bytes "
+        f"after the kernel; phase 22b {time.monotonic() - t_phase:.1f} s; "
+        f"{card}")
+    return {"launches": launches, "rss": rss}
+
+
+def phase_oom(baseline_rss, shape=FLASH_SHAPE, dtype=torch.bfloat16,
+              device="cuda", num_gpus=None, headroom=OOM_HEADROOM_BYTES,
+              ballast=OOM_BALLAST_BYTES, card=""):
+    """22c: the per-worker cap ``baseline_rss`` (a card worker's host RSS
+    after its kernel, from 22b) plus ``headroom``, polled every 100 ms; a
+    ``num_gpus=1`` task launches the flash forward and then holds host
+    ballast past the cap: with ``max_retries=0`` it raises
+    ``OutOfMemoryError``, the card's memory returns and ``GPU`` is back in
+    the head's books within their bounds, and the journal has the victim's
+    ``worker_death`` with its cause; with ``max_retries=2`` the frugal
+    retry runs on the card and agrees with the plain version; an actor
+    (``max_restarts=1``) killed so gives ``worker_death`` then
+    ``actor_restarting`` under one trace id. -> {"launches": the flash
+    forward's}."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.worker import global_worker
+    from ray_tpu_torch.exceptions import OutOfMemoryError
+    t_phase = time.monotonic()
+    cuda = device == "cuda"
+    limit = baseline_rss + headroom
+    hold = headroom + ballast
+    tmp = Path(tempfile.mkdtemp(prefix="phase22c-"))
+    record = str(tmp / "runs.jsonl")
+    rt.init(num_cpus=FAULTS_CPUS, num_gpus=node_cards(cuda, num_gpus),
+            _system_config={
+                "object_store_memory_bytes":
+                    FAULTS_CONFIG["object_store_memory_bytes"],
+                "worker_memory_limit_bytes": limit,
+                "memory_monitor_refresh_ms": 100})
+    try:
+        head = global_worker.backend.head
+        gpus = rt.cluster_resources()["GPU"]
+        free_before = free_memory(cuda)
+        hog = rt.remote(num_gpus=1, max_retries=0)(card_hog)
+        t0 = time.monotonic()
+        try:
+            rt.get(hog.remote(shape, dtype, device, record, hold),
+                   timeout=300)
+        except OutOfMemoryError as e:
+            kill_s = time.monotonic() - t0
+            cause = str(e).splitlines()[0]
+        else:
+            raise AssertionError("the hog was not OOM-killed")
+        victim = read_records(record)[-1]
+        gone_s = wait_gone(victim["pid"])
+        free_after, mem_s = memory_back(cuda, free_before)
+        _, res_s = poll(
+            "GPU back in the head's books",
+            lambda: rt.available_resources().get("GPU") == gpus,
+            LEASE_BOUND_S)
+
+        def death(worker):
+            return next((e for e in head.call(
+                "events_dump", {"type": "worker_death"}, timeout=10)
+                if e.get("worker_id", "").startswith(worker)), None)
+
+        wd, _ = poll("the victim's worker_death",
+                      lambda: death(victim["worker"]), 30)
+        assert "oom" in wd["exit_cause"], wd
+        log(f"22c: the cap {limit} bytes (the card worker's RSS "
+            f"{baseline_rss} + {headroom}), polled every 100 ms; the hog "
+            f"(flash, then {hold} bytes of ballast) raised "
+            f"OutOfMemoryError {kill_s:.2f} s after submission ({cause!r}); "
+            f"its process gone {gone_s:.2f} s later, GPU back in the books "
+            f"after {res_s:.2f} s (bound {LEASE_BOUND_S} s)" + (
+                f", free device memory {free_before} bytes before, "
+                f"{free_after} {mem_s:.2f} s after its end (bound "
+                f"{MEMORY_BOUND_S} s)" if cuda else "")
+            + f"; the journal's worker_death: {wd['exit_cause']!r}")
+        # the frugal retry waits for the freed card and completes on it
+        flaky = rt.remote(num_gpus=1, max_retries=2)(card_hog)
+        t0 = time.monotonic()
+        out = rt.get(flaky.remote(shape, dtype, device, record, hold,
+                                  marker=str(tmp / "attempted")),
+                     timeout=600)
+        retry_s = time.monotonic() - t0
+        ratio = flash_against_plain(out, shape, dtype, device)
+        del out
+        # an actor killed so: worker_death, then actor_restarting
+        actor = rt.remote(num_gpus=1, max_restarts=1)(CardHog).remote(
+            shape, dtype, device, record)
+        rt.get(actor.pid.remote(), timeout=600)
+        call = actor.hog.remote(hold)
+        with contextlib.suppress(Exception):
+            rt.get(call, timeout=60)
+        hog_line = read_records(record)[-1]
+        aid = actor.actor_id.hex()
+
+        def pair():
+            evs = head.call("events_dump", timeout=10)
+            wds = [e for e in evs if e["type"] == "worker_death"
+                   and e.get("worker_id", "").startswith(hog_line["worker"])]
+            ars = [e for e in evs if e["type"] == "actor_restarting"
+                   and e.get("actor_id") == aid]
+            return (wds[-1], ars[-1]) if wds and ars else None
+
+        (awd, aar), _ = poll("the actor's death -> restart pair", pair, 60)
+        assert "oom" in awd["exit_cause"], awd
+        assert awd["trace_id"] and awd["trace_id"] == aar["trace_id"], \
+            (awd, aar)
+        assert awd["seq"] < aar["seq"], (awd, aar)
+        rt.kill(actor)
+    finally:
+        rt.shutdown()
+    runs = read_records(record)
+    assert [r["what"] for r in runs] == ["hog", "hog", "retry", "hog"], runs
+    retry = runs[2]
+    assert retry["pid"] != runs[1]["pid"] and retry["visible"] == "0" \
+        and retry["device"] == device, runs
+    for r in runs:
+        assert r["launches"]["flash_attention_fwd"] == (1 if cuda else 0), r
+        assert r["launches"]["flash_attention_fwd_reference_cuda"] == 0, r
+    launches = sum(r["launches"]["flash_attention_fwd"] for r in runs)
+    log(f"22c: with max_retries=2 the retry ran on the card "
+        f"({retry['name']}, pid {retry['pid']}) {retry_s:.2f} s after "
+        f"submission, within {ratio:.3f} of flash's limit of the plain "
+        f"version; the actor's worker_death ({awd['exit_cause']!r}, seq "
+        f"{awd['seq']}) then actor_restarting (seq {aar['seq']}) under "
+        f"trace {awd['trace_id'][:12]}; {len(runs)} executions, "
+        f"{launches} flash launches; phase 22c "
+        f"{time.monotonic() - t_phase:.1f} s; {card}")
+    return {"launches": launches}
+
+
+def straggler_loop(cfg):
+    """tests/test_train_straggler.py's rank program with a card's work in
+    each step: sleep, then flash forward and backward; every report
+    carries this rank's flash launches."""
+    import time as _t
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import flash_attention as tfa
+    dev = torch.device(cfg["device"])
+    g = torch.Generator(device=dev).manual_seed(train.get_context()
+                                                .get_rank())
+    q, k, v = (torch.randn(*cfg["qkv"], generator=g, device=dev)
+               .to(cfg["dtype"]).requires_grad_() for _ in range(3))
+    before = dict(tfa.launch_counts)
+    t0 = _t.monotonic()
+    steps = 0
+    while _t.monotonic() - t0 < cfg["run_s"]:
+        _t.sleep(cfg["fast_s"])
+        tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        steps += 1
+        # rank 1's report() entry hits the armed sleep
+        train.report({"ok": 1, "steps": steps, "launches": {
+            n: tfa.launch_counts[n] - before[n] for n in before}})
+
+
+def phase_straggler(cuda=True, card=""):
+    """22e: tests/test_train_straggler.py's program through
+    ``TorchTrainer`` on two cards, a rank a card (``use_gpu``; two gloo
+    CPU ranks with ``cuda`` False), rank 1's reports slowed through the
+    port's fault point: one ``train_straggler`` event naming host 1 under
+    the run's trace, the skew gauges putting host 1 behind by about the
+    sleep, and each step's flash kernels on rank 0. -> {"flash": rank 0's
+    launches by kernel} (None below two cards)."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.core.worker import global_worker
+    from ray_tpu_torch.util import fault_injector as fi
+    if cuda and skip_below(2, "22e"):
+        return None
+    t_phase = time.monotonic()
+    os.environ[fi.ENV_VAR] = f"train.report.rank1=sleep:{STRAGGLER_SLEEP_S}"
+    rt.init(num_cpus=FAULTS_CPUS, num_gpus=2 if cuda else 0,
+            _system_config={
+                "object_store_memory_bytes":
+                    FAULTS_CONFIG["object_store_memory_bytes"],
+                "metrics_export_period_s": 0.2})
+    try:
+        result = train.TorchTrainer(
+            straggler_loop,
+            train_loop_config={"run_s": STRAGGLER_RUN_S,
+                               "fast_s": STRAGGLER_FAST_S,
+                               "qkv": STRAGGLER_QKV,
+                               "device": "cuda" if cuda else "cpu",
+                               "dtype": torch.bfloat16 if cuda
+                               else torch.float32},
+            scaling_config=train.ScalingConfig(num_workers=2,
+                                               use_gpu=cuda),
+            run_config=train.RunConfig(
+                name="straggle",
+                storage_path=tempfile.mkdtemp(prefix="phase22e-"))).fit()
+        assert result.error is None, result.error
+        assert result.metrics["_step"] > 20, result.metrics
+        head = global_worker.backend.head
+        evs, _ = poll("train_straggler at the head", lambda: head.call(
+            "events_dump", {"type": "train_straggler"}, timeout=10), 30,
+            period=0.3)
+        ev = evs[-1]
+        assert ev["host"] == "1" and ev["rank"] == 1, ev
+        assert ev["world_size"] == 2 and ev["trace_id"].startswith(
+            "train:"), ev
+        assert ev["slowdown_factors"]["step"] > 2.0, ev
+        assert len(evs) <= 2, [e["seq"] for e in evs]
+
+        def skew():
+            agg = head.call("metrics_dump", timeout=10) or {}
+            vals = (agg.get("train_phase_skew_s") or {}).get("values", {})
+            return vals if any(k.endswith("|1") for k in vals) else None
+
+        vals, _ = poll("train_phase_skew_s for host 1", skew, 20,
+                        period=0.3)
+    finally:
+        rt.shutdown()
+        os.environ.pop(fi.ENV_VAR, None)
+        fi.reset()
+    host1 = max(v for k, v in vals.items() if k.endswith("|1"))
+    host0 = max([v for k, v in vals.items() if k.endswith("|0")],
+                default=0.0)
+    assert host1 > STRAGGLER_SLEEP_S / 2 and host0 <= host1, vals
+    flash = {n: result.metrics["launches"][n] for n in (
+        "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")}
+    steps = result.metrics["steps"]
+    assert flash == dict.fromkeys(flash, steps if cuda else 0), \
+        (flash, steps)
+    assert result.metrics["launches"][
+        "flash_attention_fwd_reference_cuda"] == 0
+    log(f"22e: one train_straggler event (host {ev['host']}, rank "
+        f"{ev['rank']}, slowdown {ev['slowdown_factors']}, trace "
+        f"{ev['trace_id']}); skew host 1 {host1:.3f} s, host 0 "
+        f"{host0:.3f} s; rank 0 {result.metrics['_step']} reports, flash "
+        f"launches {flash}; phase 22e {time.monotonic() - t_phase:.1f} s; "
+        f"{card}")
+    return {"flash": flash}
+
+
+def phase_runtime_faults(main_streams=None, model_config=None,
+                         engine_config=None, card=""):
+    """Phase 22: the runtime's failures with card workers: 22a and 22d
+    (``phase_head_restart``), 22b (``phase_lineage_spill``), 22c
+    (``phase_oom``, its cap from 22b's RSS) and 22e
+    (``phase_straggler``, two cards). -> the ragged and flash launches."""
+    t_phase = time.monotonic()
+    free_card()
+    a = phase_head_restart(model_config, engine_config,
+                           main_streams=main_streams, card=card)
+    free_card()
+    b = phase_lineage_spill(card=card)
+    free_card()
+    c = phase_oom(b["rss"], card=card)
+    free_card()
+    e = phase_straggler(card=card)
+    flash = dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
+                           "flash_attention_dkv"), 0)
+    flash["flash_attention_fwd"] = b["launches"] + c["launches"]
+    for n, k in (e or {}).get("flash", {}).items():
+        flash[n] += k
+    log(f"phase 22: {time.monotonic() - t_phase:.1f} s, ragged launches "
+        f"{a['launches']}, flash launches {flash}; {card}")
+    return {"ragged": a["launches"], "flash": flash}
+
+
 def main():
     t_script = time.monotonic()
     if not torch.cuda.is_available():
@@ -7673,6 +8550,10 @@ def main():
     free_card()
     pressure = phase_pressure(main_streams,
                               launches["ragged_paged_attention"], card=card)
+    # the runtime's failures with card workers: a head restart under the 8B
+    # server, lineage and spill of a flash output, an OOM kill, the
+    # observability planes on a card worker, a straggler over two cards
+    faults = phase_runtime_faults(main_streams, card=card)
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -7683,7 +8564,8 @@ def main():
         "replaces": "ray_tpu/ops/paged_attention.py:340",
         "launches": launches["ragged_paged_attention"]
         + tp_serving["launches"] + tp4["launches"] + tracker_launches
-        + ops["launches"] + multi["ragged"] + pressure["launches"],
+        + ops["launches"] + multi["ragged"] + pressure["launches"]
+        + faults["ragged"],
         "max_abs_err": max([k["max_abs_err"] for k in [
             *kern.values(), *kern_bench.values(), *kern_shards]]
             + [pressure["max_abs_err"]]),
@@ -7705,7 +8587,7 @@ def main():
         + sum(r[name] for r in tuned_runs)
         + sum(r["launches"][name] for r in ring.values())
         + (dag["launches"] if name == "flash_attention_fwd" else 0)
-        + sum(m[name] for m in multi["flash"]),
+        + sum(m[name] for m in multi["flash"]) + faults["flash"][name],
         **flash[name]}
         for name, src, line in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 91),

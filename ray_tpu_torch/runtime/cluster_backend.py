@@ -1629,11 +1629,29 @@ class ClusterBackend:
 # bootstrap
 
 def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A port no process holds, picked below the kernel's ephemeral range.
+    The port is bound by another process seconds later (a head, a rank
+    0), or again after a head's restart; a port from ``bind(0)`` is one
+    the kernel hands out meanwhile to outgoing connections and other
+    ``bind(0)`` callers, and on a busy host one of them takes it first."""
+    import random
+    low = 32768
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    for _ in range(100):
+        port = random.randrange(max(1024, low // 3), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _wait_ready(address: str, proc: subprocess.Popen, what: str,

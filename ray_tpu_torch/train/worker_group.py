@@ -123,11 +123,8 @@ class WorkerGroup:
         if coordinator is None:
             # free port on this host; fine single-host, override via
             # ScalingConfig.coordinator_address when rank 0 lives elsewhere
-            import socket
-            s = socket.socket()
-            s.bind(("127.0.0.1", 0))
-            coordinator = f"127.0.0.1:{s.getsockname()[1]}"
-            s.close()
+            from ray_tpu_torch.runtime.cluster_backend import _free_port
+            coordinator = f"127.0.0.1:{_free_port()}"
         return {"coordinator": coordinator, "use_gpu": bool(sc.use_gpu)}
 
     def start(self) -> None:
