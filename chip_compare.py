@@ -71,6 +71,18 @@
         ``torch.use_deterministic_algorithms(True)``; each run prints the
         worst leaf and the digests of the card's and the CPU's gradients,
         so a run that moves names the side that moved.
+    python3 chip_compare.py lag PARENT_DIR [PROCESSES]
+        how far a caller of chip_smoke.py's main path trails the flight
+        recorder, for the checkout in PARENT_DIR and for this one, in
+        PROCESSES fresh processes (8 if not given) in turns (parent, this,
+        this, parent, ...) after both have built their kernels. Each runs
+        phase 4 and then four waves at bench_llm.py's widths (phase 4b:
+        the first wave of the process, then three warm ones). Each wave
+        prints every caller timer's lag behind its record, the
+        milliseconds from the engine's drain of a stream's first token to
+        its caller, and the collector's pauses in the wave. First, the
+        host alone: the stalls of a lone thread that reads the clock, and
+        a blocked thread's wake-up.
 
 Both print the card's name and power limit first. Each exits non-zero
 without a CUDA device.
@@ -589,6 +601,202 @@ def compare_mixtral() -> None:
     print("ORACLE_READINGS " + json.dumps(readings), flush=True)
 
 
+# ------------------------------------------------- a caller's lag
+
+
+LAG_PAIR = re.compile(r"main path: request (\d+) .*")
+LAG_TIME = re.compile(r"(TTFT|e2e) record ([\d.]+) ms vs timer ([\d.]+) ms")
+
+
+def _lag_child(waves: int = 4) -> None:
+    """One process of ``lag``, in the checkout on ``sys.path[0]``: phase
+    4, then ``waves`` bench-width waves; prints one line "LAG {json}" a
+    wave."""
+    import gc
+    import chip_smoke as cs
+    from ray_tpu_torch.llm import engine as engine_mod
+    from ray_tpu_torch.llm import serve_llm
+    drains, callers, pauses, lines, servers = {}, {}, [], [], []
+    log = cs.log
+
+    def capture(msg):
+        lines.append(msg)
+        log(msg)
+
+    cs.log = capture
+    started = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.monotonic()
+        else:
+            pauses.append((started["t"], time.monotonic() - started["t"]))
+
+    gc.callbacks.append(on_gc)
+    cls = engine_mod.InferenceEngine
+    drain = cls.drain_progress
+
+    def stamped_drain(self):
+        out = drain(self)
+        now = time.monotonic()
+        for rid, toks in out.items():
+            if toks:
+                drains.setdefault(rid, now)
+        return out
+
+    cls.drain_progress = stamped_drain
+    server_init = serve_llm.LLMServer.__init__
+    stream = serve_llm.LLMServer.stream
+
+    def init(self, *args, **kwargs):
+        server_init(self, *args, **kwargs)
+        servers.append(self)
+
+    def stamped_stream(self, request):
+        for item in stream(self, request):
+            if item.get("token_ids") and not item.get("done"):
+                callers.setdefault(item["request_id"], time.monotonic())
+            yield item
+
+    serve_llm.LLMServer.__init__ = init
+    serve_llm.LLMServer.stream = stamped_stream
+    cs.phase_main_path()
+    cs.free_card()
+    cs.phase_kernel(torch.device("cuda"), cs.BENCH_GEOMETRY)
+    for wave in range(waves):
+        for kept in (drains, callers, lines):
+            kept.clear()
+        del pauses[:]
+        failed = None
+        try:
+            cs.phase_main_path(cs.BENCH_MODEL, cs.BENCH_ENGINE,
+                               launch_stamp_fails=False)
+        except AssertionError as e:
+            failed = str(e)
+        eng = servers[-1].engine
+        recs = [eng.request_log.get(d["rid"])
+                for d in servers[-1].request_records()]
+        t_lo = min(r.t0 for r in recs)
+        t_hi = max(r.t0 + r.finish_ts for r in recs
+                   if r.finish_ts is not None)
+        record_to_drain, drain_to_caller, submit = {}, {}, {}
+        for rid, t_call in callers.items():
+            rec = eng.request_log.get(rid)
+            key = f"{rec.prompt_tokens} prompt tokens"
+            record_to_drain[key] = round(
+                (drains[rid] - rec.t0 - rec.first_ts) * 1e3, 3)
+            drain_to_caller[key] = round((t_call - drains[rid]) * 1e3, 3)
+            # the caller's timer less the record, less the drain's lag
+            # behind the record and the caller's behind the drain: what
+            # is left is the caller's submission before the record began
+            submit[key] = t_call - (rec.t0 + rec.first_ts)
+        lags, records = {}, {}
+        for ln in lines:
+            m = LAG_PAIR.match(ln)
+            if m:
+                for name, rec, timer in LAG_TIME.findall(ln):
+                    lags[f"{name} {m.group(1)}"] = round(
+                        float(timer) - float(rec), 2)
+                    records[f"{name} {m.group(1)}"] = float(rec)
+        for key, request in (("316 prompt tokens", "TTFT 0"),
+                             ("9 prompt tokens", "TTFT 3")):
+            if key in submit and request in lags:
+                submit[key] = round(lags[request] - submit[key] * 1e3, 3)
+            else:
+                submit.pop(key, None)
+        print("LAG " + json.dumps({
+            "wave": wave, "failed": failed, "lag_ms": lags,
+            "record_ms": records,
+            "record_to_drain_ms": record_to_drain,
+            "drain_to_caller_ms": drain_to_caller,
+            "submission_ms": submit,
+            "gc_in_wave_ms": [round(d * 1e3, 2) for t, d in pauses
+                              if t < t_hi and t + d > t_lo],
+            "gc_longest_in_phase_ms": round(max(
+                (d for _, d in pauses), default=0.0) * 1e3, 2)}),
+            flush=True)
+
+
+def stall_probe(seconds: float = 15.0, pings: int = 3000) -> None:
+    """What the host does to a thread on its own: the gaps over 1 ms in a
+    lone thread that reads the clock in a loop, and the wake-up of a
+    thread blocked on a ``queue.Queue`` (one put every 2 ms)."""
+    import queue
+    import threading
+    gaps, end = [], time.monotonic() + seconds
+    last = time.monotonic()
+    while last < end:
+        now = time.monotonic()
+        if now - last > 1e-3:
+            gaps.append(now - last)
+        last = now
+    q, back, wake = queue.Queue(), queue.Queue(), []
+
+    def pong():
+        for _ in range(pings):
+            sent = q.get()
+            wake.append(time.monotonic() - sent)
+            back.put(None)
+
+    thread = threading.Thread(target=pong)
+    thread.start()
+    for _ in range(pings):
+        q.put(time.monotonic())
+        back.get()
+        time.sleep(0.002)
+    thread.join()
+    wake.sort()
+    print(f"a lone thread over {seconds:.0f} s: {len(gaps)} gaps over 1 "
+          f"ms, {sum(g > 5e-3 for g in gaps)} over 5 ms, the longest "
+          f"{max(gaps, default=0.0) * 1e3:.2f} ms; a queue's wake-up over "
+          f"{pings}: median {wake[pings // 2] * 1e3:.3f}, 99.9th "
+          f"percentile {wake[int(pings * 0.999)] * 1e3:.3f}, most "
+          f"{wake[-1] * 1e3:.3f} ms", flush=True)
+
+
+def compare_lag(parent: Path, processes: int) -> None:
+    stall_probe()
+    _build_both(parent)
+    runs = {}
+    for i in range(processes):
+        tag, d = (("parent", parent), ("this", REPO))[i % 4 in (1, 2)]
+        out = subprocess.run(
+            [sys.executable, str(REPO / "chip_compare.py"), "lag-child",
+             str(d)], cwd=d, capture_output=True, text=True)
+        if out.returncode:
+            print(f"{tag} (process {i}) exited {out.returncode}: "
+                  f"{out.stderr[-3000:]}", flush=True)
+        for line in out.stdout.splitlines():
+            if line.startswith("LAG "):
+                print(f"{tag} (process {i}) {line}", flush=True)
+                runs.setdefault(tag, []).append(json.loads(line[4:]))
+    for tag, waves in runs.items():
+        lag = sorted(v for w in waves for v in w["lag_ms"].values())
+        call = sorted(v for w in waves
+                      for v in w["drain_to_caller_ms"].values())
+        first = [max(w["lag_ms"].values()) for w in waves
+                 if w["wave"] == 0]
+        ttft = sorted(w["record_ms"]["TTFT 0"] for w in waves
+                      if "TTFT 0" in w["record_ms"])
+        sub = sorted(v for w in waves for v in w["submission_ms"].values())
+        rec = sorted(v for w in waves
+                     for v in w["record_to_drain_ms"].values())
+        full = sorted(w["gc_longest_in_phase_ms"] for w in waves)
+        print(f"{tag}: {len(waves)} waves, "
+              f"{sum(bool(w['failed']) for w in waves)} failed; the record "
+              f"behind the timers: median {lag[len(lag) // 2]:.2f}, most "
+              f"{lag[-1]:.2f} ms, the worst of each first wave {first}; "
+              f"record to drain {rec[0]:.3f}-{rec[-1]:.3f} ms; "
+              f"drain to caller: median {call[len(call) // 2]:.3f}, most "
+              f"{call[-1]:.3f} ms; a stream's submission before its "
+              f"record: median {sub[len(sub) // 2]:.3f}, most "
+              f"{sub[-1]:.3f} ms; request 0's TTFT record: median "
+              f"{ttft[len(ttft) // 2]:.2f} ms; collections in the waves "
+              f"{sum(len(w['gc_in_wave_ms']) for w in waves)}, the "
+              f"longest pause in a phase {full[0]:.2f}-{full[-1]:.2f} ms",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: torch.cuda.is_available() is False; this "
@@ -619,6 +827,12 @@ def main() -> int:
         compare_mixtral()
     elif sys.argv[1:] == ["ring"]:
         compare_ring()
+    elif sys.argv[1:2] == ["lag"] and len(sys.argv) in (3, 4):
+        compare_lag(Path(sys.argv[2]).resolve(),
+                    int((sys.argv[3:] or ["8"])[0]))
+    elif sys.argv[1:2] == ["lag-child"] and len(sys.argv) == 3:
+        sys.path.insert(0, sys.argv[2])
+        _lag_child()
     else:
         print(__doc__, file=sys.stderr)
         return 2

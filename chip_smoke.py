@@ -220,8 +220,9 @@ result line is printed):
      loss must equal phase 7's (rel 1e-5), the worker's flash launches
      (reported through ``train.report``) the path's count with none of the
      plain versions; step time, tokens/s, MFU and peak memory beside phase
-     7's; 16c. the same widths at 2 layers, a checkpoint (parameters and
-     Adafactor state) every step, the worker's ``os._exit`` after step 3,
+     7's; 16c. the same widths at 1 layer, a checkpoint (parameters and
+     Adafactor state) every step, the worker's ``os._exit`` after step 1
+     of 3,
      ``FailureConfig(max_failures=1)``: the restarted worker restores the
      last checkpoint and its losses must equal an uninterrupted run's
      (rel 1e-6), and the card's free memory must be back to the byte
@@ -1081,11 +1082,31 @@ def agrees(record_s, timer_s):
 
 #: how far a caller's timer may run past the record's first-token and
 #: finish times: the record starts after the timer and stops where the
-#: tokens reach the host, before the caller's thread takes them (the
-#: largest lag seen was 2.2 ms; the interpreter's switch interval, 5 ms,
-#: bounds a woken thread's wait for the GIL). A stamp taken at the
-#: dispatch's launch would read short by the whole dispatch.
+#: tokens reach the host, before the caller's thread takes them. The lag
+#: is the caller's: its submission before the record starts, and its
+#: wake-up and wait for the GIL after the engine hands it the tokens
+#: (``chip_compare.py lag`` measures both; the H100's host wakes a
+#: blocked thread in 0.08 ms at the median and up to 4.9 ms). A
+#: stamp taken at the dispatch's launch would read short by the whole
+#: dispatch.
 READBACK_LAG_S = 0.010
+
+
+@contextlib.contextmanager
+def quiet_timers():
+    """Run timed callers as ``timeit`` runs its statement: after a full
+    collection and with the cyclic collector off, then on again. A
+    collection, run by whichever thread allocates, stops every thread:
+    in phase 4's process on the H100's host, up to 4 ms for the young
+    generations and 170-415 ms for a full one, once or twice a phase."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _stamp_launches(fns, stamps):
@@ -1176,11 +1197,15 @@ def phase_main_path(model_config=None, engine_config=None,
     timers = {}
     trace_id = trace_context.new_trace_id()
     traced = 1                  # the request sent under an ambient trace
+    # the callers wait here, started, and are released together: a
+    # caller's timer then starts after the thread starts of the others
+    go = threading.Event()
 
     def run(i, kind, prompt, max_tokens):
         ctx = trace_context.activate(trace_id, trace_context.new_span_id()) \
             if i == traced else None
         try:
+            assert go.wait(60), "the wave was not released"
             t_sub = time.monotonic()
             if kind == "call":
                 out = srv({"prompt_ids": prompt, "max_tokens": max_tokens})
@@ -1207,23 +1232,26 @@ def phase_main_path(model_config=None, engine_config=None,
     for name in tpa.launch_counts:
         tpa.launch_counts[name] = 0
     try:
-        t_wave = time.monotonic()
-        admit_together(eng, len(reqs))
-        threads = [threading.Thread(target=run, args=(i, *r))
-                   for i, r in enumerate(reqs)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-            assert not t.is_alive(), "request thread hung"
-        wave_s = time.monotonic() - t_wave
-        # after the first wave published the shared prefix: a hit, alone
-        # (one ragged step, two decode dispatches), timed; then the same
-        # request again under the profiler for the device's busy time
-        t_hit = time.monotonic()
-        hit_out = srv(hit_req)
-        hit = hit_out["token_ids"]
-        hit_ms = (time.monotonic() - t_hit) * 1e3
+        with quiet_timers():
+            t_wave = time.monotonic()
+            admit_together(eng, len(reqs))
+            threads = [threading.Thread(target=run, args=(i, *r))
+                       for i, r in enumerate(reqs)]
+            for t in threads:
+                t.start()
+            go.set()
+            for t in threads:
+                t.join(600)
+                assert not t.is_alive(), "request thread hung"
+            wave_s = time.monotonic() - t_wave
+            # after the first wave published the shared prefix: a hit,
+            # alone (one ragged step, two decode dispatches), timed; then
+            # the same request again under the profiler for the device's
+            # busy time
+            t_hit = time.monotonic()
+            hit_out = srv(hit_req)
+            hit = hit_out["token_ids"]
+            hit_ms = (time.monotonic() - t_hit) * 1e3
         timers[len(reqs)] = (hit_out["request_id"], None, None,
                              hit_ms / 1e3)
         _, busy = profile_device(lambda: srv(hit_req), eng.device, hit_ms,
@@ -3949,10 +3977,11 @@ FLASH_SHARDS = {"dp 2": (4, 24, 12), "tp 2": (8, 12, 6), "tp 4": (8, 6, 3)}
 #: the cluster phase 16 boots (no large object crosses its store)
 TRAINER_CPUS = 4
 TRAINER_STORE_BYTES = 256 << 20
-#: 16c: phase 7's widths at 2 of its 8 layers, a checkpoint every step,
-#: the worker's exit after this many steps, and the steps in all
-RESTART_CONFIG = dict(TRAIN_CONFIG, n_layers=2)
-RESTART_KILL_AT, RESTART_STEPS = 3, 5
+#: 16c: phase 7's widths at 1 of its 8 layers, a checkpoint every step,
+#: the worker's exit after this many steps, and the steps in all (the
+#: depth kept low: the whole script must stay well inside its time limit)
+RESTART_CONFIG = dict(TRAIN_CONFIG, n_layers=1)
+RESTART_KILL_AT, RESTART_STEPS = 1, 3
 TRAINER_LOSS_RTOL = 1e-5
 RESTART_LOSS_RTOL = 1e-6
 
@@ -4151,7 +4180,7 @@ def phase_trainer(device, config=None, batch=TRAIN_BATCH,
     that leases the card and joins an NCCL group of world size 1 (gloo on
     the CPU). 16b: phase 7's run through the trainer; its losses must
     equal phase 7's (``TRAIN_RUNS``, rel ``TRAINER_LOSS_RTOL``) and its
-    flash launches the path's count. 16c: 2 layers, a checkpoint each
+    flash launches the path's count. 16c: 1 layer, a checkpoint each
     step, the worker's exit after ``RESTART_KILL_AT`` steps, the restart
     from the last checkpoint; the losses after it must equal an
     uninterrupted run's (rel ``RESTART_LOSS_RTOL``) and the card's free
@@ -7644,10 +7673,8 @@ def card_flash(shape, dtype, device, record, what):
 def card_digest(x, device):
     """In a card worker: ``x`` through the card and back: -> the sha256 of
     its bytes and the device it visited."""
-    import hashlib
-    y = x.to(torch.device(device)).cpu().contiguous()
-    return hashlib.sha256(y.view(-1).view(torch.uint8).numpy()
-                          .tobytes()).hexdigest(), str(x.to(device).device)
+    y = x.to(torch.device(device))
+    return tensor_digest(y), str(y.device)
 
 
 def card_hog(shape, dtype, device, record, ballast_bytes, marker=None):
@@ -7684,11 +7711,13 @@ class CardHog:
         return card_hog(*self.args, ballast_bytes)
 
 
-def flash_against_plain(out, shape, dtype, device):
-    """The card task's {"o", "lse"} against the plain flash forward on the
-    same inputs on ``device``, flash's per-row limit: -> the worst ratio."""
+def flash_against_plain(out, shape, dtype, device, qkv=None):
+    """A card task's {"o", "lse"} against the plain flash forward on the
+    same inputs on ``device`` (``qkv``, else ``fault_flash_inputs``),
+    flash's per-row limit: -> the worst ratio."""
     from ray_tpu_torch.ops import flash_attention as tfa
-    q, k, v = fault_flash_inputs(shape, dtype, device)
+    q, k, v = (t.to(device) for t in qkv) if qkv is not None \
+        else fault_flash_inputs(shape, dtype, device)
     B, H, L, D = shape
     o_ref, lse_ref = tfa._fwd_reference(tfa._bhl(q), tfa._bhl(k),
                                         tfa._bhl(v), True, D ** -0.5)
@@ -7886,6 +7915,18 @@ def phase_head_restart(model_config=None, engine_config=None,
         assert launches["ragged_paged_attention"] == (
             expected if cuda else 0), (launches, expected)
         assert launches["ragged_paged_attention_reference_cuda"] == 0
+
+        # 23b: the worker's first llm.ragged_step record at the head, read
+        # before the head's kill (its store dies with it)
+        def first_step():
+            dump = backend.head.call("compiles_dump", {
+                "callable": "llm.ragged_step", "worker": wid12}, timeout=10)
+            return next((r for r in dump["records"] if r["nth"] == 1),
+                        None)
+
+        out["ragged_record"], _ = poll(
+            "the server worker's first llm.ragged_step record at the head",
+            first_step, 10 * period, period=0.1)
         line = tap.lines[0]
         assert f"pid={where['pid']}" in line, line
 
@@ -8349,7 +8390,8 @@ def phase_runtime_faults(main_streams=None, model_config=None,
     """Phase 22: the runtime's failures with card workers: 22a and 22d
     (``phase_head_restart``), 22b (``phase_lineage_spill``), 22c
     (``phase_oom``, its cap from 22b's RSS) and 22e
-    (``phase_straggler``, two cards). -> the ragged and flash launches."""
+    (``phase_straggler``, two cards). -> the ragged and flash launches,
+    and 22a's first ``llm.ragged_step`` record."""
     t_phase = time.monotonic()
     free_card()
     a = phase_head_restart(model_config, engine_config,
@@ -8367,7 +8409,402 @@ def phase_runtime_faults(main_streams=None, model_config=None,
         flash[n] += k
     log(f"phase 22: {time.monotonic() - t_phase:.1f} s, ragged launches "
         f"{a['launches']}, flash launches {flash}; {card}")
-    return {"ragged": a["launches"], "flash": flash}
+    return {"ragged": a["launches"], "flash": flash,
+            "ragged_record": a["ragged_record"]}
+
+
+# ----------- phase 23: the object plane carrying flash outputs, compiles
+
+#: 23a: tests/test_object_transfer.py's chunk size and health checks, with
+#: telemetry flushed each second (23b reads the card worker's counts)
+TRANSFER_CONFIG = {"object_transfer_chunk_bytes": 256 * 1024,
+                   "health_check_period_ms": 200,
+                   "health_check_timeout_ms": 1500,
+                   "metrics_export_period_s": 1.0}
+TRANSFER_CPUS = 2
+#: the integrity output's seed (its q, k, v drawn again on node C for the
+#: step into the card); the spill step's outputs and the ones read back
+TRANSFER_SEED = 23
+SPILL_SEEDS = (0, 1, 2, 3, 4)
+SPILL_READS = (0, 1, 4)
+#: the broadcast's consumers, in order
+BROADCAST_NODES = ("nodeA", "nodeC", "nodeA", "nodeC")
+#: the arenas in outputs: B holds 2.5 (as 22b's), A the copies it reads, C
+#: the inputs it makes and the copies it reads
+TRANSFER_ARENAS = {"nodeA": 4.0, "nodeB": 2.5, "nodeC": 8.0}
+
+
+def transfer_inputs(shape, dtype, seed, device="cpu"):
+    """q, k, v [B, L, H, D] of ``shape`` (B, H, L, D) drawn from ``seed``
+    by a generator on ``device``: on the CPU the same bits on every
+    node."""
+    B, H, L, D = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, L, H, D, generator=g, dtype=dtype, device=device)
+            for _ in range(3)]
+
+
+def tensor_digest(t):
+    """The sha256 of a tensor's bytes (on the CPU)."""
+    import hashlib
+    t = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(t.numpy()).hexdigest()
+
+
+def output_digests(out):
+    """The digests of a flash output {"o", "lse"}."""
+    return {n: tensor_digest(out[n]) for n in ("o", "lse")}
+
+
+class TransferNode:
+    """23a's worker on node A or C: reads an output whose ref it is given
+    in a list (so it pulls the object itself), and on C makes the inputs
+    of the step into the card."""
+
+    def started(self):
+        return time.time()
+
+    def read(self, refs):
+        """-> the digests of ``refs[0]`` and the ``get``'s seconds."""
+        import ray_tpu_torch as rt
+        t0 = time.perf_counter()
+        out = rt.get(refs[0], timeout=600)
+        get_s = time.perf_counter() - t0
+        return {"digests": output_digests(out), "get_s": get_s}
+
+    def make_inputs(self, shape, dtype, seed):
+        """``transfer_inputs`` on the CPU, as three objects."""
+        return tuple(transfer_inputs(shape, dtype, seed))
+
+
+class TransferCard:
+    """23a's card worker (``num_gpus=1``, node B), kept across the
+    sub-steps: the flash forward on q, k, v drawn from a seed or passed
+    in; each execution's output digests, flash launches and seconds. Its
+    start is split where it runs: the CUDA context, then the flash
+    library's load."""
+
+    def __init__(self, shape, dtype, device):
+        import os
+        import ray_tpu_torch as rt
+        self.start = {"init_at": time.time(), "pid": os.getpid(),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "worker": rt.get_runtime_context().worker_id.hex()}
+        self.shape, self.dtype = shape, dtype
+        self.device = torch.device(device)
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.zeros(1, device=self.device)
+            torch.cuda.synchronize()
+        self.start["cuda_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from ray_tpu_torch.ops import _kernels
+            _kernels.load("flash_attention_fwd")
+        self.start["library_s"] = time.perf_counter() - t0
+
+    def started(self):
+        return self.start
+
+    def _flash(self, q, k, v, times):
+        from ray_tpu_torch.ops import flash_attention as tfa
+        before = dict(tfa.launch_counts)
+        dev = self.device
+        t0 = time.perf_counter()
+        o, lse = tfa.flash_attention_block(q.to(dev), k.to(dev), v.to(dev),
+                                           causal=True)
+        out = {"o": o.cpu(), "lse": lse.cpu()}
+        times["flash_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        digests = output_digests(out)
+        times["digest_s"] = time.perf_counter() - t0
+        launches = {n: tfa.launch_counts[n] - before[n] for n in before}
+        return out, {"digests": digests, "launches": launches,
+                     "times": times}
+
+    def flash(self, seed, where="cpu"):
+        """The inputs drawn on ``where`` ("cpu": the bits node C draws;
+        else the card): -> the output (left in B's arena) and its
+        digests."""
+        t0 = time.perf_counter()
+        qkv = transfer_inputs(self.shape, self.dtype, seed,
+                              self.device if where != "cpu" else "cpu")
+        return self._flash(*qkv, {"draw_s": time.perf_counter() - t0})
+
+    def flash_on(self, q, k, v):
+        """q, k, v passed in (pulled to B in chunks): -> the digests and
+        launches."""
+        return self._flash(q, k, v, {})[1]
+
+    def put_outputs(self, seeds):
+        """Each seed's output (inputs drawn on the card) put from this
+        worker: -> the refs, and each one's digests and put seconds."""
+        import ray_tpu_torch as rt
+        refs, metas = [], []
+        for seed in seeds:
+            out, meta = self.flash(seed, where="card")
+            t0 = time.perf_counter()
+            refs.append(rt.put(out))
+            meta["times"]["put_s"] = time.perf_counter() - t0
+            metas.append(meta)
+        return refs, metas
+
+
+def gbps(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds > 0 else float("inf")
+
+
+def phase_transfer(shape=FLASH_SHAPE, dtype=torch.bfloat16, device="cuda",
+                   num_gpus=1, card=""):
+    """23a: a ``Cluster`` of nodes A, B and C (B alone names the card), 256
+    KiB chunks; one ``TransferCard`` on B and one ``TransferNode`` on A and
+    on C across the sub-steps, started together.
+    Integrity: its flash output on seed TRANSFER_SEED (o and lse, ~390
+    chunks at FLASH_SHAPE) read by the driver (on A) and a task on A, each
+    digest the producer's, within flash's limit of the plain version.
+    Broadcast: consumers on BROADCAST_NODES pull it themselves, equal
+    digests; each pull's seconds and GB/s, and the holders after it. Into
+    the card: q, k, v made on C, passed to the card worker, pulled in
+    chunks: its output equal to the bit to the integrity output. Spill: the
+    card worker puts SPILL_SEEDS' outputs past B's arena of 2.5 outputs;
+    the driver reads SPILL_READS back in chunks, from B's spill files where
+    they spilled, each equal to its recorded digests. The flash launches
+    equal the card executions. -> {"launches": the flash forward's,
+    "start": the card worker's start, split, "counts": its compile counts
+    at the head}."""
+    import os
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.config import GlobalConfig, reset_to_defaults
+    from ray_tpu_torch.core.worker import global_worker
+    from ray_tpu_torch.runtime.object_plane import spill_file_path
+    cuda = device == "cuda"
+    t_phase = time.monotonic()
+    B_, H, L, D = shape
+    out_bytes = B_ * L * H * D * dtype.itemsize + B_ * H * L * 4
+    period = TRANSFER_CONFIG["metrics_export_period_s"]
+    # the daemons take this process's settings: a fresh table with the
+    # phase's over it, as init() applies
+    reset_to_defaults()
+    GlobalConfig.apply(TRANSFER_CONFIG)
+    cluster = Cluster()
+    out = {}
+    try:
+        nodes = {}
+        for name, outputs in TRANSFER_ARENAS.items():
+            resources = {name: 1.0}
+            if name == "nodeB" and num_gpus:
+                resources["GPU"] = float(num_gpus)
+            nodes[name] = cluster.add_node(
+                num_cpus=TRANSFER_CPUS, resources=resources,
+                object_store_bytes=int(outputs * out_bytes)).node_id
+        rt.init(address=cluster.address, _system_config=TRANSFER_CONFIG)
+        plane = global_worker.backend.object_plane
+        assert plane.local_node_id == nodes["nodeA"], \
+            "the driver is not on node A"
+        shm = {n["node_id"]: n["shm_name"] for n in
+               global_worker.backend.head.call("list_nodes", timeout=10)}
+        names = {v: k for k, v in nodes.items()}
+
+        def holders(ref):
+            oid = ref.id()
+            where = {plane.locations.get(oid, plane.local_node_id)}
+            with plane._lock:
+                where |= set(plane.secondary.get(oid, ()))
+            return sorted(names.get(n, n[:8]) for n in where)
+
+        # the card worker on B and a worker on A and on C, started
+        # together: one start each for the whole phase
+        t_submit = time.time()
+        t0 = time.monotonic()
+        worker = rt.remote(num_gpus=1, resources={"nodeB": 0.1})(
+            TransferCard).remote(shape, dtype, device)
+        node_cls = rt.remote(TransferNode)
+        on = {n: node_cls.options(resources={n: 0.1}).remote()
+              for n in ("nodeA", "nodeC")}
+        start = rt.get(worker.started.remote(), timeout=600)
+        start["ready_s"] = time.monotonic() - t0
+        start["spawn_s"] = start["init_at"] - t_submit
+        assert start["visible"] == "0", start
+        rt.get([w.started.remote() for w in on.values()], timeout=600)
+        ready_s = time.monotonic() - t0
+
+        # integrity: the output read by the driver, then a task on A
+        t0 = time.monotonic()
+        ref, meta_ref = worker.flash.options(num_returns=2).remote(
+            TRANSFER_SEED)
+        produced = rt.get(meta_ref, timeout=600)
+        flash_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        first = rt.get(ref, timeout=600)
+        driver_s = time.monotonic() - t0
+        ratio = flash_against_plain(
+            first, shape, dtype, device,
+            transfer_inputs(shape, dtype, TRANSFER_SEED))
+        got = output_digests(first)
+        del first
+        on_a = rt.get(on["nodeA"].read.remote([ref]), timeout=600)
+        assert got == produced["digests"] == on_a["digests"], \
+            (got, produced, on_a)
+        chunks = -(-out_bytes // TRANSFER_CONFIG[
+            "object_transfer_chunk_bytes"])
+        times = produced["times"]
+        log(f"23a integrity: the workers on B, A and C ready in "
+            f"{ready_s:.2f} s; the flash output (o and lse, {out_bytes} "
+            f"bytes, {chunks} chunks) made on node B in {flash_s:.2f} s "
+            f"(q, k, v drawn on the host {times['draw_s']:.2f} s, the "
+            f"flash forward with the copies {times['flash_s']:.3f} s, "
+            f"digests {times['digest_s']:.3f} s), its sha256 o "
+            f"{got['o'][:12]} lse {got['lse'][:12]} equal at the "
+            f"producer, the driver on A (get {driver_s:.3f} s, "
+            f"{gbps(out_bytes, driver_s):.2f} GB/s) and a task on A (get "
+            f"{on_a['get_s']:.3f} s, the copy on A); within {ratio:.3f} of "
+            f"flash's limit of the plain version")
+
+        # broadcast: each consumer pulls the output itself
+        pulls = []
+        for node in BROADCAST_NODES:
+            before = holders(ref)
+            r = rt.get(on[node].read.remote([ref]), timeout=600)
+            assert r["digests"] == got, (node, r)
+            pulls.append((node, before, r["get_s"]))
+        log("23a broadcast: " + "; ".join(
+            f"{node} get {s:.3f} s ({gbps(out_bytes, s):.2f} GB/s), "
+            f"holders before it {h}" for node, h, s in pulls)
+            + f"; holders after {holders(ref)}; digests equal")
+
+        # into the card: q, k, v made on C, pulled to B in chunks
+        in_bytes = 3 * B_ * L * H * D * dtype.itemsize
+        t0 = time.monotonic()
+        made = on["nodeC"].make_inputs.options(num_returns=3).remote(
+            shape, dtype, TRANSFER_SEED)
+        rt.wait(list(made), num_returns=3, timeout=600)
+        made_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        into = rt.get(worker.flash_on.remote(*made), timeout=600)
+        into_s = time.monotonic() - t0
+        assert into["digests"] == got, (into, got)
+        into_launches = into["launches"]
+        log(f"23a into the card: q, k, v ({in_bytes} bytes of CPU tensors) "
+            f"made on node C in {made_s:.2f} s, passed to the card worker "
+            f"on B, pulled in chunks and moved to the card: the flash "
+            f"output equal to the bit to the one on inputs drawn on B; the "
+            f"call {into_s:.2f} s ({gbps(in_bytes, into_s):.2f} GB/s of "
+            f"inputs)")
+        del made, into
+
+        # spill: five outputs put on B past its arena of 2.5
+        t0 = time.monotonic()
+        refs, metas = rt.get(worker.put_outputs.remote(SPILL_SEEDS),
+                             timeout=600)
+        put_s = time.monotonic() - t0
+
+        def spill_path(r):
+            return spill_file_path(GlobalConfig.session_dir,
+                                   shm[nodes["nodeB"]], r.id().hex())
+
+        spilled = [s for s, r in zip(SPILL_SEEDS, refs)
+                   if os.path.exists(spill_path(r))]
+        assert SPILL_SEEDS[-1] in spilled, spilled
+        reads = []
+        for i in SPILL_READS:
+            from_file = os.path.exists(spill_path(refs[i]))
+            t0 = time.monotonic()
+            back = rt.get(refs[i], timeout=600)
+            s = time.monotonic() - t0
+            assert output_digests(back) == metas[i]["digests"], i
+            reads.append((i, from_file, s))
+            del back
+        assert any(f for _, f, _ in reads), reads
+        puts = ", ".join(f"{m['times']['put_s']:.3f}" for m in metas)
+        log(f"23a spill: {len(SPILL_SEEDS)} outputs (inputs drawn on the "
+            f"card) made and put on B in {put_s:.2f} s (the puts {puts} "
+            f"s) past its arena of "
+            f"{int(TRANSFER_ARENAS['nodeB'] * out_bytes)} bytes, seeds "
+            f"{spilled} in B's spill files; the driver read " + ", ".join(
+                f"{i} ({'spill file' if f else 'arena'}, {s:.3f} s, "
+                f"{gbps(out_bytes, s):.2f} GB/s)" for i, f, s in reads)
+            + ", each equal to its digests")
+
+        launches = [produced["launches"], into_launches,
+                    *[m["launches"] for m in metas]]
+        out["launches"] = sum(x["flash_attention_fwd"] for x in launches)
+        assert out["launches"] == (len(launches) if cuda else 0), launches
+        assert all(x["flash_attention_fwd_reference_cuda"] == 0
+                   for x in launches), launches
+        out["start"] = start
+        # 23b's reading: the card worker's compile counts at the head (its
+        # library load, counted with no call in flight)
+        wid = start["worker"]
+
+        def counts():
+            dump = global_worker.backend.head.call(
+                "compiles_dump", {"worker": wid[:12]}, timeout=10)
+            return next((c for k, c in dump["counts"].items()
+                         if k.startswith(wid) and c.get("load")), None)
+
+        out["counts"] = poll("the card worker's load at the head", counts,
+                             10 * period, period=0.2)[0] if cuda else {}
+        del ref, refs
+        for w in (worker, *on.values()):
+            rt.kill(w)
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+        reset_to_defaults()
+    log(f"23a: {len(launches)} card executions, {out['launches']} flash "
+        f"launches; the card worker's start {start['ready_s']:.2f} s "
+        f"(spawn, imports and the class {start['spawn_s']:.2f} s, the CUDA "
+        f"context {start['cuda_s']:.2f} s, the flash library's load "
+        f"{start['library_s']:.3f} s); phase 23a "
+        f"{time.monotonic() - t_phase:.1f} s; {card}")
+    return out
+
+
+def build_phases(tracker, built):
+    """23b, on the driver's tracker started before the script's first
+    ``build``: -> its export of the build (None when nothing was built).
+    A cold build directory gives one ``cache_miss`` and one nameless
+    ``backend_compile`` record per library built; a warm one, nothing."""
+    export = tracker.export()
+    records = (export or {}).get("records", [])
+    counts = (export or {}).get("counts", {})
+    assert counts.get("cache_miss", 0) == len(built), (counts, built)
+    assert len(records) == len(built) == counts.get("backend_compile", 0), \
+        (records, built)
+    assert all(r["name"] == "" and r["kind"] == "backend_compile"
+               and r["backend"] == "cuda" and r["backend_s"] > 0
+               for r in records), records
+    return export
+
+
+def phase_compile_phases(build_export, ragged_record, transfer, card=""):
+    """23b: the compile phases the port's own compiles reported. The
+    build's records (``build_phases``); the first ``llm.ragged_step``
+    record of 22a's 8B server worker at the head, whose ``phases["load"]``
+    is the ragged library's load; 23a's card worker's ``load`` count at
+    the head. Prints the libraries' load seconds beside the card workers'
+    start seconds."""
+    records = (build_export or {}).get("records", [])
+    if records:
+        line = (f"23b: a cold build directory: {len(records)} nameless "
+                f"backend_compile records, each library's nvcc seconds "
+                + ", ".join(f"{r['backend_s']:.2f}" for r in records)
+                + f", cache_miss {build_export['counts']['cache_miss']}")
+    else:
+        line = "23b: a warm build directory: no record, no cache miss"
+    phases = ragged_record["phases"]
+    assert "load" in phases, ragged_record
+    assert transfer["counts"].get("load") == 1, transfer["counts"]
+    start = transfer["start"]
+    log(f"{line}; 22a's 8B worker, its first llm.ragged_step record (nth "
+        f"{ragged_record['nth']}, {ragged_record['duration_s']:.3f} s): "
+        f"phases {phases}, the ragged library's load "
+        f"{phases['load']:.4f} s; 23a's card worker: load count "
+        f"{transfer['counts']['load']} at the head, its start "
+        f"{start['ready_s']:.2f} s = spawn, imports and the class "
+        f"{start['spawn_s']:.2f} s + the CUDA context {start['cuda_s']:.2f} "
+        f"s + the flash library's load {start['library_s']:.4f} s; {card}")
 
 
 def main():
@@ -8391,8 +8828,13 @@ def main():
     log(card)
 
     from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util import compile_tracker
+    # 23b: the driver's tracker hears the build's compiles
+    tracker = compile_tracker.ensure_started(role="driver")
+    assert tracker is not None, "the compile tracker is off"
     t0 = time.monotonic()
     built = _kernels.build()
+    build_export = build_phases(tracker, built)
     log(f"kernels built in {time.monotonic() - t0:.1f} s: "
         f"{sorted(built) or 'all up to date'}")
     for lib, kernel in SM90_KERNELS:
@@ -8554,6 +8996,14 @@ def main():
     # server, lineage and spill of a flash output, an OOM kill, the
     # observability planes on a card worker, a straggler over two cards
     faults = phase_runtime_faults(main_streams, card=card)
+    # the object plane carrying flash outputs between three nodes, and the
+    # compile phases of the port's own compiles
+    t_transfer = time.monotonic()
+    free_card()
+    transfer = phase_transfer(card=card)
+    phase_compile_phases(build_export, faults["ragged_record"], transfer,
+                         card=card)
+    log(f"phase 23: {time.monotonic() - t_transfer:.1f} s; {card}")
     log(f"the whole script {time.monotonic() - t_script:.1f} s")
 
     bf16 = kern["bf16"]
@@ -8587,7 +9037,8 @@ def main():
         + sum(r[name] for r in tuned_runs)
         + sum(r["launches"][name] for r in ring.values())
         + (dag["launches"] if name == "flash_attention_fwd" else 0)
-        + sum(m[name] for m in multi["flash"]) + faults["flash"][name],
+        + sum(m[name] for m in multi["flash"]) + faults["flash"][name]
+        + (transfer["launches"] if name == "flash_attention_fwd" else 0),
         **flash[name]}
         for name, src, line in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 91),

@@ -449,7 +449,10 @@ int rtpu_store_get(void* handle, const uint8_t* id, void** out_ptr,
 }
 
 // Release one pin. When the last pin drops the object becomes evictable
-// (joins LRU) — or is deleted immediately if delete_pending.
+// (joins LRU) — or is deleted immediately if delete_pending. A release of
+// an object with no pin (the owner's free after a secondary copy's own
+// release) changes nothing: pushing the entry onto the LRU list a second
+// time would link it to itself, and eviction would then spin on it.
 int rtpu_store_release(void* handle, const uint8_t* id) {
   auto* s = reinterpret_cast<Store*>(handle);
   lock(s);
@@ -459,7 +462,11 @@ int rtpu_store_release(void* handle, const uint8_t* id) {
     return RTPU_ERR_NOT_FOUND;
   }
   ObjectEntry* e = &s->table[slot];
-  if (e->pin_count > 0) e->pin_count--;
+  if (e->pin_count == 0) {
+    unlock(s);
+    return RTPU_OK;
+  }
+  e->pin_count--;
   if (e->pin_count == 0) {
     if (e->flags & 1) {
       delete_entry_locked(s, slot);

@@ -27,6 +27,7 @@ imported where a ``CompiledDAG`` executes.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 
@@ -164,7 +165,10 @@ class CompiledDAG:
 
     Each new capture (on the CPU, each new signature) is a compile that
     the process's compile tracker records (``util/compile_tracker.py``,
-    ``dag.compiled``). The kernels' launch counters (``ops/``) count on
+    ``dag.compiled``); a capture's seconds, its instantiation included,
+    are the record's ``backend_compile`` phase. On the CPU nothing is
+    captured and the record has no phase, where JAX's jit reports its
+    compile. The kernels' launch counters (``ops/``) count on
     the host, where a replay launches nothing: the launches counted while
     capturing are taken back (the capture runs nothing), and each replay
     adds them once, so the counters stay true under the graph.
@@ -242,8 +246,9 @@ class CompiledDAG:
         before = [dict(m.launch_counts) for m in modules]
         graph = torch.cuda.CUDAGraph()
         stage[0] = None
+        t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph):     # capture, then instantiate
                 static_out = self._run(static_in, note)
         except Exception as e:  # noqa: BLE001 — named and re-raised
             name = stage[0].name if stage[0] is not None else "?"
@@ -252,6 +257,9 @@ class CompiledDAG:
                 f"graph ({type(e).__name__}: {e}); a captured stage must "
                 f"not sync with the host (.item(), .cpu(), a CPU tensor "
                 f"read back)") from e
+        from ray_tpu_torch.util import compile_tracker
+        compile_tracker.note_phase("backend_compile",
+                                   time.perf_counter() - t0, backend="cuda")
         launches = []
         for m, b in zip(modules, before):
             delta = {k: v - b[k] for k, v in m.launch_counts.items()

@@ -7,6 +7,12 @@ named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused. ``build()`` starts one ``nvcc`` per
 source, all together. Nothing here runs at import time: the CPU tests
 import every module on machines without ``nvcc``.
+
+These are the port's compiles, and the process's compile tracker hears
+of them (``util/compile_tracker.py`` ``note_phase``): each library
+``build`` compiles is one ``cache_miss`` and its own ``nvcc`` seconds as
+``backend_compile``; ``load`` reports the dlopen and binding seconds as
+``load``. A library found in the build directory reports nothing.
 """
 
 from __future__ import annotations
@@ -17,10 +23,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from ray_tpu_torch.util import compile_tracker
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -91,9 +100,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile each named kernel library that is missing, one ``nvcc``
     per source, all started together. Returns {name: compiler output}
     for the libraries built now (``-Xptxas -v``: registers, shared
-    memory, spills). Raises with the compiler's output on failure."""
+    memory, spills), each reported to the compile tracker with its own
+    ``nvcc`` seconds. Raises with the compiler's output on failure."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done = {}
+
+    def compile_one(name, cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        done[name] = (proc, time.perf_counter() - t0)
+
     running = {}
     for name in names:
         out = library_path(name)
@@ -102,18 +120,22 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / KERNELS[name][0])]
-        running[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, out)
+        thread = threading.Thread(target=compile_one, args=(name, cmd))
+        thread.start()
+        running[name] = (thread, tmp, out)
     logs = {}
-    for name, (proc, tmp, out) in running.items():
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
+    for name, (thread, tmp, out) in running.items():
+        thread.join()
+        proc, seconds = done[name]
+        out.with_suffix(".log").write_text(proc.stdout)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} "
-                               f"(exit {proc.returncode}):\n{log}")
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
-        logs[name] = log
+        logs[name] = proc.stdout
+        compile_tracker.note_cache_miss()
+        compile_tracker.note_phase("backend_compile", seconds,
+                                   backend="cuda")
     return logs
 
 
@@ -146,6 +168,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(library_path(name)))
             for entry, argtypes in KERNELS[name][1].items():
                 fn = getattr(lib, entry)
@@ -154,4 +177,6 @@ def load(name: str) -> ctypes.CDLL:
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
+            compile_tracker.note_phase("load", time.perf_counter() - t0,
+                                       backend="cuda")
         return lib

@@ -42,6 +42,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ray_tpu_torch.models.llama import resolve_device
 from ray_tpu_torch.ops import _kernels
 
 _NEG_INF = float("-inf")
@@ -658,11 +659,10 @@ def _card_name(index: int) -> str:
 
 
 def _device(device=None) -> torch.device:
-    """``device``, or the card when there is one (the JAX package's
-    default backend), else the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """``device``; None is the card (the port's default device), which
+    raises without one (``resolve_device``), as asking for "cuda" does:
+    nothing here falls back to the CPU by itself."""
+    return resolve_device("cuda" if device is None else device)
 
 
 def _platform(device=None) -> str:
@@ -715,9 +715,9 @@ def block_candidates(Lq: int, Lk: int, head_dim: int,
 
 def kernels_supported(device=None) -> bool:
     """True when the Hopper kernels can run on ``device`` (default: the
-    card, if any): a CUDA device of compute capability 9.0."""
+    card; raises without one): a CUDA device of compute capability 9.0."""
     device = _device(device)
-    return device.type == "cuda" and torch.cuda.is_available() and \
+    return device.type == "cuda" and \
         torch.cuda.get_device_capability(device) == (9, 0)
 
 
@@ -778,7 +778,7 @@ def autotune_blocks(Lq: int, Lk: Optional[int] = None, head_dim: int = 64,
                     device=None) -> Optional[FlashTiles]:
     """Pick each flash kernel's tile at this shape and cache the
     ``FlashTiles`` per (Lq, Lk, head_dim, dtype, platform); ``device``
-    (default: the card, if any) names the platform.
+    (default: the card; raises without one) names the platform.
 
     On the CPU: the JAX package's pick, shared by the three kernels (the
     heuristic's best, or with ``measure`` the fastest by ``_time_blocks``,
@@ -802,7 +802,7 @@ def autotune_blocks(Lq: int, Lk: Optional[int] = None, head_dim: int = 64,
         best = cands[0]
         if measure and len(cands) > 1:
             best = min(cands, key=lambda bk: _time_blocks(
-                Lq, Lk, head_dim, dtype, *bk))
+                Lq, Lk, head_dim, dtype, *bk, device=device))
         tiles = FlashTiles.uniform(best)
     else:
         cands = kernel_candidates(head_dim, dtype, key[-1])

@@ -1,5 +1,5 @@
-"""Compile/dispatch observability plane — the port's own copy of the
-jax-free half of ``ray_tpu/util/compile_tracker.py``.
+"""Compile/dispatch observability plane — the port's counterpart of
+``ray_tpu/util/compile_tracker.py``.
 
 It records compiles as structured records ``{callable_name,
 module_fingerprint, arg shape/dtype signature, duration, backend, process
@@ -11,19 +11,32 @@ recompile rate crosses ``compile_storm_threshold`` per
 ``compile_storm_window_s``. ``CompileTracker.wrap(fn)`` detects compiles
 by the callable's cache growth (a ``_cache_size`` probe) or signature
 novelty; ``note_monitor_duration``/``note_cache_miss`` take durations
-reported by a compiler's own monitoring.
+and cache misses reported by a compiler.
 
-In the port, ``wrap`` is the one observation path. The engine wraps its
-step functions (``llm.ragged_step``, ``llm.decode_loop``,
-``llm.copy_page``, probed by the growth of its program set: a new step
-program is the port's compile) and ``dag.CompiledDAG`` its executions
-(``dag.compiled``: each new CUDA graph capture, or on the CPU each new
-input signature). The JAX package also registers a ``jax.monitoring``
-listener that attributes XLA's own compile-phase durations (jaxpr trace,
-lowering, backend compile) and cache misses; torch has no counterpart of
-those events, so the listener is left out and a record's ``phases`` stay
-empty. Importing this module imports neither jax nor torch — node
-daemons and the head run it.
+The port has two observation paths, as the JAX package has:
+
+- ``CompileTracker.wrap(fn)``: the engine wraps its step functions
+  (``llm.ragged_step``, ``llm.decode_loop``, ``llm.copy_page``, probed by
+  the growth of its program set: a new step program is the port's
+  compile) and ``dag.CompiledDAG`` its executions (``dag.compiled``: each
+  new CUDA graph capture, or on the CPU each new input signature);
+- ``note_phase``/``note_cache_miss``, the counterparts of the JAX
+  package's ``jax.monitoring`` listener pair (``_on_jax_duration``,
+  ``_on_jax_event``), called by the port's own compiles: ``ops/_kernels``
+  reports each kernel library ``nvcc`` builds (one ``cache_miss``, its
+  seconds as ``backend_compile``) and each library it loads (``load``:
+  the dlopen and the binding of its entry points), ``dag.CompiledDAG`` a
+  CUDA graph's capture and instantiation (``backend_compile``). A phase
+  reported while a wrapped call is in flight on the same thread goes to
+  that call's record (``phases``, ``backend_s``); otherwise a
+  ``backend_compile`` becomes a nameless record and any other kind is
+  only counted. On the CPU a ``CompiledDAG`` captures nothing, so it
+  reports no phase where JAX's jit reports its compile.
+
+A record's ``backend`` names the port's platform: "cuda" for a kernel
+library's build or load and in a process that holds a CUDA context,
+"cpu" otherwise. Importing this module imports neither jax nor torch —
+node daemons and the head run it.
 
 Exports drain through the existing ``telemetry_push`` into the head's
 ``CompileStore`` (``compiles_dump`` cursor RPC) and feed the
@@ -138,9 +151,9 @@ def fingerprint(name: str, signature: Sequence[str]) -> str:
 
 
 # thread-local in-flight attribution stack: CompileTracker.wrap pushes
-# an accumulator dict around the wrapped call; the anonymous
-# jax.monitoring duration listener adds compile-phase seconds to the
-# top entry instead of recording an unattributed compile
+# an accumulator dict around the wrapped call; ``note_phase`` adds
+# compile-phase seconds to the top entry instead of recording an
+# unattributed compile
 _tls = threading.local()
 
 
@@ -166,6 +179,9 @@ class CompileTracker:
         self._dropped_total = 0
         self._emitted_since = 0
         self._dropped_since = 0
+        # a phase or cache miss counted since the last export: the
+        # counts ride the next one even with no record (a library's load)
+        self._counted_since = False
         # name -> {"compiles","recompiles","wall_s","measured_s",
         #          "last_sig","last_diff"}; LRU-bounded
         self._per_callable: "collections.OrderedDict[str, dict]" = \
@@ -184,8 +200,8 @@ class CompileTracker:
         that compiled (detected by cache growth via ``probe`` — default
         the jit's own ``_cache_size`` — or, probeless, by signature
         novelty) records a compile with this call's signature, wall
-        duration, and whatever ``/jax/core/compile/*`` phase seconds
-        the monitoring listener attributed to it in flight."""
+        duration, and whatever phase seconds ``note_phase`` attributed
+        to it in flight."""
         label = name or getattr(fn, "__name__", None) or repr(fn)
         if probe is None:
             probe = getattr(fn, "_cache_size", None)
@@ -228,8 +244,8 @@ class CompileTracker:
                             seen.add(key)
                         compiled = True
                 if not compiled and acc.get("backend_compile"):
-                    # the monitoring listener saw XLA compile during
-                    # this exact call — trust it over a stale probe
+                    # a compile was reported during this exact call —
+                    # trust it over a stale probe
                     compiled = True
                 if compiled:
                     if sig is None:
@@ -258,7 +274,7 @@ class CompileTracker:
         phases = dict(phases or {})
         measured = round(sum(phases.values()), 6)
         if not backend:
-            backend = os.environ.get("JAX_PLATFORMS", "") or ""
+            backend = platform()
         from ray_tpu_torch.util import trace_context
         ctx = trace_context.current()
         with self._lock:
@@ -289,6 +305,7 @@ class CompileTracker:
                    "measured_s": measured,
                    "backend_s": round(phases.get("backend_compile",
                                                  0.0), 6),
+                   "phases": {k: round(v, 6) for k, v in phases.items()},
                    "backend": backend, "pid": self.pid,
                    "trace_id": ctx[0] if ctx else "",
                    "recompile": recompile, "diff": diff,
@@ -314,13 +331,16 @@ class CompileTracker:
             pass
         return rec
 
-    def note_monitor_duration(self, kind: str, duration: float) -> None:
-        """An unattributed ``/jax/core/compile/*`` phase (no wrapped
-        call in flight on this thread): count every phase; ring a
-        record only for the backend-compile phase, so un-wrapped jits
-        still show up — nameless — instead of vanishing."""
+    def note_monitor_duration(self, kind: str, duration: float,
+                              backend: str = "") -> None:
+        """An unattributed compile phase (no wrapped call in flight on
+        this thread): count every phase; ring a record only for the
+        backend-compile phase, so an unwrapped compile (a kernel
+        library's build) still shows up — nameless — instead of
+        vanishing."""
         with self._lock:
             self._counts[kind] = self._counts.get(kind, 0) + 1
+            self._counted_since = True
             if kind == "backend_compile":
                 self._append_locked({
                     "ts": round(time.time(), 6), "name": "",
@@ -328,7 +348,8 @@ class CompileTracker:
                     "duration_s": round(duration, 6),
                     "measured_s": round(duration, 6),
                     "backend_s": round(duration, 6),
-                    "backend": os.environ.get("JAX_PLATFORMS", ""),
+                    "phases": {kind: round(duration, 6)},
+                    "backend": backend or platform(),
                     "pid": self.pid, "trace_id": "",
                     "recompile": False, "diff": [], "nth": 0})
         try:
@@ -344,6 +365,7 @@ class CompileTracker:
         with self._lock:
             self._counts["cache_miss"] = \
                 self._counts.get("cache_miss", 0) + 1
+            self._counted_since = True
 
     def _append_locked(self, rec: dict) -> None:
         self._emitted_total += 1
@@ -433,11 +455,13 @@ class CompileTracker:
 
     def export(self) -> Optional[dict]:
         """Atomically drain the ring for a telemetry flush. None when
-        nothing was emitted AND nothing dropped since the last export —
+        nothing was emitted, dropped or counted since the last export —
         a drop with an empty ring still exports, so the head's ledger
-        never under-counts (log_plane contract)."""
+        never under-counts (log_plane contract), and so does a counted
+        phase, so the head's counts stay current."""
         with self._lock:
-            if not self._emitted_since and not self._dropped_since:
+            if not (self._emitted_since or self._dropped_since
+                    or self._counted_since):
                 return None
             records = list(self._ring)
             self._ring.clear()
@@ -449,6 +473,7 @@ class CompileTracker:
                    "counts": dict(self._counts)}
             self._emitted_since = 0
             self._dropped_since = 0
+            self._counted_since = False
             return out
 
     def drain_journal_events(self) -> List[dict]:
@@ -510,6 +535,48 @@ def drain_journal_events() -> List[dict]:
     if tracker is None:
         return []
     return tracker.drain_journal_events()
+
+
+# ---------------------------------------------------------------------
+# the port's compile phases: the counterpart of the JAX package's
+# jax.monitoring listener pair (_on_jax_duration, _on_jax_event), called by
+# the port's own compiles (ops/_kernels.py, dag.py)
+
+
+def platform() -> str:
+    """The port's platform for a record: "cuda" when this process holds a
+    CUDA context, else "cpu" (torch read from ``sys.modules``, never
+    imported here)."""
+    torch = sys.modules.get("torch")
+    try:
+        if torch is not None and torch.cuda.is_initialized():
+            return "cuda"
+    except Exception:  # noqa: BLE001 — a torch still being imported
+        pass
+    return "cpu"
+
+
+def note_phase(kind: str, seconds: float, backend: str = "") -> None:
+    """One compile phase of ``seconds`` (``backend_compile``, ``load``):
+    added to the innermost wrapped call in flight on this thread, else
+    to the process tracker's unattributed phases
+    (``note_monitor_duration``); dropped when there is no tracker."""
+    stack = getattr(_tls, "inflight", None)
+    if stack:
+        acc = stack[-1]
+        acc[kind] = acc.get(kind, 0.0) + float(seconds)
+        return
+    tracker = get_global()
+    if tracker is not None:
+        tracker.note_monitor_duration(kind, float(seconds), backend)
+
+
+def note_cache_miss() -> None:
+    """One compile-cache miss (a kernel library missing from the build
+    directory), counted by the process tracker, if any."""
+    tracker = get_global()
+    if tracker is not None:
+        tracker.note_cache_miss()
 
 
 # ---------------------------------------------------------------------
@@ -577,11 +644,15 @@ class CompileStore:
              by_callable: bool = False) -> dict:
         """Merged records (seq order) with cursor + filters. ``limit``
         keeps the NEWEST matches, so a follow loop never misses records
-        it could have had (same contract as ``logs_dump``)."""
+        it could have had (same contract as ``logs_dump``). ``counts``:
+        each matching process's latest phase and kind counts, by its
+        store key (the port's addition: a library's ``load`` is counted,
+        never ringed)."""
         out: List[dict] = []
         agg: Dict[str, dict] = {}
+        counts: Dict[str, dict] = {}
         with self._lock:
-            for entry in self._procs.values():
+            for key, entry in self._procs.items():
                 m = entry["meta"]
                 if role and role not in (m.get("role") or ""):
                     continue
@@ -589,6 +660,7 @@ class CompileStore:
                     continue
                 if worker and worker not in (m.get("worker") or ""):
                     continue
+                counts[key] = dict(m.get("counts") or {})
                 for rec in entry["ring"]:
                     if callable and callable not in rec.get("name", ""):
                         continue
@@ -618,7 +690,8 @@ class CompileStore:
         if limit and len(out) > limit:
             out = out[-limit:]
         result = {"records": out, "last_seq": last_seq,
-                  "dropped_total": dropped_total, "procs": procs}
+                  "dropped_total": dropped_total, "procs": procs,
+                  "counts": counts}
         if by_callable:
             for a in agg.values():
                 a["procs"] = len(a["procs"])

@@ -73,8 +73,9 @@ def test_autotune_measures_and_caches():
     is a cache hit that times nothing."""
     calls = {"jax": [], "torch": []}
     picks = {}
-    for name, fa, dtype in (("jax", jfa, jnp.float32),
-                            ("torch", tfa, torch.float32)):
+    for name, fa, dtype, kw in (("jax", jfa, jnp.float32, {}),
+                                ("torch", tfa, torch.float32,
+                                 {"device": "cpu"})):
         def fake_timer(Lq, Lk, D, dt, bq, bk, _calls=calls[name], **kw):
             _calls.append((bq, bk))
             return abs(bq - 64) + abs(bk - 32)
@@ -82,16 +83,16 @@ def test_autotune_measures_and_caches():
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(fa, "_time_blocks", fake_timer)
             picks[name] = fa.autotune_blocks(128, 64, 32, dtype,
-                                             measure=True)
+                                             measure=True, **kw)
             n = len(calls[name])
-            assert fa.autotune_blocks(128, 64, 32, dtype,
-                                      measure=True) == picks[name]
+            assert fa.autotune_blocks(128, 64, 32, dtype, measure=True,
+                                      **kw) == picks[name]
             assert len(calls[name]) == n, "the second call must hit"
     assert picks["jax"] == (64, 32)
     assert picks["torch"] == tfa.FlashTiles.uniform((64, 32))
     assert calls["torch"] == calls["jax"]   # the same candidates, in order
     assert jfa.get_tuned_blocks(128, 64, 32, jnp.float32) == (64, 32)
-    assert tfa.get_tuned_blocks(128, 64, 32, torch.float32) == \
+    assert tfa.get_tuned_blocks(128, 64, 32, torch.float32, "cpu") == \
         tfa.FlashTiles.uniform((64, 32))
 
 
@@ -108,30 +109,31 @@ def test_autotune_heuristic_without_measure(measure):
         j = jfa.autotune_blocks(2048, 2048, 64, jnp.bfloat16,
                                 measure=measure)
         t = tfa.autotune_blocks(2048, 2048, 64, torch.bfloat16,
-                                measure=measure)
+                                measure=measure, device="cpu")
     assert j == (256, 256)
     assert t == tfa.FlashTiles.uniform(j)
-    assert tfa.kernels_supported() is jfa.kernels_supported() is False
+    assert tfa.kernels_supported("cpu") is jfa.kernels_supported() \
+        is False
 
 
 def test_autotune_indivisible_returns_none():
     assert jfa.autotune_blocks(20, 20, 64, jnp.float32,
                                measure=False) is None
     assert tfa.autotune_blocks(20, 20, 64, torch.float32,
-                               measure=False) is None
-    assert tfa.get_tuned_blocks(20, 20, 64, torch.float32) is None
+                               measure=False, device="cpu") is None
+    assert tfa.get_tuned_blocks(20, 20, 64, torch.float32, "cpu") is None
 
 
 def test_cache_keys_and_clear_match_jax():
-    assert tfa._block_cache_key(64, 48, 32, torch.float32) == \
+    assert tfa._block_cache_key(64, 48, 32, torch.float32, "cpu") == \
         jfa._block_cache_key(64, 48, 32, jnp.float32)
-    tfa.autotune_blocks(64, None, 32, torch.float32)
+    tfa.autotune_blocks(64, None, 32, torch.float32, device="cpu")
     jfa.autotune_blocks(64, None, 32, jnp.float32)
-    assert tfa.get_tuned_blocks(64, 64, 32, torch.float32).fwd == \
+    assert tfa.get_tuned_blocks(64, 64, 32, torch.float32, "cpu").fwd == \
         jfa.get_tuned_blocks(64, 64, 32, jnp.float32)
     tfa.clear_block_cache()
     jfa.clear_block_cache()
-    assert tfa.get_tuned_blocks(64, 64, 32, torch.float32) is None
+    assert tfa.get_tuned_blocks(64, 64, 32, torch.float32, "cpu") is None
     assert jfa.get_tuned_blocks(64, 64, 32, jnp.float32) is None
 
 
@@ -174,7 +176,7 @@ def test_flash_attention_uses_tuned_blocks(monkeypatch, dtype):
     q, k, v, go = (rng.standard_normal((1, 64, 2, 32)).astype(np.float32)
                    for _ in range(4))
     jfa._BLOCK_CACHE[jfa._block_cache_key(64, 64, 32, jdt)] = (32, 32)
-    tfa._BLOCK_CACHE[tfa._block_cache_key(64, 64, 32, tdt)] = \
+    tfa._BLOCK_CACHE[tfa._block_cache_key(64, 64, 32, tdt, "cpu")] = \
         tfa.FlashTiles.uniform((32, 32))
     jseen, tseen, bseen = [], [], []
     _spy(monkeypatch, jfa, "_fwd_call", jseen)
@@ -297,24 +299,46 @@ def test_autotune_on_the_card_times_each_kernel_alone(on_a_card_kind,
 def test_a_failing_candidate_raises(monkeypatch, platform):
     """No candidate failure turns into a loss: the timer's error leaves
     ``autotune_blocks`` and nothing is cached."""
+    device = "cpu"
     if platform == "card":
         monkeypatch.setattr(tfa, "_platform", lambda device=None: H100)
+        device = None
 
     def broken(*a, **k):
         raise RuntimeError("flash_attention_fwd launch failed")
 
     monkeypatch.setattr(tfa, "_time_blocks", broken)
     with pytest.raises(RuntimeError, match="launch failed"):
-        tfa.autotune_blocks(2048, 2048, 128, torch.bfloat16, measure=True)
-    assert tfa.get_tuned_blocks(2048, 2048, 128, torch.bfloat16) is None
+        tfa.autotune_blocks(2048, 2048, 128, torch.bfloat16, measure=True,
+                            device=device)
+    assert tfa.get_tuned_blocks(2048, 2048, 128, torch.bfloat16,
+                                device) is None
 
 
 def test_measuring_without_a_card_raises():
     with pytest.raises(RuntimeError, match="CUDA kernel"):
-        tfa.autotune_blocks(128, 128, 32, torch.float32, measure=True)
+        tfa.autotune_blocks(128, 128, 32, torch.float32, measure=True,
+                            device="cpu")
     with pytest.raises(RuntimeError, match="CUDA kernel"):
         tfa._time_blocks(128, 128, 128, torch.bfloat16, 128, 128,
                          kernel="fwd", device="cpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tfa._device(),
+    lambda: tfa._platform(),
+    lambda: tfa.kernels_supported(),
+    lambda: tfa.get_tuned_blocks(64, 64, 32, torch.float32),
+    lambda: tfa.autotune_blocks(64, 64, 32, torch.float32),
+], ids=["_device", "_platform", "kernels_supported", "get_tuned_blocks",
+        "autotune_blocks"])
+def test_no_device_without_a_card_raises(call):
+    """device None is the card: without one it raises with
+    ``resolve_device``'s message (it returned the CPU before, and
+    ``autotune_blocks`` then cached the CPU's pick); nothing is cached."""
+    with pytest.raises(RuntimeError, match="is False; pass device='cpu'"):
+        call()
+    assert not tfa._BLOCK_CACHE
 
 
 def test_an_unbuilt_tile_raises_before_any_launch():
@@ -364,7 +388,7 @@ def test_llama_flash_path_reads_the_cache(monkeypatch):
     with torch.no_grad():
         plain = tllama.forward(params, tokens, cfg)
         tfa._BLOCK_CACHE[tfa._block_cache_key(
-            32, 32, cfg.head_dim, torch.float32)] = \
+            32, 32, cfg.head_dim, torch.float32, "cpu")] = \
             tfa.FlashTiles.uniform((16, 8))
         tuned = tllama.forward(params, tokens, cfg)
     assert seen == [(32, 32)] * 2 + [(16, 8)] * 2
@@ -375,7 +399,8 @@ def test_flash_attention_sharded_reads_the_cache(monkeypatch):
     seen = []
     _spy(monkeypatch, tfa, "_fwd_reference", seen)
     q = torch.zeros(2, 64, 2, 16)
-    tfa._BLOCK_CACHE[tfa._block_cache_key(64, 64, 16, torch.float32)] = \
+    tfa._BLOCK_CACHE[tfa._block_cache_key(64, 64, 16, torch.float32,
+                                          "cpu")] = \
         tfa.FlashTiles.uniform((16, 32))
     tfa.flash_attention_sharded(q, q, q, None)
     assert seen == [(16, 32)]
@@ -387,7 +412,8 @@ def test_fused_blocks_read_the_cache(monkeypatch):
     without one, the divisor heuristic of interpret mode."""
     assert tring.fused_blocks(24, 48, 16, torch.float32, "cpu") == (8, 16)
     planted = tfa.FlashTiles.uniform((8, 12))
-    tfa._BLOCK_CACHE[tfa._block_cache_key(24, 48, 16, torch.float32)] = \
+    tfa._BLOCK_CACHE[tfa._block_cache_key(24, 48, 16, torch.float32,
+                                          "cpu")] = \
         planted
     assert tring.fused_blocks(24, 48, 16, torch.float32, "cpu") is planted
     seen = []

@@ -1,7 +1,11 @@
 """The port's local-mode runtime against ray_tpu's local mode.
 
 Each program runs through both packages, each ``init(local_mode=True)``ed
-in its own fixture, and the results must be equal. Blocking tasks wait on
+in its own fixture, and the results must be equal. Among them are the
+programs of ``tests/test_core_api.py``: an error through a dependency, an
+actor's method error that leaves it alive, actor handles passed to tasks,
+``.options()`` overrides, nested tasks and ``wait`` capping the ready refs
+at ``num_returns``. Blocking tasks wait on
 a ``threading.Event`` (local mode passes values by reference), so the
 ``wait`` and timeout cases are deterministic.
 """
@@ -237,10 +241,92 @@ def resources(rt):
     return rt.cluster_resources(), rt.available_resources(), rt.nodes()
 
 
+def error_through_dependency(rt):
+    @rt.remote
+    def boom():
+        raise RuntimeError("first failure")
+
+    @rt.remote
+    def identity(x):
+        return x
+
+    try:
+        rt.get(identity.remote(boom.remote()), timeout=60)
+    except rt.exceptions.TaskError as e:
+        return type(e).__name__, "first failure" in str(e)
+    return None
+
+
+def actor_error_keeps_actor(rt):
+    @rt.remote
+    class A:
+        def ok(self):
+            return "ok"
+
+        def fail(self):
+            raise RuntimeError("method error")
+
+    a = A.remote()
+    try:
+        rt.get(a.fail.remote(), timeout=60)
+        failed = None
+    except rt.exceptions.TaskError as e:
+        failed = type(e).__name__, "method error" in str(e)
+    return failed, rt.get(a.ok.remote(), timeout=60)
+
+
+def actor_handle_passing(rt):
+    @rt.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def incr(self):
+            self.n += 1
+            return self.n
+
+    @rt.remote
+    def bump(counter):
+        return rt.get(counter.incr.remote(), timeout=60)
+
+    c = Counter.remote()
+    return sorted(rt.get([bump.remote(c) for _ in range(5)], timeout=60))
+
+
+def options_override(rt):
+    @rt.remote
+    def f():
+        return "x"
+
+    return rt.get(f.options(name="custom", num_returns=1).remote(),
+                  timeout=60)
+
+
+def nested_tasks(rt):
+    @rt.remote
+    def inner(x):
+        return x * 2
+
+    @rt.remote
+    def outer(x):
+        return rt.get(inner.remote(x), timeout=60) + 1
+
+    return rt.get(outer.remote(10), timeout=60)
+
+
+def wait_caps_ready_at_num_returns(rt):
+    refs = [rt.put(i) for i in range(5)]
+    ready, pending = rt.wait(refs, num_returns=2, timeout=5)
+    return len(ready), len(pending), rt.get(ready, timeout=60)
+
+
 PROGRAMS = [tasks, ref_arguments, num_returns, actor_calls_in_order,
             method_num_returns, put_get, wait_with_num_returns_and_timeout,
             get_timeout, task_error, kill_then_call, named_actor,
-            runtime_env_vars, streaming, cancelled_task, resources]
+            runtime_env_vars, streaming, cancelled_task, resources,
+            error_through_dependency, actor_error_keeps_actor,
+            actor_handle_passing, options_override, nested_tasks,
+            wait_caps_ready_at_num_returns]
 
 
 @pytest.mark.parametrize("program", PROGRAMS, ids=lambda p: p.__name__)
