@@ -296,8 +296,19 @@ result line is printed):
      no cpu node, the server at 8B widths with 2 layers answers one
      request with a direct engine's tokens, and once the group is removed
      idle drain terminates the node (its record through TERMINATED, its
-     daemon gone). Boot, submit-to-SUCCEEDED, group ready, each CLI call,
-     scale-up and drain times printed.
+     daemon gone); 19f. the cloud provider: an ``Autoscaler`` (a head
+     node with no card) over ``GceGpuNodeProvider`` for a3-highgpu-1g,
+     whose Compute transport is a fake that runs each inserted
+     instance's own startup script with bash on card 0 (the stand-in VM)
+     and answers GETs from that process: a pending ``[{"GPU": 1,
+     "GPU-H100": 1}]`` bundle drives exactly one insert, the node
+     registers with the ``GPU-H100`` key it read from the card's name,
+     the 2-layer server in the bundle answers a direct engine's tokens
+     with the engine's ragged launches (added to the kernels' record),
+     and removing the group gives one DELETE of that instance, the
+     process gone, ``list_live()`` empty and the card's memory back.
+     Boot, submit-to-SUCCEEDED, group ready, each CLI call, scale-up,
+     insert-to-registration and drain times printed.
  20. several cards (each sub-phase logs a line that skips it when
      ``torch.cuda.device_count()`` is below what it needs; rank programs
      run through ``TorchTrainer(use_gpu=True)``, one leased worker and
@@ -5128,9 +5139,14 @@ def phase_tracker(programs, model_config=None, engine_config=None,
 OPS_NODE_CPUS = 4
 OPS_BUNDLE = {"GPU": 1, "CPU": 1}
 OPS_TELEMETRY = {"metrics_export_period_s": 1.0, "hw_sampler_period_s": 0.5}
-#: 19e's server: 8B widths at 2 layers
+#: 19e's and 19f's server: 8B widths at 2 layers
 OPS_AUTOSCALE_MODEL = dict(MAIN_MODEL, n_layers=2)
 OPS_AUTOSCALE_TOKENS = 16
+#: 19f: the A3 machine type the provider provisions, the bundle that
+#: names the card's model, and 19f's bound on its own time (s)
+OPS_GCE_MACHINE = "a3-highgpu-1g"
+OPS_GCE_BUNDLE = {"GPU": 1, "GPU-H100": 1}
+OPS_GCE_BUDGET_S = 40.0
 #: the CLI's readings (card memory, request records, log records) reach
 #: the head on the workers' next telemetry flush: poll at most this long
 OPS_POLL_S = 30.0
@@ -5213,14 +5229,23 @@ def daemon_config(values):
 
 def phase_operations(model_config=None, engine_config=None,
                      main_streams=None, autoscale_model=None,
-                     card="the CPU"):
-    """Phase 19: ``phase_ops_cluster`` (19a-d) then ``phase_autoscale``
-    (19e). -> their summaries, with the ragged launches of both."""
+                     card="the CPU", stand_in_path=()):
+    """Phase 19: ``phase_ops_cluster`` (19a-d), ``phase_autoscale`` (19e)
+    then ``phase_gce`` (19f; ``stand_in_path``: directories put first on
+    the stand-in VM's PATH). -> their summaries, with the ragged launches
+    of all three."""
     t_phase = time.monotonic()
     summary = phase_ops_cluster(model_config, engine_config, main_streams,
                                 card)
-    summary.update(phase_autoscale(autoscale_model, engine_config))
-    summary["launches"] = summary["job_launches"] + summary["scale_launches"]
+    autoscale_model = autoscale_model or OPS_AUTOSCALE_MODEL
+    engine_config = engine_config or MAIN_ENGINE
+    reference = autoscale_reference(autoscale_model, engine_config)
+    summary.update(phase_autoscale(autoscale_model, engine_config,
+                                   reference))
+    summary.update(phase_gce(autoscale_model, engine_config, reference,
+                             stand_in_path, card))
+    summary["launches"] = summary["job_launches"] \
+        + summary["scale_launches"] + summary["gce_launches"]
     log(f"phase 19: {time.monotonic() - t_phase:.1f} s")
     return summary
 
@@ -5461,21 +5486,9 @@ def phase_ops_cluster(model_config=None, engine_config=None,
     return summary
 
 
-def phase_autoscale(model_config=None, engine_config=None):
-    """19e. an ``AutoscalingCluster`` (a head node with no card, node
-    types cpu and h100) whose pending ``{"GPU": 1}`` bundle launches one
-    h100 node and no cpu node, where ``model_config``'s server answers as
-    a direct engine of that model does, and which drains once the group
-    is removed. -> a summary."""
-    import ray_tpu_torch as rt
-    from ray_tpu_torch import autoscaler as asc
-    from ray_tpu_torch.runtime import instance_manager as im
-    from ray_tpu_torch.util.placement_group import (placement_group,
-                                                    remove_placement_group)
-    model_config = model_config or OPS_AUTOSCALE_MODEL
-    engine_config = engine_config or MAIN_ENGINE
-    cuda = engine_config.get("device", "cuda") == "cuda"
-    summary = {}
+def autoscale_reference(model_config, engine_config):
+    """19e's and 19f's request and a direct engine's answer to it: ->
+    (prompt, tokens)."""
     here = MainServer(model_config, engine_config)
     try:
         prompt = _prompt(19, 40, here.srv.engine.cfg.vocab_size)
@@ -5483,8 +5496,25 @@ def phase_autoscale(model_config=None, engine_config=None):
     finally:
         here.srv.shutdown()
         del here
-    if cuda:
+    if engine_config.get("device", "cuda") == "cuda":
         free_card()
+    return prompt, want
+
+
+def phase_autoscale(model_config, engine_config, reference):
+    """19e. an ``AutoscalingCluster`` (a head node with no card, node
+    types cpu and h100) whose pending ``{"GPU": 1}`` bundle launches one
+    h100 node and no cpu node, where ``model_config``'s server answers
+    ``reference``'s prompt with its tokens (a direct engine's), and which
+    drains once the group is removed. -> a summary."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import autoscaler as asc
+    from ray_tpu_torch.runtime import instance_manager as im
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    cuda = engine_config.get("device", "cuda") == "cuda"
+    summary = {}
+    prompt, want = reference
     t0 = time.monotonic()
     with daemon_config(OPS_TELEMETRY):
         scaling = asc.AutoscalingCluster(
@@ -5559,6 +5589,254 @@ def phase_autoscale(model_config=None, engine_config=None):
     if node_pid is not None:
         wait_gone(node_pid, timeout=30)
     return summary
+
+
+class FakeCompute:
+    """19f's Compute Engine transport, answering in the API's own words.
+    An insert runs the instance's own ``startup-script`` with bash, as a
+    local process on card 0 (``CUDA_VISIBLE_DEVICES=0``): the stand-in
+    VM, whose ``python3`` is this interpreter and whose PATH starts with
+    ``path``. A GET of the instance answers PROVISIONING until its node
+    registers with the head, RUNNING after, TERMINATED once the process
+    has exited; a DELETE ends the process group and drops the instance;
+    a GET of the collection lists the instances."""
+
+    def __init__(self, head_addr, path=()):
+        import os
+        import tempfile
+        from ray_tpu_torch.runtime.protocol import RpcClient
+        self.requests = []      # (method, url, body, monotonic time)
+        self.instances = {}     # name -> {"proc", "labels", "log"}
+        self._head = RpcClient(head_addr, name="fake-compute")
+        self._dir = tempfile.TemporaryDirectory(prefix="phase19f-")
+        bin_dir = os.path.join(self._dir.name, "bin")
+        os.mkdir(bin_dir)
+        python3 = os.path.join(bin_dir, "python3")
+        with open(python3, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(python3, 0o755)
+        self._env = dict(
+            os.environ, CUDA_VISIBLE_DEVICES="0",
+            PATH=os.pathsep.join([bin_dir, *map(str, path),
+                                  os.environ.get("PATH", "")]),
+            PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get(
+                "PYTHONPATH", "")]))
+        self._lock = threading.Lock()   # the request log
+        self._api = threading.Lock()    # one request served at a time
+
+    def request(self, method, url, body=None):
+        with self._lock:
+            self.requests.append((method, url, body, time.monotonic()))
+        name = url.split("/instances", 1)[1].split("?")[0].lstrip("/")
+        with self._api:
+            if method == "POST":
+                return self._insert(body)
+            if method == "DELETE":
+                return self._delete(name)
+            if name:
+                return self._describe(name)
+            return {"items": [self._describe(n) for n in self.instances]}
+
+    def calls(self, method):
+        with self._lock:
+            return [r for r in self.requests if r[0] == method]
+
+    def _insert(self, body):
+        import os
+        name = body["name"]
+        script = next(i["value"] for i in body["metadata"]["items"]
+                      if i["key"] == "startup-script")
+        path = os.path.join(self._dir.name, f"{name}.sh")
+        with open(path, "w") as f:
+            f.write(script)
+        log_path = os.path.join(self._dir.name, f"{name}.log")
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen(
+                ["bash", path], env=self._env, cwd=self._dir.name,
+                stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        self.instances[name] = {"proc": proc, "labels": body["labels"],
+                                "log": log_path}
+        return {"kind": "compute#operation", "status": "RUNNING"}
+
+    def _describe(self, name):
+        inst = self.instances[name]   # KeyError: the API's 404
+        if inst["proc"].poll() is not None:
+            status = "TERMINATED"
+        elif any(n["alive"] and n["node_id"] == inst["labels"][
+                "rtpt-node-id"] for n in self._head.call("list_nodes",
+                                                          timeout=5)):
+            status = "RUNNING"
+        else:
+            status = "PROVISIONING"
+        return {"name": name, "status": status, "labels": inst["labels"]}
+
+    def _delete(self, name):
+        import os
+        import signal
+        proc = self.instances.pop(name)["proc"]
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+            proc.wait(timeout=15)
+        except ProcessLookupError:
+            pass
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=15)
+        return {"kind": "compute#operation", "status": "RUNNING"}
+
+    def log_tail(self, name, n=4000):
+        with open(self.instances[name]["log"]) as f:
+            return f.read()[-n:]
+
+    def close(self):
+        with self._api:
+            for name in list(self.instances):
+                self._delete(name)
+        self._head.close()
+        self._dir.cleanup()
+
+
+def phase_gce(model_config, engine_config, reference, stand_in_path=(),
+              card="the CPU"):
+    """19f. the cloud provider on the card's host: an ``Autoscaler`` (a
+    head node with no card) over ``GceGpuNodeProvider`` for
+    ``OPS_GCE_MACHINE`` through ``FakeCompute``. A pending
+    ``OPS_GCE_BUNDLE`` drives exactly one insert; the stand-in VM's
+    daemon registers under the handle's node id with the ``GPU-H100`` key
+    it detected; ``model_config``'s server placed in the bundle answers
+    ``reference``'s prompt with its tokens; removing the group gives one
+    DELETE of that instance, the process gone, ``list_live()`` empty and
+    the card's memory back. -> a summary."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.providers.gce_gpu import GceGpuNodeProvider
+    from ray_tpu_torch.runtime import instance_manager as im
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    cuda = engine_config.get("device", "cuda") == "cuda"
+    prompt, want = reference
+    t_phase = time.monotonic()
+    if cuda:
+        free_card()
+        free_before, total = torch.cuda.mem_get_info()
+    cluster = Cluster()
+    cluster.add_node(num_cpus=2)
+    cluster.wait_for_nodes(1)
+    fake = FakeCompute(cluster.address, stand_in_path)
+    provider = GceGpuNodeProvider(
+        project="phase19f", zone="us-central1-a",
+        machine_type=OPS_GCE_MACHINE,
+        image="projects/phase19f/global/images/h100-cuda-ray-tpu-torch",
+        head_addr=cluster.address, session=cluster.session, http=fake)
+    # the daemon registers this host's CPUs (its resources are null)
+    shape = GceGpuNodeProvider.node_type(OPS_GCE_MACHINE,
+                                         cpus=float(os.cpu_count() or 1))
+    scaler = Autoscaler(cluster.address, provider, node_type=shape,
+                        max_workers=1, idle_timeout_s=2.0,
+                        poll_period_s=0.25).start()
+    name = None
+    try:
+        rt.init(address=cluster.address,
+                _system_config={"infeasible_grace_s": 300.0})
+        assert rt.cluster_resources().get("GPU", 0.0) == 0.0
+        t0 = time.monotonic()
+        pg = placement_group([dict(OPS_GCE_BUNDLE)],
+                             strategy="STRICT_PACK")
+        (insert,), _ = poll("the insert", lambda: fake.calls("POST"))
+        name = insert[2]["name"]
+        ((_, handle),), _ = poll("the launch's handle",
+                                 lambda: scaler._handles)
+        node_id = handle.rtpu_node_id
+        assert name == provider._name_for(node_id), (name, node_id)
+
+        def registered():
+            return [n for n in rt.nodes()
+                    if n["Alive"] and n["NodeID"] == node_id]
+        try:
+            (node,), _ = poll("the stand-in VM's registration", registered,
+                              timeout=120, period=0.05)
+        except AssertionError:
+            log(f"19f: the stand-in VM's output:\n{fake.log_tail(name)}")
+            raise
+        up_s = time.monotonic() - insert[3]
+        assert node["Resources"].get("GPU") == 1.0, node["Resources"]
+        assert node["Resources"].get("GPU-H100") == 1.0, node["Resources"]
+        pg.ready(120)
+        ready_s = time.monotonic() - t0
+        assert pg.bundle_node(0) == node_id
+        (rec,), _ = poll("the record's adoption",
+                         lambda: scaler.im.records(im.RUNNING))
+        assert rec.node_id == node_id
+        server = rt.remote(num_gpus=1)(MainServer)
+        a = server.options(placement_group=pg,
+                           placement_group_bundle_index=0).remote(
+            model_config, engine_config)
+        where = rt.get(a.where.remote(), timeout=600)
+        got = rt.get(a.one.remote(prompt, OPS_AUTOSCALE_TOKENS),
+                     timeout=600)
+        launches, expected, _ = rt.get(a.counts.remote(), timeout=60)
+        assert where["visible"] == "0", where
+        assert got == want, (got, want)
+        if cuda:
+            assert launches["ragged_paged_attention"] == expected, \
+                (launches, expected)
+        assert launches["ragged_paged_attention_reference_cuda"] == 0
+        assert len(fake.calls("POST")) == 1, fake.calls("POST")
+        proc = fake.instances[name]["proc"]
+
+        t0 = time.monotonic()
+        remove_placement_group(pg)
+        _, drain_s = poll("the A3 node's drain", lambda: all(
+            r.state == im.TERMINATED for r in scaler.im.records()),
+            timeout=60)
+        gone_s = wait_gone(proc.pid, timeout=30)
+        deletes = fake.calls("DELETE")
+        assert [d[1] for d in deletes] == [handle.name], deletes
+        assert handle.name.endswith(f"/instances/{name}")
+        assert provider.list_live() == {}
+        assert len(fake.calls("POST")) == 1, fake.calls("POST")
+        records = [[s for s, _ in r.history] for r in scaler.im.records()]
+        assert records == [[im.REQUESTED, im.ALLOCATED, im.RUNNING,
+                            im.DRAINING, im.TERMINATED]], records
+        if cuda:
+            wait_gone(where["pid"], timeout=30)
+            free_card()
+            free_after, _ = torch.cuda.mem_get_info()
+            assert free_after >= free_before - MEMORY_RETURN_SLACK, \
+                (free_before, free_after)
+            memory = (f"free device memory {free_before} bytes at the "
+                      f"phase's start, {free_after} after (of {total})")
+        else:
+            memory = "no card"
+        phase_s = time.monotonic() - t_phase
+        log(f"19f: GceGpuNodeProvider ({OPS_GCE_MACHINE}) over a fake "
+            f"Compute API: a pending {OPS_GCE_BUNDLE} bundle drove 1 insert "
+            f"({name}); the stand-in VM (its startup script under bash) "
+            f"registered {up_s:.2f} s after the insert with "
+            f"{ {k: v for k, v in node['Resources'].items() if k.startswith('GPU')} }"
+            f", the group ready {ready_s:.2f} s after the demand; the "
+            f"server at {model_config} answered {len(got)} tokens equal "
+            f"to a direct engine's (worker pid {where['pid']}, process "
+            f"start to __init__ {where['t_enter'] - where['t_start']:.2f} "
+            f"s, built in {where['build_s']:.2f} s), ragged launches "
+            f"{launches['ragged_paged_attention']} of {expected}; the "
+            f"group removed -> drained and TERMINATED in {drain_s:.2f} s "
+            f"with 1 DELETE, the VM's process gone {gone_s:.2f} s later, "
+            f"list_live() empty; {memory}; 19f {phase_s:.1f} s; {card}")
+        if cuda:
+            assert phase_s <= OPS_GCE_BUDGET_S, (phase_s, OPS_GCE_BUDGET_S)
+        return {"gce_up_s": up_s, "gce_ready_s": ready_s,
+                "gce_drain_s": drain_s, "gce_s": phase_s,
+                "gce_launches": launches["ragged_paged_attention"]}
+    finally:
+        rt.shutdown()
+        scaler.stop()
+        fake.close()
+        cluster.shutdown()
 
 
 # -------------------------------------------- phase 20: several cards

@@ -6,11 +6,14 @@ tpu.py``), and role-equivalent to the reference's NVIDIA GPU manager
 ``CUDA_VISIBLE_DEVICES`` detection and the visibility env a leased worker
 gets):
 
- - a node advertises ``GPU`` (its card count);
+ - a node advertises ``GPU`` (its card count) and, where it detected its
+   cards, ``GPU-<model>`` beside it (``GPU-H100`` for "NVIDIA H100 80GB
+   HBM3"), the counterpart of ``TPU-{version}``: a bundle or a node type
+   can then name the card model;
  - a ``num_gpus=n`` lease gets a dedicated worker spawned with
    ``CUDA_VISIBLE_DEVICES`` naming only its cards, so a worker sees, and
    makes its context on, its own cards alone;
- - detection reads the environment, ``nvidia-smi -L`` or the driver's
+ - detection reads the environment, ``nvidia-smi`` or the NVIDIA driver's
    procfs entries: it never imports torch and never creates a CUDA
    context, since the daemons that detect own no card and a context costs
    device memory on every card it touches (the TPU probe stays env-only
@@ -23,6 +26,7 @@ node's total is valid.
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 from typing import Dict, List, Optional
 
@@ -30,6 +34,10 @@ CUDA_VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
 
 #: the NVIDIA driver's per-card procfs entries
 _PROC_GPUS = "/proc/driver/nvidia/gpus"
+
+#: a card's model: the first word after the vendor's in its name
+#: ("NVIDIA H100 80GB HBM3" -> H100, "NVIDIA A100-SXM4-80GB" -> A100)
+_MODEL = re.compile(r"^\S+\s+([A-Za-z0-9]+)")
 
 
 class GPUAcceleratorManager:
@@ -80,12 +88,47 @@ class GPUAcceleratorManager:
     # ------------------------------------------------------------- resources
 
     @staticmethod
+    def model_counts() -> Dict[str, int]:
+        """model -> count over the cards this process may use, from
+        ``nvidia-smi --query-gpu=name`` for the ids ``CUDA_VISIBLE_DEVICES``
+        names (every card without it). Empty when nvidia-smi is missing
+        or fails, or no card is visible."""
+        cmd = ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"]
+        visible = os.environ.get(CUDA_VISIBLE_DEVICES_ENV)
+        if visible is not None:
+            ids = GPUAcceleratorManager.parse_visible(visible)
+            if not ids:
+                return {}
+            cmd += ["-i", ",".join(ids)]
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=30)
+        except (OSError, subprocess.SubprocessError):
+            return {}
+        if out.returncode != 0:
+            return {}
+        counts: Dict[str, int] = {}
+        for line in out.stdout.splitlines():
+            m = _MODEL.match(line.strip())
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+        return counts
+
+    @staticmethod
     def node_resources(num_gpus: Optional[int] = None) -> Dict[str, float]:
         """Resources a node advertises: ``{"GPU": n}``, or nothing without
-        a card."""
-        if num_gpus is None:
-            num_gpus = GPUAcceleratorManager.detect()
-        return {"GPU": float(num_gpus)} if num_gpus > 0 else {}
+        a card. A node that detects its cards (``num_gpus`` None) also
+        advertises ``GPU-<model>`` for each model among them; a count
+        named by the caller gives ``{"GPU": n}`` alone."""
+        if num_gpus is not None:
+            return {"GPU": float(num_gpus)} if num_gpus > 0 else {}
+        num_gpus = GPUAcceleratorManager.detect()
+        if num_gpus <= 0:
+            return {}
+        res = {"GPU": float(num_gpus)}
+        for model, n in GPUAcceleratorManager.model_counts().items():
+            res[f"GPU-{model}"] = float(n)
+        return res
 
     @staticmethod
     def validate_device_request(n: float, total: int) -> None:

@@ -25,14 +25,17 @@ provider's own live-handle ledger, leaking nothing.
 reference's fake_multi_node provider trick (SURVEY §4 item 3) promoted to
 the first-class test/dev provider; its append-only ledger file is the
 durable record of which pids it owns, and the default provider of every
-node type.
+node type. The cloud provider is
+``ray_tpu_torch.providers.gce_gpu.GceGpuNodeProvider``: one Compute
+Engine A3 (H100) VM per node through the GCE REST API (HTTP transport
+injectable: tests exercise it against a fake), used through
+``NodeTypeSpec(provider=...)`` or ``Autoscaler(provider)``.
 
-The port of ``ray_tpu/autoscaler.py``. A launched node advertises the
-cards its type names and none otherwise (``"GPU"`` is always passed to
-the daemon, which would count the machine's cards itself): on a one-card
-machine, a CPU node type must not advertise the card a GPU node type
-holds. The JAX package's cloud provider (TPU VMs through Google's API)
-has no counterpart here.
+The port of ``ray_tpu/autoscaler.py``. A node ``LocalNodeProvider``
+launches advertises the cards its type names and none otherwise
+(``"GPU"`` is always passed to the daemon, which would count the
+machine's cards itself): on a one-card machine, a CPU node type must not
+advertise the card a GPU node type holds.
 """
 
 from __future__ import annotations

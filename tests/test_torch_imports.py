@@ -31,7 +31,8 @@ OPERATIONS_MODULES = (
     "ray_tpu_torch.scripts", "ray_tpu_torch.scripts.cli",
     "ray_tpu_torch.__main__", "ray_tpu_torch.util.actor_pool",
     "ray_tpu_torch.util.queue", "ray_tpu_torch.util.multiprocessing",
-    "ray_tpu_torch.util.joblib_backend", "ray_tpu_torch.util.collective")
+    "ray_tpu_torch.util.joblib_backend", "ray_tpu_torch.util.collective",
+    "ray_tpu_torch.providers", "ray_tpu_torch.providers.gce_gpu")
 SERVE_MODULES = ("batching", "controller", "grpc_proxy", "multiplex",
                  "proxy", "replica", "router", "schema")
 
